@@ -1,0 +1,321 @@
+"""Core abstractions of the feature layer.
+
+Same public surface as the JAX package's ``features/base.py`` (FeatureSet /
+BaseFeatureExtractor / BaseDatasetLoader / BatchedAudioExtractor). The
+batched audio path decodes on a host thread pool while the previous chunk
+runs on one device, in fixed-shape (batch_size, n) chunks.
+"""
+
+from __future__ import annotations
+
+import logging
+from abc import ABC, abstractmethod
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class FeatureSet:
+    """Uniform feature container (labels None => unsupervised; -1 =>
+    unlabelled in semi-supervised sets), field-compatible with the JAX
+    package's container and its on-disk directory format."""
+
+    features: np.ndarray  # (N, *feature_dims)
+    feature_type: str  # "classical" | "deep"
+    modality: str  # "audio" | "image" | "text" | "tabular" | "video"
+    metadata: list[dict]
+    labels: Optional[np.ndarray] = None
+    label_names: Optional[list[str]] = None
+    cluster_assignments: Optional[np.ndarray] = None
+
+    @property
+    def n_samples(self) -> int:
+        return len(self.features)
+
+    @property
+    def feature_shape(self) -> tuple:
+        return self.features.shape[1:]
+
+    @property
+    def is_supervised(self) -> bool:
+        return self.labels is not None
+
+    @property
+    def n_classes(self) -> Optional[int]:
+        if self.label_names is not None:
+            return len(self.label_names)
+        if self.labels is not None:
+            return int(self.labels.max()) + 1
+        return None
+
+    def to_sklearn(self) -> tuple[np.ndarray, Optional[np.ndarray]]:
+        """(X, y): ground-truth labels, else cluster assignments, else None."""
+        if self.labels is not None:
+            return self.features, self.labels
+        if self.cluster_assignments is not None:
+            return self.features, self.cluster_assignments
+        return self.features, None
+
+    def to_torch(self, device: torch.device | str) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Tensors (features f32, labels int32 | None) on ``device``."""
+        x = torch.as_tensor(self.features, dtype=torch.float32).to(device)
+        y = None if self.labels is None else torch.as_tensor(self.labels, dtype=torch.int32).to(device)
+        return x, y
+
+    def __repr__(self) -> str:
+        label_info = f"labels={self.n_classes} classes" if self.is_supervised else "unsupervised"
+        return (
+            f"FeatureSet(modality={self.modality!r}, feature_type={self.feature_type!r}, "
+            f"n_samples={self.n_samples}, feature_shape={self.feature_shape}, {label_info})"
+        )
+
+
+class BaseDatasetLoader(ABC):
+    """Iterating yields (sample_path | None, label | None, metadata dict)."""
+
+    @abstractmethod
+    def __iter__(self) -> Iterator[tuple[Optional[Path], Optional[str], dict]]: ...
+
+    @abstractmethod
+    def __len__(self) -> int: ...
+
+
+def _collect(
+    all_features: list[np.ndarray],
+    all_labels: list[int],
+    all_meta: list[dict],
+    label_to_idx: dict[str, int],
+    feature_type: str,
+    modality: str,
+) -> FeatureSet:
+    if not all_features:
+        raise RuntimeError("No features were successfully extracted.")
+    features = np.stack(all_features)
+    if all_labels and len(all_labels) != len(all_features):
+        # a partially-labelled dataset would silently shift every label
+        # after the first unlabelled sample onto the wrong row
+        raise ValueError(
+            f"{len(all_labels)} label(s) for {len(all_features)} samples — "
+            "the dataset mixes labelled and unlabelled items; label all "
+            "samples or none."
+        )
+    labels = np.array(all_labels, dtype=np.int32) if all_labels else None
+    label_names = (
+        [k for k, _ in sorted(label_to_idx.items(), key=lambda kv: kv[1])] if label_to_idx else None
+    )
+    return FeatureSet(
+        features=features,
+        feature_type=feature_type,
+        modality=modality,
+        metadata=all_meta,
+        labels=labels,
+        label_names=label_names,
+    )
+
+
+def _overlap_device(chunks, process):
+    """Depth-1 software pipeline: yield ``(chunk, process(chunk))`` in
+    order, running ``process`` (pack + device dispatch + blocking fetch) on
+    a single-slot device thread. Advancing ``chunks`` — where the caller
+    decodes — happens while the previous chunk computes, so host decode
+    overlaps device work with at most ONE chunk in flight."""
+    with ThreadPoolExecutor(max_workers=1) as device_thread:
+        pending = None
+        for good in chunks:
+            fut = device_thread.submit(process, good)
+            if pending is not None:
+                yield pending[1], pending[0].result()
+            pending = (fut, good)
+        if pending is not None:
+            yield pending[1], pending[0].result()
+
+
+class BaseFeatureExtractor(ABC):
+    """Extractor ABC. Subclasses set ``name`` / ``feature_type`` /
+    ``modality`` and implement ``extract``. ``extract_dataset`` is the
+    skip-and-continue loop with first-occurrence label interning."""
+
+    name: str
+    feature_type: str
+    modality: str
+
+    @abstractmethod
+    def extract(self, sample_path: Optional[Path], **kwargs) -> np.ndarray: ...
+
+    def extract_dataset(self, loader: BaseDatasetLoader, max_samples: Optional[int] = None) -> FeatureSet:
+        all_features: list[np.ndarray] = []
+        all_labels: list[int] = []
+        all_meta: list[dict] = []
+        label_to_idx: dict[str, int] = {}
+        for i, (sample_path, label, meta) in enumerate(loader):
+            if max_samples is not None and i >= max_samples:
+                break
+            try:
+                feat = self.extract(sample_path, **meta)
+            except Exception as exc:
+                logger.warning("Skipping %s: %s", sample_path, exc)
+                continue
+            all_features.append(np.asarray(feat))
+            all_meta.append(meta)
+            if label is not None:
+                if label not in label_to_idx:
+                    label_to_idx[label] = len(label_to_idx)
+                all_labels.append(label_to_idx[label])
+        return _collect(all_features, all_labels, all_meta, label_to_idx, self.feature_type, self.modality)
+
+
+class BatchedAudioExtractor(BaseFeatureExtractor):
+    """Audio extractor with a batched device path on one device.
+
+    Subclasses set ``self.device`` and implement:
+      - ``target_samples()`` -> int | None  (fixed clip length, or None)
+      - ``min_samples()`` -> int            (zero-pad floor per clip)
+      - ``batch_feature(waves (B, n) f32, lengths (B,) int64 | None)`` ->
+        (B, ...) tensor, both on ``self.device``; when lengths is not None
+        the padded region must be masked out of per-clip reductions
+      - ``frames_for(n_samples)`` -> per-clip time size (for trimming), or
+        None for non-framed outputs
+
+    ``extract_dataset`` pipelines host WAV decode + resample on a thread
+    pool while the previous batch runs on the device.
+    """
+
+    modality = "audio"
+    sample_rate: int
+    device: torch.device
+    duration: Optional[float] = None
+    batch_size: int = 256
+    decode_workers: int = 8
+
+    # -- subclass hooks -------------------------------------------------
+    def target_samples(self) -> Optional[int]:
+        if self.duration is None:
+            return None
+        return int(self.duration * self.sample_rate)
+
+    def min_samples(self) -> int:
+        return 1
+
+    def frames_for(self, n_samples: int) -> Optional[int]:
+        return None
+
+    def batch_feature(self, waves: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:  # pragma: no cover
+        raise NotImplementedError
+
+    # -- single-sample API ----------------------------------------------
+    def _load_clip(self, sample_path, start_time=None, end_time=None, min_duration: float = 0.1):
+        from ..data.audio_io import load_audio
+
+        offset = float(start_time) if start_time is not None else 0.0
+        duration = None
+        if end_time is not None:
+            duration = max(float(end_time) - offset, min_duration)
+        y, _ = load_audio(sample_path, sr=self.sample_rate, offset=offset, duration=duration)
+        tgt = self.target_samples()
+        if tgt is not None:
+            y = y[:tgt] if len(y) >= tgt else np.pad(y, (0, tgt - len(y)))
+        if len(y) < self.min_samples():
+            y = np.pad(y, (0, self.min_samples() - len(y)))
+        return y
+
+    def extract(self, sample_path, start_time=None, end_time=None, **_kw) -> np.ndarray:
+        y = self._load_clip(sample_path, start_time, end_time)
+        return self._device_batch(y[None, :], None)[0].astype(np.float32)
+
+    # -- batched dataset path -------------------------------------------
+    def _device_batch(self, waves: np.ndarray, lengths: Optional[np.ndarray]) -> np.ndarray:
+        """Copy one host batch to the device, run batch_feature, fetch."""
+        waves_d = torch.from_numpy(np.ascontiguousarray(waves, dtype=np.float32)).to(self.device)
+        lengths_d = None if lengths is None else torch.from_numpy(np.asarray(lengths, np.int64)).to(self.device)
+        with torch.inference_mode():
+            return self.batch_feature(waves_d, lengths_d).cpu().numpy()
+
+    def _pad_bucket(self, n: int) -> int:
+        """Round variable lengths up to 1 s steps to bound the shape count."""
+        step = self.sample_rate
+        return int(-(-n // step) * step)
+
+    def extract_dataset(self, loader: BaseDatasetLoader, max_samples: Optional[int] = None) -> FeatureSet:
+        samples = []
+        for i, item in enumerate(loader):
+            if max_samples is not None and i >= max_samples:
+                break
+            samples.append(item)
+
+        all_features: list[np.ndarray] = []
+        all_labels: list[int] = []
+        all_meta: list[dict] = []
+        label_to_idx: dict[str, int] = {}
+        tgt = self.target_samples()
+
+        def decode(item):
+            path, label, meta = item
+            try:
+                y = self._load_clip(path, meta.get("start_time"), meta.get("end_time"))
+                return y, label, meta, None
+            except Exception as exc:  # skip-and-continue
+                return None, label, meta, (path, exc)
+
+        def process(good):
+            """Pack + device dispatch + fetch for one decoded chunk; runs on
+            the single-slot device thread so the main thread can decode the
+            next chunk while this one computes."""
+            if tgt is not None:
+                # fixed (batch_size, tgt) shape for every chunk (short final
+                # chunks are zero-row-padded): one shape per extractor config
+                rows = len(good)
+                waves = np.zeros((self.batch_size, tgt), np.float32)
+                for j, (y, _, _) in enumerate(good):
+                    waves[j, : len(y)] = y[:tgt]
+                feats = self._device_batch(waves, None).astype(np.float32)[:rows]
+                return list(feats)
+            # rows fixed at batch_size; pad rows carry a FULL-length mask
+            # over all-zero audio and are sliced away below. Sample dim
+            # bucketed to 1 s steps
+            max_n = self._pad_bucket(max(len(y) for y, _, _ in good))
+            waves = np.zeros((self.batch_size, max_n), np.float32)
+            lens = np.full(self.batch_size, max_n, np.int64)
+            for j, (y, _, _) in enumerate(good):
+                waves[j, : len(y)] = y
+                lens[j] = len(y)
+            feats = self._device_batch(waves, lens).astype(np.float32)
+            feat_per_item = []
+            for j in range(len(good)):
+                f = feats[j]
+                t = self.frames_for(int(lens[j]))
+                if t is not None:
+                    f = f[..., :t]
+                elif f.ndim == 1 and f.shape[0] == waves.shape[1]:
+                    f = f[: int(lens[j])]  # waveform features
+                feat_per_item.append(f)
+            return feat_per_item
+
+        with ThreadPoolExecutor(max_workers=self.decode_workers) as pool:
+
+            def chunks():
+                for start in range(0, len(samples), self.batch_size):
+                    decoded = list(pool.map(decode, samples[start : start + self.batch_size]))
+                    for y, l, m, err in decoded:
+                        if err is not None:
+                            logger.warning("Skipping %s: %s", err[0], err[1])
+                    good = [(y, l, m) for y, l, m, err in decoded if y is not None]
+                    if good:
+                        yield good
+
+            for good, feat_per_item in _overlap_device(chunks(), process):
+                for feat, (_, label, meta) in zip(feat_per_item, good):
+                    all_features.append(np.ascontiguousarray(feat))
+                    all_meta.append(meta)
+                    if label is not None:
+                        if label not in label_to_idx:
+                            label_to_idx[label] = len(label_to_idx)
+                        all_labels.append(label_to_idx[label])
+
+        return _collect(all_features, all_labels, all_meta, label_to_idx, self.feature_type, self.modality)

@@ -1,0 +1,51 @@
+"""Extractor registry: @register class decorator + name lookup.
+
+Contract of the JAX package's ``features/registry.py`` (duplicate-name guard,
+KeyError with available names on unknown lookup). A name the JAX package
+registers but the port does not yet have raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Type
+
+_REGISTRY: dict[str, type] = {}
+
+# extractors of the JAX package that are still to be ported
+NOT_YET_PORTED = frozenset({
+    "audio_waveform", "audio_cqt", "audio_mfcc_seq", "audio_classical",
+    "image_classical", "image_pixels", "image_mobilenet_v2",
+    "tabular_classical", "tabular_polynomial",
+    "text_tfidf", "text_bow", "text_char_ngram", "text_sentence_embed", "text_bert_tokens",
+    "video_classical", "video_frame_seq", "video_mobilenet_v2_seq",
+})
+
+
+def register(cls: Type) -> Type:
+    """Class decorator: register an extractor under its ``name`` attribute."""
+    name = getattr(cls, "name", None)
+    if not name:
+        raise ValueError(f"{cls.__name__} must define a class-level 'name'.")
+    if name in _REGISTRY and _REGISTRY[name] is not cls:
+        raise ValueError(f"Duplicate extractor name: {name!r} ({cls.__name__} vs {_REGISTRY[name].__name__}).")
+    _REGISTRY[name] = cls
+    return cls
+
+
+def get(name: str) -> type:
+    """Look up an extractor class by registered name."""
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        if name in NOT_YET_PORTED:
+            raise NotImplementedError(
+                f"extractor {name!r} is not yet ported to audio_edge_ml_pipeline_torch "
+                f"(ported: {sorted(_REGISTRY)}); use audio_edge_ml_pipeline_tpu for it."
+            ) from None
+        raise KeyError(
+            f"Unknown extractor: {name!r}. Available: {sorted(_REGISTRY)}"
+        ) from None
+
+
+def list_extractors() -> list[str]:
+    return sorted(_REGISTRY)

@@ -1,0 +1,51 @@
+"""Trainer registry (contract of the JAX package's ``models/registry.py``).
+
+A trainer name the JAX package registers but the port does not yet have
+raises NotImplementedError."""
+
+from __future__ import annotations
+
+import logging
+from typing import Type
+
+from .base import BaseTrainer
+
+logger = logging.getLogger(__name__)
+
+_REGISTRY: dict[str, Type[BaseTrainer]] = {}
+
+# trainers of the JAX package that are still to be ported
+NOT_YET_PORTED = frozenset({
+    "mlp", "ds_cnn", "rnn", "transformer", "efficientnet_teacher", "distillation_cnn",
+    "svm", "lda", "pca_svm", "pca_lda", "pca_knn", "knn", "kmeans", "random_forest", "decision_tree",
+})
+
+
+def register_model(cls: Type[BaseTrainer]) -> Type[BaseTrainer]:
+    if not issubclass(cls, BaseTrainer):
+        raise TypeError(f"@register_model expects a BaseTrainer subclass, got {cls!r}")
+    if not hasattr(cls, "name") or not isinstance(cls.name, str):
+        raise AttributeError(f"{cls!r} must define a 'name' class attribute (str)")
+    if cls.name in _REGISTRY:
+        if _REGISTRY[cls.name] is not cls:
+            raise ValueError(f"Trainer name {cls.name!r} is already registered by {_REGISTRY[cls.name]!r}.")
+        return cls
+    _REGISTRY[cls.name] = cls
+    logger.debug("Registered model trainer: %s (%s)", cls.name, cls.__name__)
+    return cls
+
+
+def get_model(name: str) -> Type[BaseTrainer]:
+    if name not in _REGISTRY:
+        if name in NOT_YET_PORTED:
+            raise NotImplementedError(
+                f"trainer {name!r} is not yet ported to audio_edge_ml_pipeline_torch "
+                f"(ported: {', '.join(sorted(_REGISTRY))}); use audio_edge_ml_pipeline_tpu for it."
+            )
+        available = ", ".join(sorted(_REGISTRY))
+        raise KeyError(f"No trainer registered under {name!r}. Available: {available or '(none)'}")
+    return _REGISTRY[name]
+
+
+def list_models() -> list[str]:
+    return sorted(_REGISTRY)

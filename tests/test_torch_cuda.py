@@ -1,0 +1,59 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions.
+
+These need an NVIDIA card and skip without one: a CUDA kernel has no CPU
+mode. This file imports neither jax nor the JAX package, so it also runs
+where only the port is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from audio_edge_ml_pipeline_torch.ops import golden, mel_kernel
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's GEMMs in full float32
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n", [(4, 80000), (1, 32000), (3, 16077), (2, 600)])
+def test_mel_folded_matches_plain_version(cuda_device, batch, n):
+    rng = np.random.default_rng(batch * 100003 + n)
+    y = torch.from_numpy((0.3 * rng.standard_normal((batch, n))).astype(np.float32)).to(cuda_device)
+    before = mel_kernel.counter.launches
+    out = mel_kernel.mel_power_folded(y)
+    torch.cuda.synchronize()
+    assert mel_kernel.counter.launches == before + 1
+    assert out.shape == (batch, 1 + n // 160, 40) and out.is_contiguous()
+    plain = mel_kernel.mel_power_folded_plain(y)
+    scale = plain.abs().amax(dim=(1, 2), keepdim=True)
+    # float32 sums in another order: ~1e-7 of each clip's peak power
+    assert float(((out - plain).abs() / scale).max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_mel_feature_on_the_card_meets_the_golden_gate(cuda_device):
+    rng = np.random.default_rng(5)
+    t = np.arange(80000) / 16000
+    y = (0.4 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.standard_normal(80000)).astype(np.float32)
+    lengths = torch.tensor([80000, 30001], device=cuda_device)
+    batch = np.stack([y, np.r_[y[:30001], np.zeros(80000 - 30001, np.float32)]])
+    feat = mel_kernel.mel_spec_feature(torch.from_numpy(batch).to(cuda_device), lengths=lengths).cpu().numpy()
+    assert np.max(np.abs(feat[0] - golden.mel_spec_feature(y))) <= 1e-5
+    assert np.max(np.abs(feat[1, :, : 1 + 30001 // 160] - golden.mel_spec_feature(y[:30001]))) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_wrapper_raises_instead_of_falling_back(cuda_device):
+    y = torch.zeros((2, 4000), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(TypeError):
+        mel_kernel.mel_power_folded(y)
+    with pytest.raises(ValueError):
+        mel_kernel.mel_power_folded(torch.zeros((4000, 2), device=cuda_device).T)

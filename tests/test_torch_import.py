@@ -1,0 +1,121 @@
+"""The port stands alone: audio_edge_ml_pipeline_torch and chip_smoke.py
+import no jax and nothing of the JAX package, and its entry points never run
+on the CPU unless asked to."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "audio_edge_ml_pipeline_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "audio_edge_ml_pipeline_tpu")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_importing_every_port_module_leaves_jax_out():
+    mods = _port_modules()
+    assert "audio_edge_ml_pipeline_torch.ops.mel_kernel" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO), env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_import_statement(path):
+    assert not (_imported_roots(path) & set(FORBIDDEN)), path
+
+
+@pytest.fixture()
+def no_cuda(monkeypatch):
+    """A machine without a card, whatever this one has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda, tmp_path):
+    from audio_edge_ml_pipeline_torch import entry
+    from audio_edge_ml_pipeline_torch.features import pipeline
+    from audio_edge_ml_pipeline_torch.features.audio import AudioMelSpectrogram
+    from audio_edge_ml_pipeline_torch.models import deep
+    from audio_edge_ml_pipeline_torch.serve.edge_simulator import EdgeDeviceSimulator
+
+    bundle = tmp_path / "m.npz"
+    tr = deep.CNNTrainer(filters=[4], device="cpu")
+    tr.initialize((40, 51, 1), 3, torch.Generator().manual_seed(0))
+    tr.save(bundle)
+    (tmp_path / "data" / "a").mkdir(parents=True)
+    from audio_edge_ml_pipeline_torch.data.audio_io import write_wav
+
+    write_wav(tmp_path / "data" / "a" / "x.wav", np.zeros(800, np.float32), 16000)
+
+    calls = [
+        lambda: AudioMelSpectrogram(),
+        lambda: deep.CNNTrainer(),
+        lambda: deep.load_any_model(bundle),
+        lambda: entry.entry(),
+        lambda: EdgeDeviceSimulator(bundle, ["a", "b", "c"], tmp_path / "data"),
+        lambda: pipeline._run_experiment(pipeline_exp(tmp_path)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asking for the CPU is the only way onto it
+    assert AudioMelSpectrogram(device="cpu").device.type == "cpu"
+
+
+def pipeline_exp(tmp_path):
+    from audio_edge_ml_pipeline_torch.features.config import ExperimentConfig
+
+    return ExperimentConfig(extractor="audio_mel_spec", loader="audio_folder",
+                            dataset=str(tmp_path / "data"), split="all", output=str(tmp_path / "out"))
+
+
+def test_unported_names_raise_not_yet_ported(tmp_path):
+    from audio_edge_ml_pipeline_torch.data.loaders import build_loader
+    from audio_edge_ml_pipeline_torch.features.registry import get
+
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        get("audio_cqt")
+    with pytest.raises(KeyError):
+        get("no_such_extractor")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        build_loader("birdeep", str(tmp_path), "train")
