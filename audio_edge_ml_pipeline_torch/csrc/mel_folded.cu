@@ -13,11 +13,15 @@
 // A, B (the folded Hann DFT bases), wr and fb (the slaney mel bank) are
 // built by the wrapper (ops/mel_kernel.py) and zero-padded to f_pad columns.
 //
-// What bounds it on an H100: per frame 2 * (n_fft/2) * n_freq multiply-adds
-// for re/im and n_freq * n_mels for the mel product, about 2.8e5 FLOP
-// against 160 bytes of new input and 160 bytes of output at hop 160 and
-// 40 mels, so the kernel is bound by operations. The products run as plain
-// float32 FMAs on the CUDA cores (67 TFLOP/s on an H100 SXM at 700 W): the
+// What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the
+// tensor cores, 700 W). The function is bound by bytes: per frame it reads
+// 640 new bytes of waveform and writes 160 bytes at hop 160 and 40 mels,
+// against about 1.4e4 FLOP at its least (a real FFT, and the mel product over
+// the slaney bank's 490 nonzeros, each bin lying in at most two filters). At
+// 512 five-second clips that is 205 MB, 0.061 ms. This kernel's formulation,
+// the folded dense DFT, does 2 * (n_fft/2) * n_freq multiply-adds per frame
+// for re/im, about 2.7e5 FLOP, so it is bound by operations: 1.02 ms for the
+// same batch. The products run as plain float32 FMAs on the CUDA cores: the
 // mel features must stay within 1e-5 of a float64 oracle, and a TF32 or
 // 3-pass product measured 8.8e-5, so the tensor cores are not used.
 //
@@ -35,6 +39,8 @@
 // time-major order, masking the frames past T in the last tile.
 
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 namespace {
 
@@ -161,15 +167,29 @@ size_t mel_folded_smem_bytes(int n_fft, int f_pad) {
                           static_cast<size_t>(kTileT) * (f_pad + 1));
 }
 
-// Launches the kernel on `stream`; returns cudaGetLastError() (0 on success).
+// Launches the kernel on `stream` (on the current device); returns
+// cudaGetLastError() (0 on success). The kernel's dynamic shared-memory limit
+// is raised once per device, on its first launch there, and again only if a
+// larger n_fft needs more.
 int mel_folded_launch(const float* y, int batch, int n, int n_frames, int n_fft, int hop,
                       const float* A, const float* Bm, const float* wr, int n_freq, int f_pad,
                       const float* fb, int n_mels, float* out, void* stream) {
-  const size_t smem = mel_folded_smem_bytes(n_fft, f_pad);
-  cudaError_t err = cudaFuncSetAttribute(mel_folded_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  constexpr int kMaxDevices = 64;
+  static std::mutex lock;
+  static int smem_set[kMaxDevices] = {};  // per device: the limit set so far
+  const int smem = static_cast<int>(mel_folded_smem_bytes(n_fft, f_pad));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  {
+    std::lock_guard<std::mutex> guard(lock);
+    if (smem > smem_set[dev]) {
+      err = cudaFuncSetAttribute(mel_folded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      smem_set[dev] = smem;
+    }
+  }
   const dim3 grid((n_frames + kTileT - 1) / kTileT, batch);
   mel_folded_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       y, n, n_frames, n_fft, hop, A, Bm, wr, n_freq, f_pad, fb, n_mels, out);

@@ -3,9 +3,10 @@
 The plain tensor path of the audio_mel_spec contract: folded windowed-DFT
 GEMMs for the STFT, the slaney mel GEMM, and the per-clip masked dB and
 min-max epilogue. Mirrors ``audio_edge_ml_pipeline_tpu/ops/dsp.py`` function
-by function so the CPU tests can hold one against the other; on a CUDA card
-the mel power runs in the hand-written kernel (``ops/mel_kernel.py``) and
-only the epilogue below stays torch ops.
+by function so the CPU tests can hold one against the other. The feature
+itself, ``mel_spec_feature``, lives in ``ops/mel_kernel.py``: on a CUDA card
+the mel power runs in the hand-written kernel there, on the CPU in
+``melspectrogram`` below, and the epilogue below stays torch ops.
 
 Numerical contract: float32 outputs match ``ops.golden`` (float64) to
 max|delta| <= 1e-5. Every GEMM here must run in full float32: a TF32 or
@@ -114,6 +115,22 @@ def _folded_dft_bases(n_fft: int):
             Wr[:, half].astype(np.float32))
 
 
+@functools.lru_cache(maxsize=8)
+def _stft_tables(n: int, n_fft: int, hop_length: int, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """``_folded_dft_bases`` and ``fold_indices`` as tensors on ``device``,
+    built once per (clip length, device)."""
+    bases = _folded_dft_bases(n_fft)
+    indices = fold_indices(n, n_fft, hop_length, n_frames_for(n, hop_length))
+    return tuple(torch.from_numpy(a).to(device) for a in (*bases, *indices))
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_fb_tensor(sr: float, n_fft: int, n_mels: int, fmin: float, fmax: float | None,
+                   device: torch.device) -> torch.Tensor:
+    """``mel_fb`` as a (n_mels, n_freq) tensor on ``device``, built once."""
+    return torch.from_numpy(mel_fb(sr, n_fft, n_mels, fmin=fmin, fmax=fmax)).to(device)
+
+
 def stft_re_im(y: torch.Tensor, n_fft: int, hop_length: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched Hann STFT via folded half-size GEMMs.
 
@@ -123,13 +140,10 @@ def stft_re_im(y: torch.Tensor, n_fft: int, hop_length: int) -> tuple[torch.Tens
         raise ValueError(f"stft_re_im expects a (B, n) batch, got shape {tuple(y.shape)}")
     if n_fft % 2:
         raise ValueError(f"stft_re_im requires even n_fft (got {n_fft}): the fold pairs x[n] with x[n_fft-n]")
-    A_T, B_T, wr_half = (torch.from_numpy(c).to(y.device) for c in _folded_dft_bases(n_fft))
+    A_T, B_T, wr_half, idx_front, idx_rev, idx_center, rmask = _stft_tables(
+        y.shape[1], n_fft, hop_length, y.device)
     pad = n_fft // 2
     ypad = torch.nn.functional.pad(y, (pad, pad))
-    T = n_frames_for(y.shape[1], hop_length)
-    idx_front, idx_rev, idx_center, rmask = (
-        torch.from_numpy(a).to(y.device) for a in fold_indices(y.shape[1], n_fft, hop_length, T)
-    )
     front = ypad[:, idx_front]          # (B, T, half)
     rev = ypad[:, idx_rev] * rmask
     center = ypad[:, idx_center]        # (B, T)
@@ -246,20 +260,8 @@ def melspectrogram(
     """(B, n) -> (B, n_mels, T) mel power spectrogram, frames-major through
     power + mel with one swap on the small mel output. Even n_fft only: the
     unfolded basis that covers odd sizes is not ported yet."""
-    fb = torch.from_numpy(mel_fb(sr, n_fft, n_mels, fmin=fmin, fmax=fmax)).to(y.device)
+    fb = _mel_fb_tensor(sr, n_fft, n_mels, fmin, fmax, y.device)
     re, im = stft_re_im(y, n_fft, hop_length)
     pw = re * re + im * im                               # (B, T, F)
     return torch.matmul(pw, fb.T).transpose(1, 2)
 
-
-def mel_spec_feature(
-    y: torch.Tensor,
-    sr: float = 16000,
-    n_mels: int = 40,
-    n_fft: int = 512,
-    hop_length: int = 160,
-    lengths: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """audio_mel_spec contract, batched: mel power -> power_to_db(ref=max)
-    -> [0,1]. Output (B, n_mels, T) f32."""
-    return mel_epilogue(melspectrogram(y, sr, n_mels, n_fft, hop_length), lengths, hop_length)

@@ -55,9 +55,10 @@ def _round_up(x: int, m: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def host_constants(sr: int, n_fft: int, n_mels: int) -> tuple[np.ndarray, ...]:
-    """(A (half, f_pad), B (half, f_pad), wr (f_pad,), fb (f_pad, n_mels)),
-    float32, zero beyond the n_freq live columns / rows."""
+def constants(sr: int, n_fft: int, n_mels: int, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The kernel's float32 constants on ``device``, built once per device:
+    (A (half, f_pad), B (half, f_pad), wr (f_pad,), fb (f_pad, n_mels)), zero
+    beyond the n_freq live columns / rows."""
     half = n_fft // 2
     n_freq = 1 + half
     f_pad = _round_up(n_freq, F_ALIGN)
@@ -67,22 +68,7 @@ def host_constants(sr: int, n_fft: int, n_mels: int) -> tuple[np.ndarray, ...]:
     wr = np.zeros(f_pad, np.float32); wr[:n_freq] = wr_half
     fb = np.zeros((f_pad, n_mels), np.float32)
     fb[:n_freq] = ref.mel_filterbank(sr, n_fft, n_mels).astype(np.float32).T
-    return A, B, wr, fb
-
-
-_device_constants: dict[tuple, tuple[torch.Tensor, ...]] = {}
-_constants_lock = threading.Lock()
-
-
-def constants(sr: int, n_fft: int, n_mels: int, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """``host_constants`` as tensors on ``device``, built once per device."""
-    key = (sr, n_fft, n_mels, str(device))
-    with _constants_lock:
-        if key not in _device_constants:
-            _device_constants[key] = tuple(
-                torch.from_numpy(c).to(device) for c in host_constants(sr, n_fft, n_mels)
-            )
-        return _device_constants[key]
+    return tuple(torch.from_numpy(c).to(device) for c in (A, B, wr, fb))
 
 
 def mel_power_folded_plain(

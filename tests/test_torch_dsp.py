@@ -1,5 +1,7 @@
-"""Port parity: audio_edge_ml_pipeline_torch.ops.dsp and its golden copy
-against the JAX package's ops.dsp and ops.golden (CPU, float32)."""
+"""Port parity: audio_edge_ml_pipeline_torch.ops.dsp, its golden copy and
+the feature on a CPU tensor (mel_kernel.mel_spec_feature: dsp's plain path
+and epilogue) against the JAX package's ops.dsp and ops.golden (CPU,
+float32)."""
 
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ from audio_edge_ml_pipeline_tpu.ops import dsp as jdsp
 from audio_edge_ml_pipeline_tpu.ops import golden as jgolden
 from audio_edge_ml_pipeline_torch.ops import dsp as tdsp
 from audio_edge_ml_pipeline_torch.ops import golden as tgolden
+from audio_edge_ml_pipeline_torch.ops import mel_kernel
 
 TOL = 1e-5  # the repo's DSP parity gate (max|delta| vs the float64 oracle)
 
@@ -67,7 +70,7 @@ def test_log10_precise_matches_jax(rng):
 @pytest.mark.parametrize("batch,n", [(3, 80000), (1, 32000)], ids=["T501", "T201"])
 def test_mel_spec_feature_matches_jax_and_golden(rng, batch, n):
     y = _clips(rng, batch, n)
-    ours = tdsp.mel_spec_feature(torch.from_numpy(y)).numpy()
+    ours = mel_kernel.mel_spec_feature(torch.from_numpy(y)).numpy()
     assert ours.shape == (batch, 40, 1 + n // 160)
     theirs = np.asarray(jdsp.mel_spec_feature(jnp.asarray(y)))
     gold = np.stack([tgolden.mel_spec_feature(y[i]) for i in range(batch)])
@@ -81,7 +84,7 @@ def test_mel_spec_feature_padded_batch_with_lengths(rng):
     clips = [_clips(rng, 1, int(n))[0] for n in lengths]
     for i, c in enumerate(clips):
         y[i, : len(c)] = c
-    ours = tdsp.mel_spec_feature(torch.from_numpy(y), lengths=torch.from_numpy(lengths)).numpy()
+    ours = mel_kernel.mel_spec_feature(torch.from_numpy(y), lengths=torch.from_numpy(lengths)).numpy()
     theirs = np.asarray(jdsp.mel_spec_feature(jnp.asarray(y), lengths=jnp.asarray(lengths.astype(np.int32))))
     for i, c in enumerate(clips):
         t = 1 + len(c) // 160
