@@ -2,8 +2,18 @@
 
 Counterpart of the JAX package's ``models/deep.py``. Ported so far: the CNN
 module (``CNNModule``, NHWC at its boundary like the flax one), the ``.npz``
-bundle format, and ``CNNTrainer`` for inference and ``save``. Training
-(``fit``) and the other families are still to be ported.
+bundle format, pretrained warm start, and ``CNNTrainer``: training (``fit``,
+with the semantics of ``FlaxTrainer.fit``), inference and ``save``. The
+other families, data-parallel training and checkpoint/resume are still to
+be ported.
+
+Training semantics carried over: input normalization stats over all axes
+but the last, computed in numpy; the weighted masked cross-entropy of
+wrap-around padded batches; Adam with optax's defaults, its learning rate
+set per epoch; EarlyStopping(val_loss, patience=10, restore best);
+ReduceLROnPlateau(0.5, patience=5, min_lr=1e-6); per-epoch metrics to the
+tracking run. Convolutions run in cuDNN and gradients through autograd, as
+the JAX package leaves them to XLA; no hand kernel is on this path.
 
 Bundles keep the flax key layout, so the JAX package and its C codegen read
 what the port writes and the other way round: ``p/Conv_i/{kernel,bias}``
@@ -25,6 +35,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..train.evaluate import (
+    compute_metrics,
+    log_run_to_mlflow,
+    save_classification_report,
+    save_confusion_matrix_png,
+    save_model_info,
+)
 from ..utils.device import resolve_device
 from .base import BaseTrainer, TrainResult
 from .registry import register_model
@@ -151,9 +168,26 @@ def load_model_bundle(path: Path):
     return arch, flat, data["norm_mean"], data["norm_var"]
 
 
+def transfer_pretrained(flat: dict[str, np.ndarray], path: Path) -> tuple[dict[str, np.ndarray], int]:
+    """By-name+shape warm start on the flax-layout flat dict: every key of
+    ``flat`` that the bundle at ``path`` holds with the same shape takes the
+    bundle's tensor; everything else (a resized head, the normalization
+    stats) keeps its init. Returns (flat, n_params_transferred)."""
+    _, donor, _, _ = load_model_bundle(Path(path))
+    out = dict(flat)
+    transferred = 0
+    for k, v in flat.items():
+        if k in donor and donor[k].shape == v.shape:
+            out[k] = np.asarray(donor[k], np.float32)
+            transferred += 1
+    return out, transferred
+
+
 # ---------------------------------------------------------------------------
 # TorchTrainer base
 # ---------------------------------------------------------------------------
+
+MODEL_FILENAME = "model.flax.npz"
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -164,9 +198,8 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
 
 
 class TorchTrainer(BaseTrainer):
-    """Shared state of the deep trainers: architecture dict, module,
-    normalization stats, device. Inference and persistence are ported;
-    training is not yet.
+    """Shared training loop and state of the deep trainers: architecture
+    dict, module, normalization stats, device.
 
     Subclasses set ``name`` and implement ``_arch(input_shape, n_classes)``
     returning the architecture dict consumed by _MODULE_FACTORY, and may
@@ -220,12 +253,9 @@ class TorchTrainer(BaseTrainer):
                 outs.append(self._net(self._normalize(xb)).cpu().numpy())
         return np.concatenate(outs)
 
-    def initialize(self, input_shape: tuple, n_classes: int, generator: torch.Generator) -> None:
-        """Random weights from ``generator`` (flax's default initializers:
-        lecun-normal kernels, zero biases) and identity normalization, for
-        an untrained model of the architecture ``fit`` would build."""
-        self._build(self._arch(tuple(input_shape), n_classes),
-                    np.zeros(input_shape[-1], np.float32), np.ones(input_shape[-1], np.float32))
+    def _init_weights(self, generator: torch.Generator) -> None:
+        """flax's default initializers from ``generator``: lecun-normal
+        kernels, zero biases."""
         with torch.no_grad():
             for mod in self._net.modules():
                 if isinstance(mod, (nn.Conv2d, nn.Linear)):
@@ -234,12 +264,200 @@ class TorchTrainer(BaseTrainer):
                     mod.weight.copy_(w)
                     mod.bias.zero_()
 
+    def initialize(self, input_shape: tuple, n_classes: int, generator: torch.Generator) -> None:
+        """Random weights from ``generator`` and identity normalization, for
+        an untrained model of the architecture ``fit`` would build."""
+        self._build(self._arch(tuple(input_shape), n_classes),
+                    np.zeros(input_shape[-1], np.float32), np.ones(input_shape[-1], np.float32))
+        self._init_weights(generator)
+
+    def prepare_fit(self, X_train: np.ndarray, n_classes: int) -> None:
+        """What ``fit`` does before its first step, on prepared float32 input:
+        build the module, adapt the normalization, initialize from ``seed``,
+        and warm-start from ``pretrained_model`` when one was given."""
+        # Keras Normalization(axis=-1): per-last-axis mean/variance over every
+        # other axis, in numpy as the JAX package computes them
+        axes = tuple(range(X_train.ndim - 1))
+        self._build(self._arch(X_train.shape[1:], n_classes),
+                    X_train.mean(axis=axes).astype(np.float32), X_train.var(axis=axes).astype(np.float32))
+        self._init_weights(torch.Generator().manual_seed(self.seed))
+
+        # pretrained warm-start: copy matching name+shape tensors, keep the
+        # norm stats. Consumed once (pop): a refit trains from its own state.
+        pretrained_path = self._extra.pop("pretrained_model", None)
+        if pretrained_path:
+            try:
+                flat, transferred = transfer_pretrained(params_to_flax(self._net.state_dict()), Path(pretrained_path))
+                self._net.load_state_dict(params_from_flax(flat))
+                logger.info("Pretrained weights: %d tensors transferred from %s", transferred, pretrained_path)
+            except (OSError, ValueError, KeyError) as exc:
+                logger.warning("Pretrained weight transfer failed (%s); training from scratch", exc)
+
+    def _batch_loss(self, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(loss, accuracy) of one padded batch: cross-entropy and hits
+        weighted by ``w`` (0 on wrap-around padding rows) over max(sum w, 1)."""
+        logits = self._net(self._normalize(x))
+        wsum = torch.clamp_min(w.sum(), 1.0)
+        loss = (F.cross_entropy(logits, y, reduction="none") * w).sum() / wsum
+        acc = ((logits.detach().argmax(-1) == y).to(w.dtype) * w).sum() / wsum
+        return loss, acc
+
+    def train_step(self, optimizer: torch.optim.Optimizer, X: torch.Tensor, y: torch.Tensor,
+                   idx: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One optimizer step on rows ``idx`` of the device-resident (X, y),
+        weighted by ``w``; returns the batch's (loss, accuracy) on the device."""
+        optimizer.zero_grad(set_to_none=True)
+        loss, acc = self._batch_loss(X.index_select(0, idx), y.index_select(0, idx), w)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), acc
+
+    @staticmethod
+    def _epoch_batches(perm: np.ndarray, steps: int, bs: int) -> tuple[np.ndarray, np.ndarray]:
+        """(steps, bs) index and weight matrices of one epoch: the short last
+        batch is padded with WRAP-AROUND rows of this epoch's permutation
+        (not repeats of one row) that carry weight 0."""
+        idx_mat = np.resize(perm, (steps, bs)).astype(np.int32)  # cycles perm
+        w_mat = np.zeros((steps, bs), np.float32)
+        for s in range(steps):
+            sl = perm[s * bs : (s + 1) * bs]
+            idx_mat[s, : len(sl)] = sl
+            w_mat[s, : len(sl)] = 1.0
+        return idx_mat, w_mat
+
     # -- BaseTrainer ---------------------------------------------------------
-    def fit(self, X_train, y_train, X_val, y_val, label_names, run_name, output_dir, mlflow_run,
-            epoch_callback=None) -> TrainResult:
-        raise NotImplementedError(
-            f"{type(self).__name__}.fit is not yet ported to audio_edge_ml_pipeline_torch; "
-            "train with audio_edge_ml_pipeline_tpu and load its bundle here."
+    def fit(
+        self,
+        X_train: np.ndarray,
+        y_train: np.ndarray,
+        X_val: np.ndarray,
+        y_val: np.ndarray,
+        label_names: list[str],
+        run_name: str,
+        output_dir: Path,
+        mlflow_run,
+        epoch_callback=None,
+    ) -> TrainResult:
+        if self.data_parallel > 1:
+            raise NotImplementedError(
+                "data_parallel > 1 is not yet ported to audio_edge_ml_pipeline_torch (multi-GPU DDP)")
+        if self._extra.get("checkpoint_dir"):
+            raise NotImplementedError(
+                "checkpoint_dir (mid-training checkpoint/resume) is not yet ported to audio_edge_ml_pipeline_torch")
+        X_train = self._prepare_input(np.asarray(X_train)).astype(np.float32)
+        X_val = self._prepare_input(np.asarray(X_val)).astype(np.float32)
+        y_train = np.asarray(y_train).astype(np.int32)
+        y_val = np.asarray(y_val).astype(np.int32)
+        self.prepare_fit(X_train, len(label_names))
+        net = self._net
+        optimizer = torch.optim.Adam(net.parameters(), lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+
+        n = len(X_train)
+        bs = min(self.batch_size, max(n, 1))
+        steps = max(1, -(-n // bs))
+        best_val_loss = float("inf")
+        best_state = {k: v.detach().clone() for k, v in net.state_dict().items()}
+        patience_es, patience_lr = 10, 5
+        es_wait = lr_wait = 0
+        current_lr = self.learning_rate
+        prev_lr = current_lr
+        np_rng = np.random.default_rng(self.seed)
+        stopped_epoch = self.epochs
+
+        # the training set moves to the device once; steps gather on device
+        X_train_d = torch.from_numpy(X_train).to(self.device)
+        y_train_d = torch.from_numpy(y_train.astype(np.int64)).to(self.device)
+
+        for epoch in range(self.epochs):
+            perm = np_rng.permutation(n)
+            for group in optimizer.param_groups:
+                group["lr"] = current_lr
+            idx_mat, w_mat = self._epoch_batches(perm, steps, bs)
+            idx_d = torch.from_numpy(idx_mat.astype(np.int64)).to(self.device)
+            w_d = torch.from_numpy(w_mat).to(self.device)
+            net.train()
+            stats = torch.stack([torch.stack(self.train_step(optimizer, X_train_d, y_train_d, idx_d[s], w_d[s]))
+                                 for s in range(steps)])
+            net.eval()
+            ep_loss, ep_acc = (float(v) for v in stats.mean(dim=0).cpu())
+
+            val_logits = self._batched_logits(X_val)
+            shifted = val_logits - val_logits.max(axis=-1, keepdims=True)
+            log_probs = shifted - np.log(np.exp(shifted).sum(axis=-1, keepdims=True))
+            val_loss = float(np.mean(-np.take_along_axis(log_probs, y_val[:, None], axis=1)))
+            val_acc = float((val_logits.argmax(-1) == y_val).mean())
+
+            log_epoch = epoch + getattr(self, "_log_epoch_offset", 0)
+            logs = {"loss": ep_loss, "accuracy": ep_acc, "val_loss": val_loss, "val_accuracy": val_acc}
+            if mlflow_run is not None:
+                for k, v in logs.items():
+                    mlflow_run.log_metric(k, v, step=log_epoch)
+            lr_tag = f"  lr={current_lr:.2e}v" if current_lr < prev_lr - 1e-12 else ""
+            prev_lr = current_lr
+            logger.info(
+                "[%s] Epoch %3d/%d  loss=%.4f  acc=%.4f  val_loss=%.4f  val_acc=%.4f%s",
+                self.name, epoch + 1, self.epochs, ep_loss, ep_acc, val_loss, val_acc, lr_tag,
+            )
+
+            # EarlyStopping(restore_best) + ReduceLROnPlateau, host-side. The
+            # best state is a copy: Adam updates the live tensors in place.
+            if val_loss < best_val_loss - 1e-12:
+                best_val_loss = val_loss
+                best_state = {k: v.detach().clone() for k, v in net.state_dict().items()}
+                es_wait = lr_wait = 0
+            else:
+                es_wait += 1
+                lr_wait += 1
+                if lr_wait >= patience_lr and current_lr > 1e-6:
+                    current_lr = max(current_lr * 0.5, 1e-6)
+                    lr_wait = 0
+                if es_wait >= patience_es:
+                    stopped_epoch = epoch + 1
+                    logger.info("[%s] Early stopped at epoch %d/%d", self.name, epoch + 1, self.epochs)
+                    break
+            if epoch_callback is not None and epoch_callback(log_epoch, logs):
+                stopped_epoch = epoch + 1
+                logger.info("[%s] Pruned at epoch %d/%d", self.name, epoch + 1, self.epochs)
+                break
+
+        net.load_state_dict(best_state)
+        net.eval()
+
+        y_pred_val = self._batched_logits(X_val).argmax(-1)
+        val_metrics = compute_metrics(y_val, y_pred_val, label_names=label_names)
+
+        output_dir = Path(output_dir)
+        output_dir.mkdir(parents=True, exist_ok=True)
+        model_path = output_dir / MODEL_FILENAME
+        self.save(model_path)
+        model_size_kb = model_path.stat().st_size / 1024
+
+        params_d = {
+            "model": self.name,
+            "stopped_epoch": stopped_epoch,
+            "epochs": self.epochs,
+            "batch_size": self.batch_size,
+            "dropout": self.dropout,
+            "learning_rate": self.learning_rate,
+        }
+        params_d.update({k: str(v) for k, v in self._architecture_params().items()})
+        params_d.update({k: str(v) for k, v in self._extra.items()})
+
+        save_classification_report(y_val, y_pred_val, label_names, output_dir / "classification_report.txt")
+        save_confusion_matrix_png(val_metrics.get("confusion_matrix", []), label_names, output_dir / "confusion_matrix.png")
+        save_model_info(output_dir, self.name, run_name, val_metrics, params_d, model_size_kb)
+        val_metrics["model_size_kb"] = model_size_kb
+        log_run_to_mlflow(mlflow_run, params_d, val_metrics, output_dir)
+        if mlflow_run is not None:
+            mlflow_run.log_artifact(model_path)
+
+        return TrainResult(
+            model_name=self.name,
+            run_id=mlflow_run.info.run_id if mlflow_run else "",
+            output_dir=output_dir,
+            metrics=val_metrics,
+            model_size_kb=model_size_kb,
+            params=params_d,
         )
 
     def predict(self, X: np.ndarray) -> np.ndarray:

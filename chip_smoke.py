@@ -6,16 +6,25 @@ user calls, and checks each phase; any failed check ends the run with a
 non-zero exit code. Builds the hand-written kernels from csrc/ itself.
 
   1. the card's name and power limit (nvidia-smi);
-  2. build every kernel of the path (one nvcc per source, all at once);
-  3. each kernel against its plain PyTorch version on the card, and the
+  2. build every kernel (one nvcc per source, all at once);
+  3. each kernel against its plain PyTorch version on the card (the
+     unfolded one at three shapes, and its refusal of odd n_fft), and the
      mel feature against the float64 golden copy;
-  4. the feature-extraction CLI on a 27-class x 4-clip fsc22-style WAV tree
-     (5 s, 16 kHz), which must launch the mel kernel;
+  4. the feature-extraction CLI on a 27-class x 5-clip fsc22-style WAV tree
+     (5 s, 16 kHz), which must launch the folded mel kernel; then the
+     unfolded kernel's entry point (``mel_power_unfolded``, which no CLI
+     calls, as no JAX path calls ``mel_power_pallas``) on the tree's clips,
+     against the float64 golden mel power;
   5. serving: the flagship CNN [16, 64, 64] (strides 4, 2; 27 classes) from
      a seeded generator, saved as a flax-layout bundle, loaded back, and
      8 edge-simulator requests; logits on the card against the CPU;
-  6. timing with CUDA events at B=512 five-second clips, and the kernel's
-     bound from this run's shapes;
+  5b. training: the train CLI on the card on phase 4's FeatureSet (the
+     flagship CNN at full width, 3 epochs, stratified split), its bundle
+     served by the edge simulator, and one training step on the card
+     against the same step on the CPU at dropout 0;
+  6. timing with CUDA events at B=512 five-second clips (each kernel, its
+     plain version and its bound from this run's shapes) and one training
+     step at B=32 and B=512;
   7. one JSON line per kernel, then the result line.
 
 Matmuls and cuDNN convolutions run in full float32 throughout (TF32 off):
@@ -27,6 +36,7 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -38,12 +48,18 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 SR, N_MELS, N_FFT, HOP = 16000, 40, 512, 160
 CLIP = 5 * SR                      # fsc22 clips: 5 s at 16 kHz
-N_CLASSES, PER_CLASS = 27, 4
+N_CLASSES, PER_CLASS = 27, 5        # 5 a class: 27 val rows, so the train CLI's split stratifies
 F32_PEAK = 67e12                   # H100 SXM float32 FLOP/s outside the tensor cores, 700 W
 HBM_RATE = 3.35e12                 # H100 SXM bytes/s
 KERNEL_REL_TOL = 1e-6              # kernel vs plain mel power, relative to each clip's peak power
 FEATURE_TOL = 1e-5                 # the repo's DSP parity gate (max|delta| vs float64)
 LOGIT_TOL = 1e-4                   # CNN logits card vs CPU, float32 convolutions in other orders
+GOLDEN_REL_TOL = 1e-5              # unfolded mel power vs float64 golden, relative to each clip's peak
+STEP_LOSS_TOL = 1e-5               # train-step loss card vs CPU, relative
+GRAD_TOL = 1e-4                    # train-step gradients card vs CPU, max|d| over each tensor's max|g|:
+                                   # float32 reductions over 32 x 40 x 501 inputs in other orders, and
+                                   # cuDNN's backward may sum in a run-dependent order
+TRAIN_EPOCHS = 3
 
 
 def fail(msg: str) -> None:
@@ -86,7 +102,7 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def mel_folded_bound(batch: int, n: int, mel_nonzeros: int) -> tuple[float, str, float]:
+def mel_folded_bound(batch: int, n: int, mel_nonzeros: int) -> tuple[float, str, float, float]:
     """Least time of the mel-power function on this card, in ms, and what
     bounds it: the larger of its bytes (each clip read once, the mel power
     written once) over HBM_RATE and its float32 operations at their least
@@ -94,17 +110,20 @@ def mel_folded_bound(batch: int, n: int, mel_nonzeros: int) -> tuple[float, str,
     real FFT at the nominal 2.5 n_fft log2(n_fft) FLOP, the power (3 per
     bin) and the mel product over the bank's nonzeros only (2 per nonzero).
 
-    Also returns the ms at F32_PEAK of the kernel's own formulation, the
-    folded dense DFT: per frame 2 adds per fold pair, two (n_fft/2 x n_freq)
-    multiply-add products, the center term, the power and the same
-    band-only mel product."""
+    Also returns the ms at F32_PEAK of each kernel's own formulation:
+    the folded dense DFT (per frame 2 adds per fold pair, two (n_fft/2 x
+    n_freq) multiply-add products, the center term, the power and the same
+    band-only mel product) and the unfolded dense DFT (two (n_fft x n_freq)
+    multiply-add products, the power and the mel product)."""
     half, n_freq = N_FFT // 2, 1 + N_FFT // 2
     frames = batch * (1 + n // HOP)
     fft_flops = frames * (N_FFT + 2.5 * N_FFT * np.log2(N_FFT) + 3 * n_freq + 2 * mel_nonzeros)
-    dense_flops = frames * (2 * half + 4 * half * n_freq + 2 * n_freq + 3 * n_freq + 2 * mel_nonzeros)
+    folded_flops = frames * (2 * half + 4 * half * n_freq + 2 * n_freq + 3 * n_freq + 2 * mel_nonzeros)
+    unfolded_flops = frames * (4 * N_FFT * n_freq + 3 * n_freq + 2 * mel_nonzeros)
     nbytes = 4 * (batch * n + frames * N_MELS)
     t_ops, t_bytes = fft_flops / F32_PEAK, nbytes / HBM_RATE
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", 1e3 * dense_flops / F32_PEAK
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * folded_flops / F32_PEAK, 1e3 * unfolded_flops / F32_PEAK)
 
 
 def write_wav_tree(root: Path, rng: np.random.Generator) -> tuple[Path, Path, list[str]]:
@@ -131,6 +150,25 @@ def write_wav_tree(root: Path, rng: np.random.Generator) -> tuple[Path, Path, li
     return root / "fsc22", folder, names
 
 
+def step_and_grads(dev, X: np.ndarray, y: np.ndarray, bundle: Path) -> tuple[float, dict]:
+    """One Adam step of the flagship CNN's trainer at dropout 0, warm-started
+    from ``bundle``, on the first 32 rows of (X, y): (loss, gradients)."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.models.deep import CNNTrainer
+
+    tr = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, dropout=0.0, batch_size=32, seed=0,
+                    pretrained_model=str(bundle), device=dev)
+    Xp = tr._prepare_input(X).astype(np.float32)
+    tr.prepare_fit(Xp, N_CLASSES)
+    tr._net.train()
+    opt = torch.optim.Adam(tr._net.parameters(), lr=1e-3)
+    idx = torch.arange(32, device=dev)
+    loss, _ = tr.train_step(opt, torch.from_numpy(Xp).to(dev), torch.from_numpy(y.astype(np.int64)).to(dev),
+                            idx, torch.ones(32, device=dev))
+    return float(loss), {k: p.grad.detach().cpu() for k, p in tr._net.named_parameters()}
+
+
 def main() -> int:
     import torch
 
@@ -147,9 +185,10 @@ def main() -> int:
     from audio_edge_ml_pipeline_torch.data.audio_io import load_audio
     from audio_edge_ml_pipeline_torch.entry import flagship
     from audio_edge_ml_pipeline_torch.features import pipeline
-    from audio_edge_ml_pipeline_torch.models.deep import CNNTrainer, load_any_model
-    from audio_edge_ml_pipeline_torch.ops import _build, dsp, golden, mel_kernel
+    from audio_edge_ml_pipeline_torch.models.deep import MODEL_FILENAME, CNNTrainer, load_any_model
+    from audio_edge_ml_pipeline_torch.ops import _build, dsp, golden, mel_kernel, mel_unfolded
     from audio_edge_ml_pipeline_torch.serve.edge_simulator import EdgeDeviceSimulator
+    from audio_edge_ml_pipeline_torch.train import train
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -164,11 +203,13 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    built = _build.build(["mel_folded"])
-    ptxas = [ln.strip() for ln in _build.library_path("mel_folded").with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[2] build: {time.perf_counter() - t0:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in built.items()) or 'already built'}); "
-          f"mel_folded ptxas: {' | '.join(ptxas)}")
+    kernels = ["mel_folded", "mel_unfolded"]
+    built = _build.build(kernels)
+    print(f"[2] build: {time.perf_counter() - t0:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in built.items()) or 'already built'})")
+    for kname in kernels:
+        ptxas = [ln.strip() for ln in _build.library_path(kname).with_suffix(".log").read_text().splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"[2] {kname} ptxas: {' | '.join(ptxas)}")
 
     # 3. kernel against its plain version, feature against the float64 golden copy
     rng = np.random.default_rng(0)
@@ -189,6 +230,26 @@ def main() -> int:
         worst_abs = max(worst_abs, float(err.max()))
         print(f"[3] mel_folded vs plain, {label}: max|d| {float(err.max()):.3e}, max|d|/clip peak {rel:.3e} (tol {KERNEL_REL_TOL:g})")
         check(rel <= KERNEL_REL_TOL, f"mel_folded disagrees with its plain version at {label}: {rel:.3e}")
+    worst_abs_unfolded = 0.0
+    for label, batch, n, sr, n_fft, hop, n_mels in (
+            ("B=64 x 5 s", 64, CLIP, SR, N_FFT, HOP, N_MELS), ("T=201", 1, 32000, SR, N_FFT, HOP, N_MELS),
+            ("MFCC frontend 1024/512/128 mels @ 22.05 kHz", 8, 5 * 22050, 22050, 1024, 512, 128)):
+        y = torch.from_numpy(synth_clips(rng, batch, n)).to(dev)
+        out = mel_unfolded.mel_power_unfolded(y, sr, n_mels, n_fft, hop)
+        torch.cuda.synchronize()
+        ref = mel_unfolded.mel_power_unfolded_plain(y, sr, n_mels, n_fft, hop)
+        check(out.shape == (batch, 1 + n // hop, n_mels), f"unfolded kernel output shape {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), "unfolded kernel output is not finite")
+        err = (out - ref).abs()
+        rel = float((err / ref.abs().amax(dim=(1, 2), keepdim=True)).max())
+        worst_abs_unfolded = max(worst_abs_unfolded, float(err.max()))
+        print(f"[3] mel_unfolded vs plain, {label}: max|d| {float(err.max()):.3e}, max|d|/clip peak {rel:.3e} (tol {KERNEL_REL_TOL:g})")
+        check(rel <= KERNEL_REL_TOL, f"mel_unfolded disagrees with its plain version at {label}: {rel:.3e}")
+    try:
+        mel_unfolded.mel_power_unfolded(torch.zeros((2, 4000), device=dev), n_fft=511)
+        fail("mel_unfolded took an odd n_fft")
+    except ValueError as exc:
+        print(f"[3] mel_unfolded refuses odd n_fft: {exc}")
     lengths = np.array([CLIP, 61234, 17001, 4000], np.int64)
     y_np = synth_clips(rng, len(lengths))
     for i, n in enumerate(lengths):
@@ -231,6 +292,23 @@ def main() -> int:
         check(extract_launches > 0, "the extraction CLI did not launch the mel kernel")
         check(cli_err <= FEATURE_TOL, "CLI features miss the 1e-5 gate")
 
+        # 4b. the unfolded kernel's entry point on the tree's clips
+        audio_dir = fsc22 / "Audio Wise V1.0-20260101" / "Audio Wise V1.0"
+        tree = np.stack([load_audio(audio_dir / m["filename"], sr=SR)[0] for m in fs.metadata]).astype(np.float32)
+        tree_d = torch.from_numpy(tree).to(dev)
+        mel_unfolded.counter.reset()
+        mel_u = mel_unfolded.mel_power_unfolded(tree_d).cpu().numpy()
+        unfolded_launches = mel_unfolded.counter.launches
+        gold_rel = 0.0
+        for j in (0, n_clips // 2, n_clips - 1):
+            g = golden.melspectrogram(tree[j].astype(np.float64), sr=SR, n_mels=N_MELS, n_fft=N_FFT, hop_length=HOP)
+            gold_rel = max(gold_rel, float(np.abs(mel_u[j].T - g).max() / np.abs(g).max()))
+        print(f"[4] mel_power_unfolded on the {n_clips} tree clips: shape {mel_u.shape}, launches {unfolded_launches}; "
+              f"3 clips vs float64 golden mel power max|d|/clip peak {gold_rel:.3e} (tol {GOLDEN_REL_TOL:g})")
+        check(unfolded_launches == 1, f"mel_power_unfolded launched its kernel {unfolded_launches} times for one call")
+        check(mel_u.shape == (n_clips, 1 + CLIP // HOP, N_MELS), "unfolded mel shape")
+        check(gold_rel <= GOLDEN_REL_TOL, "the unfolded kernel misses the golden mel power")
+
         # 5. serving
         trainer = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, device=dev)
         trainer.initialize((N_MELS, 1 + CLIP // HOP, 1), N_CLASSES, torch.Generator().manual_seed(0))
@@ -271,13 +349,69 @@ def main() -> int:
         check(serve_launches == 8, f"the simulator launched the mel kernel {serve_launches} times for 8 requests")
         check(conf_err <= 1e-5, "served confidences disagree with the CPU path")
 
+        # 5b. training: the train CLI on the card, then its bundle served
+        _, _, _, y_val = train.stratified_train_val_split(np.arange(n_clips), fs.labels, 0.2)
+        check(np.bincount(y_val, minlength=N_CLASSES).tolist() == [1] * N_CLASSES,
+              "the train CLI's split did not stratify")
+        os.environ["MLFLOW_TRACKING_URI"] = str(tmp / "mlruns")
+        mel_kernel.counter.reset()
+        mel_unfolded.counter.reset()
+        t0 = time.perf_counter()
+        train.main(["--features", str(tmp / "features"), "--model", "cnn", "--output", str(tmp / "models"),
+                    "--experiment", "chip-smoke", "--param", "filters=[16,64,64]", "--param", "first_stride=4",
+                    "--param", "second_stride=2", "--param", f"epochs={TRAIN_EPOCHS}"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = (mel_kernel.counter.launches, mel_unfolded.counter.launches)
+        run_dir = tmp / "models" / "cnn"
+        trained = run_dir / MODEL_FILENAME
+        info = json.loads((run_dir / "model_info.json").read_text())
+        tkeys = set(np.load(trained).files)
+        check({"p/Conv_0/kernel", "p/Conv_2/kernel", "p/Dense_0/kernel", "p/Dense_1/kernel", "norm_mean"} <= tkeys,
+              f"trained bundle keys {sorted(tkeys)}")
+        check(info["val_accuracy"] is not None and np.isfinite(info["val_accuracy"]), "model_info val_accuracy")
+        (loss_file,) = (tmp / "mlruns").glob("*/*/metrics/loss")
+        epoch_loss = [float(ln.split()[1]) for ln in loss_file.read_text().splitlines()]
+        print(f"[5b] train CLI on the card: {TRAIN_EPOCHS} epochs of the flagship CNN on {n_clips - len(y_val)} clips "
+              f"in {train_s:.2f} s; epoch loss {' -> '.join(f'{v:.4f}' for v in epoch_loss)}; val_accuracy "
+              f"{info['val_accuracy']:.4f}; kernel launches (folded, unfolded) {train_launches}: "
+              "training runs cuDNN/cuBLAS through autograd, no hand kernel")
+        os.environ.pop("MLFLOW_TRACKING_URI")
+        check(len(epoch_loss) == TRAIN_EPOCHS and all(np.isfinite(epoch_loss)), "epoch losses")
+        check(epoch_loss[-1] < epoch_loss[0], "the epoch loss did not fall from the first epoch to the last")
+
+        mel_kernel.counter.reset()
+        sim = EdgeDeviceSimulator(trained, class_names, folder, device_id="trained",
+                                  telemetry_dir=tmp / "telemetry", stats_dir=tmp / "stats", seed=1)
+        sim.run(4)
+        torch.cuda.synchronize()
+        trained_launches = mel_kernel.counter.launches
+        events = [json.loads(ln) for ln in (tmp / "telemetry" / "trained_telemetry.jsonl").read_text().splitlines()]
+        print(f"[5b] edge simulator on the trained bundle: 4 requests, mel_folded launches {trained_launches}, "
+              f"predictions {[e['prediction'] for e in events]}")
+        check(len(events) == 4 and all(e["prediction"] in class_names for e in events), "served trained bundle")
+        check(trained_launches == 4, f"the simulator launched the mel kernel {trained_launches} times for 4 requests")
+
+        X_step, y_step = fs.features[:32], fs.labels[:32]
+        loss_gpu, grads_gpu = step_and_grads(dev, X_step, y_step, trained)
+        loss_cpu, grads_cpu = step_and_grads(torch.device("cpu"), X_step, y_step, trained)
+        grad_rel = max(float((grads_gpu[k] - grads_cpu[k]).abs().max() / grads_cpu[k].abs().max()) for k in grads_cpu)
+        loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        print(f"[5b] one train step (B=32, dropout 0) card vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f} "
+              f"(rel {loss_rel:.3e}, tol {STEP_LOSS_TOL:g}); gradients max|d|/max|g| {grad_rel:.3e} "
+              f"over {len(grads_cpu)} tensors (tol {GRAD_TOL:g}, TF32 off)")
+        check(loss_rel <= STEP_LOSS_TOL, "train-step loss on the card disagrees with the CPU")
+        check(grad_rel <= GRAD_TOL, "train-step gradients on the card disagree with the CPU")
+
     # 6. timing at B=512 five-second clips
     batch = 512
     waves = torch.from_numpy(np.tile(synth_clips(rng, 8), (batch // 8, 1))).to(dev)
     ms_kernel = cuda_ms(lambda: mel_kernel.mel_power_folded(waves))
     ms_plain = cuda_ms(lambda: plain(waves))
+    ms_unf = cuda_ms(lambda: mel_unfolded.mel_power_unfolded(waves))
+    ms_unf_plain = cuda_ms(lambda: mel_unfolded.mel_power_unfolded_plain(waves))
     mel_nonzeros = int(np.count_nonzero(golden.mel_filterbank(SR, N_FFT, N_MELS)))
-    bound_ms, bound_by, dense_ms = mel_folded_bound(batch, CLIP, mel_nonzeros)
+    bound_ms, bound_by, dense_ms, unf_dense_ms = mel_folded_bound(batch, CLIP, mel_nonzeros)
     module, forward = flagship()
     module.to(dev)
     params = dict(served._net.state_dict())
@@ -293,14 +427,36 @@ def main() -> int:
     print(f"[6] mel_folded plain version at B={batch} x 5 s: {ms_plain:.3f} ms on {card}")
     print(f"[6] waveform -> mel -> CNN at B={batch}: {ms_e2e:.3f} ms, {batch / ms_e2e * 1e3:.0f} clips/s on {card}")
     print(f"[6] stages alone at B={batch}: dB + min-max epilogue {ms_epilogue:.3f} ms, CNN forward {ms_cnn:.3f} ms on {card}")
-    check(all(np.isfinite([ms_kernel, ms_plain, ms_e2e, ms_epilogue, ms_cnn])), "timing")
+    print(f"[6] mel_unfolded kernel at B={batch} x 5 s: {ms_unf:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"its dense unfolded-DFT formulation at the float32 peak {unf_dense_ms:.3f} ms, "
+          f"{100 * unf_dense_ms / ms_unf:.1f} % reached; plain version {ms_unf_plain:.3f} ms on {card}")
+    step_ms = {}
+    for b in (32, 512):
+        tr = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, batch_size=b, device=dev)
+        Xb = np.random.default_rng(b).random((b, N_MELS, 1 + CLIP // HOP, 1), dtype=np.float32)
+        tr.prepare_fit(Xb, N_CLASSES)
+        tr._net.train()
+        opt = torch.optim.Adam(tr._net.parameters(), lr=1e-3)
+        X_d = torch.from_numpy(Xb).to(dev)
+        y_d = torch.from_numpy(np.arange(b) % N_CLASSES).to(dev)
+        idx, w = torch.arange(b, device=dev), torch.ones(b, device=dev)
+        step_ms[b] = cuda_ms(lambda: tr.train_step(opt, X_d, y_d, idx, w), iters=20)
+        print(f"[6] train step (forward + backward + Adam, dropout 0.3) of the flagship CNN at B={b}: "
+              f"{step_ms[b]:.3f} ms, {b / step_ms[b] * 1e3:.0f} clips/s on {card}")
+    check(all(np.isfinite([ms_kernel, ms_plain, ms_e2e, ms_epilogue, ms_cnn, ms_unf, ms_unf_plain, *step_ms.values()])),
+          "timing")
 
     # 7. results
     print(json.dumps({"kernels": [{
         "name": "mel_folded", "route": "cuda", "source": "audio_edge_ml_pipeline_torch/csrc/mel_folded.cu",
         "replaces": "audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:119",
-        "launches": extract_launches + serve_launches, "max_abs_err": worst_abs,
+        "launches": extract_launches + serve_launches + trained_launches, "max_abs_err": worst_abs,
         "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }, {
+        "name": "mel_unfolded", "route": "cuda", "source": "audio_edge_ml_pipeline_torch/csrc/mel_unfolded.cu",
+        "replaces": "audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:35",
+        "launches": unfolded_launches, "max_abs_err": worst_abs_unfolded,
+        "ms": ms_unf, "plain_ms": ms_unf_plain, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -139,4 +139,4 @@ def test_unported_trainer_names_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tdeep.load_any_model(path, device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdeep.CNNTrainer(device="cpu").fit(None, None, None, None, [], "r", tmp_path, None)
+        tdeep.CNNTrainer(device="cpu", data_parallel=2).fit(None, None, None, None, [], "r", tmp_path, None)

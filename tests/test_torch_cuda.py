@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from audio_edge_ml_pipeline_torch.ops import golden, mel_kernel
+from audio_edge_ml_pipeline_torch.ops import golden, mel_kernel, mel_unfolded
 
 
 @pytest.fixture()
@@ -57,3 +57,30 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
         mel_kernel.mel_power_folded(y)
     with pytest.raises(ValueError):
         mel_kernel.mel_power_folded(torch.zeros((4000, 2), device=cuda_device).T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,sr,n_fft,hop,n_mels", [
+    (4, 80000, 16000, 512, 160, 40), (1, 32000, 16000, 512, 160, 40),
+    (3, 16077, 16000, 512, 160, 40), (2, 66150, 22050, 1024, 512, 128),
+])
+def test_mel_unfolded_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop, n_mels):
+    rng = np.random.default_rng(batch * 100003 + n)
+    y = torch.from_numpy((0.3 * rng.standard_normal((batch, n))).astype(np.float32)).to(cuda_device)
+    before = mel_unfolded.counter.launches
+    out = mel_unfolded.mel_power_unfolded(y, sr, n_mels, n_fft, hop)
+    torch.cuda.synchronize()
+    assert mel_unfolded.counter.launches == before + 1
+    assert out.shape == (batch, 1 + n // hop, n_mels) and out.is_contiguous()
+    plain = mel_unfolded.mel_power_unfolded_plain(y, sr, n_mels, n_fft, hop)
+    scale = plain.abs().amax(dim=(1, 2), keepdim=True)
+    # float32 sums in another order: ~1e-7 of each clip's peak power
+    assert float(((out - plain).abs() / scale).max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_mel_unfolded_raises_instead_of_falling_back(cuda_device):
+    with pytest.raises(ValueError, match="even n_fft"):
+        mel_unfolded.mel_power_unfolded(torch.zeros((2, 4000), device=cuda_device), n_fft=511)
+    with pytest.raises(TypeError):
+        mel_unfolded.mel_power_unfolded(torch.zeros((2, 4000), dtype=torch.float64, device=cuda_device))

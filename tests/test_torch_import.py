@@ -77,6 +77,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda, tmp_path
     from audio_edge_ml_pipeline_torch.features.audio import AudioMelSpectrogram
     from audio_edge_ml_pipeline_torch.models import deep
     from audio_edge_ml_pipeline_torch.serve.edge_simulator import EdgeDeviceSimulator
+    from audio_edge_ml_pipeline_torch.train import train
 
     bundle = tmp_path / "m.npz"
     tr = deep.CNNTrainer(filters=[4], device="cpu")
@@ -94,6 +95,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda, tmp_path
         lambda: entry.entry(),
         lambda: EdgeDeviceSimulator(bundle, ["a", "b", "c"], tmp_path / "data"),
         lambda: pipeline._run_experiment(pipeline_exp(tmp_path)),
+        lambda: train.main(["--features", str(tmp_path), "--model", "cnn"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
