@@ -1,0 +1,428 @@
+// Mel-power spectrogram through a real FFT, fused in one kernel for Hopper (sm_90a).
+//
+// Replaces audio_edge_ml_pipeline_tpu/ops/pallas_mel.py::_mel_folded_kernel
+// (launched by mel_power_pallas_folded) for n_fft in {256, 512, 1024}; the
+// wrapper (ops/mel_kernel.py) sends every other even n_fft to the dense
+// csrc/mel_folded.cu. For each frame t of a clip x, center-padded with
+// N/2 zeros on each side (N = n_fft), start = t * hop, window w (Hann):
+//
+//   xw[i]  = x[start + i] w[i]                        (i = 0 .. N-1)
+//   z[m]   = xw[2m] + i xw[2m+1]                      (m = 0 .. M-1, M = N/2)
+//   Z      = FFT_M(z)                                 three Stockham passes
+//   E = (Z[k] + conj Z[M-k]) / 2,  O = (Z[k] - conj Z[M-k]) / 2i
+//   X[k] = E + W^k O,  X[M-k] = conj(E - W^k O)       (k = 0 .. M/2, W = e^{-2 pi i/N})
+//   out[t][j] = sum over f in [lo_j, lo_j + len_j) of |X[f]|^2 fb_j[f]
+//
+// The window, the pass twiddles, the split twiddles W^k, the mel bank's
+// nonzero bands and their lane schedule come as tables from ops/rfft_plan.py,
+// built in float64 with the angles that are multiples of pi/2 exact, so DC
+// and Nyquist come out with an imaginary part of exactly 0. rfft_plan.py also
+// holds a torch emulation of this kernel's framing, passes, scratch
+// addressing, split and chunk sums, which the CPU tests check against float64
+// np.fft.rfft.
+//
+// What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the
+// tensor cores, 700 W). At 512 five-second clips (hop 160, 40 mels) the
+// function reads 164 MB of waveform and writes 41 MB of mel power: 205 MB,
+// 0.061 ms. Its least operations, a real FFT at 2.5 N log2 N FLOP, the
+// window, the power and the mel product over the bank's 490 nonzeros, are
+// 3.5e9 FLOP, 0.053 ms: the function is bound by bytes. The dense folded DFT
+// of csrc/mel_folded.cu needs 6.8e10 FLOP, 1.018 ms at the float32 peak; this
+// formulation does about 20 times fewer operations, so it can get under that.
+// All products are plain float32 FMAs: once the FFT has removed the dense
+// DFT, the tensor cores have nothing large to multiply, and TF32 misses the
+// 1e-5 feature gate.
+//
+// Design. A persistent grid: each block loads the window, the mel weights
+// and their schedule into shared memory and its lanes' twiddles into
+// registers once, then walks (clip, tile) pairs of kTileT consecutive
+// frames. For each tile it copies the contiguous span of the padded clip,
+// (kTileT - 1) hop + N samples, into shared memory once with cp.async (zeros
+// outside [0, n), which is the center padding, so no index is clamped). The
+// copies are 4 bytes a thread, coalesced: a tile's span starts at any sample
+// offset, and with every frame cut the spans and tables alone take within
+// 2 % of the bound, so 16-byte copies would have little to gain. Each
+// warp then takes one frame at a time. The first pass reads its radix-8
+// inputs straight from the span times the window; every pass does its
+// butterflies in registers and exchanges through a per-warp shared-memory
+// scratch (re and im apart, five floats of padding every 32 so the strided
+// writes spread over the banks), with __syncwarp between reads and writes.
+// The split reads Z[k] and Z[M-k] and writes the power of both bins back
+// into the scratch. The mel product then sums each filter's nonzero band
+// only: the bands are cut into chunks spread evenly over the lanes
+// (rfft_plan.mel_schedule; at 512 / 40 mels no lane walks more than 17 bins,
+// where one filter a lane walked 41), each chunk is summed in ascending bin
+// order into its own slot, and each filter adds its slots in ascending order
+// and is written to the (B, T, n_mels) output time-major. Frames past T are
+// not computed.
+//
+// Measured on an H100 80GB HBM3 at 700 W (scripts/torch_mel_rfft_variants.py,
+// 512 five-second clips): 0.44 ms, 7x the bound, 22x faster than the dense
+// kernel. Shared-memory traffic and instruction throughput bound it, not
+// device memory: the tile spans and tables alone take 0.062 ms, the mel
+// sums 0.15 ms and the second and third passes 0.11 ms. One filter a lane
+// costs 11 % more, one float of padding 7 %, __ldg span loads 2 %. ptxas:
+// 80 registers at n_fft 512 (63 at 256, 175 at 1024), no spills; 47,560
+// bytes of shared memory a block at hop 160 and 40 mels, so registers
+// allow 3 blocks an SM.
+
+#include <cuda_runtime.h>
+
+#include <mutex>
+
+namespace {
+
+constexpr int kTileT = 32;          // frames per tile
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr float kSqrtHalf = 0.70710678118654752440f;  // the radix-8 butterfly's constant, rounded once
+
+__host__ __device__ constexpr int pad_index(int i) { return i + 5 * (i >> 5); }  // rfft_plan.pad_index
+__host__ __device__ constexpr int scratch_floats(int M) { return pad_index(M - 1) + 1; }
+
+// Radices of the M-point complex FFT, in pass order (rfft_plan.RADICES).
+template <int M>
+__host__ __device__ constexpr int radix(int s) {
+  static_assert(M == 128 || M == 256 || M == 512, "n_fft must be 256, 512 or 1024");
+  return M == 128 ? (s == 0 ? 8 : 4) : M == 256 ? (s < 2 ? 8 : 4) : 8;
+}
+constexpr int kPasses = 3;
+
+// Product of the radices before pass s.
+template <int M>
+__host__ __device__ constexpr int stride_before(int s) {
+  return s == 0 ? 1 : stride_before<M>(s - 1) * radix<M>(s - 1);
+}
+
+__device__ __forceinline__ float2 add(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 sub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, -(a.y * b.y)), fmaf(a.x, b.y, a.y * b.x));
+}
+
+__device__ __forceinline__ void dft4(float2& a0, float2& a1, float2& a2, float2& a3) {
+  const float2 t0 = add(a0, a2), t1 = sub(a0, a2), t2 = add(a1, a3);
+  const float2 t3 = make_float2(a1.y - a3.y, a3.x - a1.x);  // -i (a1 - a3)
+  a0 = add(t0, t2);
+  a1 = add(t1, t3);
+  a2 = sub(t0, t2);
+  a3 = sub(t1, t3);
+}
+
+// In place, natural order out: v[k] = sum_r v[r] e^{-2 pi i r k / R}.
+template <int R>
+__device__ __forceinline__ void dft(float2 (&v)[R]);
+
+template <>
+__device__ __forceinline__ void dft<4>(float2 (&v)[4]) {
+  dft4(v[0], v[1], v[2], v[3]);
+}
+
+template <>
+__device__ __forceinline__ void dft<8>(float2 (&v)[8]) {
+  float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
+  float2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
+  dft4(e0, e1, e2, e3);
+  dft4(o0, o1, o2, o3);
+  o1 = make_float2((o1.x + o1.y) * kSqrtHalf, (o1.y - o1.x) * kSqrtHalf);     // e^{-i pi/4} o1
+  o2 = make_float2(o2.y, -o2.x);                                               // -i o2
+  o3 = make_float2((o3.y - o3.x) * kSqrtHalf, -(o3.x + o3.y) * kSqrtHalf);    // e^{-3i pi/4} o3
+  v[0] = add(e0, o0); v[4] = sub(e0, o0);
+  v[1] = add(e1, o1); v[5] = sub(e1, o1);
+  v[2] = add(e2, o2); v[6] = sub(e2, o2);
+  v[3] = add(e3, o3); v[7] = sub(e3, o3);
+}
+
+// Pass S of the Stockham FFT: butterfly j (lane + 32 b) reads z[j + r M/R],
+// twiddles input r by e^{-2 pi i r (j % Ns) / (Ns R)}, and writes its
+// outputs to (j / Ns) Ns R + j % Ns + r Ns (rfft_plan.pass_indices).
+template <int M, int S>
+struct Pass {
+  static constexpr int R = radix<M>(S);
+  static constexpr int Ns = stride_before<M>(S);
+  static constexpr int NB = M / R;               // butterflies
+  static constexpr int BPL = (NB + 31) / 32;     // butterflies a lane
+  float2 tw[BPL][R];
+
+  __device__ __forceinline__ void load(const float2* __restrict__ twiddles, int lane) {
+#pragma unroll
+    for (int b = 0; b < BPL; ++b) {
+      const int j = lane + 32 * b;
+#pragma unroll
+      for (int r = 1; r < R; ++r) tw[b][r] = j < NB ? __ldg(twiddles + S * M + j * R + r) : make_float2(1.0f, 0.0f);
+    }
+  }
+
+  // Butterflies and the write of v; the caller has read v (with twiddles applied).
+  __device__ __forceinline__ static void finish(float2 (&v)[BPL][R], float* re, float* im, int lane) {
+#pragma unroll
+    for (int b = 0; b < BPL; ++b) {
+      const int j = lane + 32 * b;
+      if (j < NB) {
+        dft<R>(v[b]);
+        const int d = (j / Ns) * Ns * R + j % Ns;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int i = pad_index(d + r * Ns);
+          re[i] = v[b][r].x;
+          im[i] = v[b][r].y;
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+  // Passes after the first: in place on the scratch.
+  __device__ __forceinline__ void run(float* re, float* im, int lane) const {
+    float2 v[BPL][R];
+#pragma unroll
+    for (int b = 0; b < BPL; ++b) {
+      const int j = lane + 32 * b;
+      if (j < NB) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int i = pad_index(j + r * NB);
+          v[b][r] = make_float2(re[i], im[i]);
+        }
+      }
+    }
+    __syncwarp();  // every lane has read before any lane writes
+#pragma unroll
+    for (int b = 0; b < BPL; ++b) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[b][r] = cmul(v[b][r], tw[b][r]);
+    }
+    finish(v, re, im, lane);
+  }
+
+  // The first pass (Ns = 1, no twiddles) reads z from the frame and the window.
+  __device__ __forceinline__ static void first(const float* x, const float2* win2, float* re, float* im, int lane) {
+    static_assert(S == 0, "only pass 0 reads the frame");
+    float2 v[BPL][R];
+#pragma unroll
+    for (int b = 0; b < BPL; ++b) {
+      const int j = lane + 32 * b;
+      if (j < NB) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int m = j + r * NB;
+          const float2 w = win2[m];
+          v[b][r] = make_float2(x[2 * m] * w.x, x[2 * m + 1] * w.y);
+        }
+      }
+    }
+    finish(v, re, im, lane);
+  }
+};
+
+// Asynchronous 4-byte copy to shared memory (zero-filled where !valid) and its waits.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void copy_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// Starts the copy of one tile's span of the center-padded clip into xs:
+// clip samples first .. first + span - 1, zeros outside [0, n).
+__device__ __forceinline__ void load_span(float* xs, const float* row, int n, long first, int span) {
+  for (int i = threadIdx.x; i < span; i += kThreads) {
+    const long j = first + i;
+    const bool inside = j >= 0 && j < n;
+    copy_async(xs + i, inside ? row + j : row, inside);
+  }
+  copy_async_commit();
+}
+
+template <int M>
+__global__ void __launch_bounds__(kThreads)
+mel_rfft_kernel(const float* __restrict__ y, int batch, int n, int n_frames, int hop,
+                const float* __restrict__ window, const float2* __restrict__ twiddles,
+                const float2* __restrict__ split, const float* __restrict__ weights, int n_weights,
+                const int4* __restrict__ chunks, int n_rounds, const int2* __restrict__ slots, int n_mels,
+                int n_slots, float* __restrict__ out) {
+  constexpr int N = 2 * M;
+  constexpr int KS = (M / 2 + 1 + 31) / 32;   // split bins k = lane + 32 i, k <= M/2
+  static_assert(kPasses == 3 && stride_before<M>(3) == M, "three passes cover M");
+  // Shared memory, each region aligned for its widest load (smem_bytes):
+  extern __shared__ __align__(16) float smem[];
+  const int span = (kTileT - 1) * hop + N;
+  float* xs = smem;                                                      // [span], padded to 4
+  int4* chunk = reinterpret_cast<int4*>(xs + ((span + 3) & ~3));         // [n_rounds][32]
+  float* win = reinterpret_cast<float*>(chunk + 32 * n_rounds);          // [N]
+  int2* slot = reinterpret_cast<int2*>(win + N);                         // [n_mels]
+  float* scratch = reinterpret_cast<float*>(slot + n_mels);              // [kWarps][2][scratch_floats(M)]
+  float* parts = scratch + kWarps * 2 * scratch_floats(M);               // [kWarps][n_slots]
+  float* wt = parts + kWarps * n_slots;                                  // [n_weights]
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* re = scratch + warp * 2 * scratch_floats(M);
+  float* im = re + scratch_floats(M);
+  float* part = parts + warp * n_slots;
+  const float2* win2 = reinterpret_cast<const float2*>(win);
+
+  for (int i = threadIdx.x; i < N; i += kThreads) win[i] = __ldg(window + i);
+  for (int i = threadIdx.x; i < 32 * n_rounds; i += kThreads) chunk[i] = __ldg(chunks + i);
+  for (int i = threadIdx.x; i < n_mels; i += kThreads) slot[i] = __ldg(slots + i);
+  for (int i = threadIdx.x; i < n_weights; i += kThreads) wt[i] = __ldg(weights + i);
+  Pass<M, 1> p1;
+  Pass<M, 2> p2;
+  p1.load(twiddles, lane);
+  p2.load(twiddles, lane);
+  float2 sw[KS];
+#pragma unroll
+  for (int i = 0; i < KS; ++i) {
+    const int k = lane + 32 * i;
+    sw[i] = k <= M / 2 ? __ldg(split + k) : make_float2(1.0f, 0.0f);
+  }
+
+  const int tiles_per_clip = (n_frames + kTileT - 1) / kTileT;
+  const long n_tiles = static_cast<long>(batch) * tiles_per_clip;
+  for (long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int b = static_cast<int>(tile / tiles_per_clip);
+    const int t0 = static_cast<int>(tile - static_cast<long>(b) * tiles_per_clip) * kTileT;
+    __syncthreads();  // the previous tile is done with xs
+    load_span(xs, y + static_cast<long>(b) * n, n, static_cast<long>(t0) * hop - M, span);
+    copy_async_wait();
+    __syncthreads();  // this tile's span and the tables are in
+
+    for (int f = warp; f < kTileT; f += kWarps) {
+      const int t = t0 + f;
+      if (t >= n_frames) break;  // warp-uniform: frames past T are not computed
+
+      Pass<M, 0>::first(xs + f * hop, win2, re, im, lane);
+      p1.run(re, im, lane);
+      p2.run(re, im, lane);
+
+      // Real split: power of bins k and M - k from Z[k] and Z[M - k].
+      float pk[KS], pm[KS];
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        const int k = lane + 32 * i;
+        if (k <= M / 2) {
+          const int ia = pad_index(k), ib = pad_index((M - k) & (M - 1));
+          const float2 a = make_float2(re[ia], im[ia]);
+          const float2 c = make_float2(re[ib], im[ib]);
+          const float2 e = make_float2((a.x + c.x) * 0.5f, (a.y - c.y) * 0.5f);
+          const float2 o = make_float2((a.y + c.y) * 0.5f, (c.x - a.x) * 0.5f);
+          const float2 wo = cmul(o, sw[i]);
+          const float2 x1 = add(e, wo), x2 = sub(e, wo);
+          pk[i] = fmaf(x1.x, x1.x, x1.y * x1.y);
+          pm[i] = fmaf(x2.x, x2.x, x2.y * x2.y);
+        }
+      }
+      __syncwarp();
+      float* pw = re;  // power of bins 0 .. M, unpadded
+#pragma unroll
+      for (int i = 0; i < KS; ++i) {
+        const int k = lane + 32 * i;
+        if (k <= M / 2) {
+          pw[k] = pk[i];
+          if (k != M / 2) pw[M - k] = pm[i];
+        }
+      }
+      __syncwarp();
+
+      // Mel product over the bands' chunks (first bin, length, weight
+      // offset, slot), ascending bins, then each filter's slots in order.
+      for (int q = 0; q < n_rounds; ++q) {
+        const int4 c = chunk[32 * q + lane];
+        if (c.w >= 0) {
+          float acc = 0.0f;
+          for (int i = 0; i < c.y; ++i) acc = fmaf(pw[c.x + i], wt[c.z + i], acc);
+          part[c.w] = acc;
+        }
+      }
+      __syncwarp();
+      float* orow = out + (static_cast<long>(b) * n_frames + t) * n_mels;
+      for (int j = lane; j < n_mels; j += 32) {
+        const int2 sj = slot[j];
+        float acc = part[sj.x];
+        for (int c = 1; c < sj.y; ++c) acc += part[sj.x + c];
+        orow[j] = acc;
+      }
+      __syncwarp();  // the next frame overwrites the power and the partial sums
+    }
+  }
+}
+
+size_t smem_bytes(int n_fft, int hop, int n_mels, int n_weights, int n_rounds, int n_slots) {
+  const size_t span = static_cast<size_t>(kTileT - 1) * hop + n_fft;
+  return sizeof(float) * (((span + 3) & ~static_cast<size_t>(3)) + 4 * 32 * static_cast<size_t>(n_rounds) +
+                          n_fft + 2 * static_cast<size_t>(n_mels) +
+                          static_cast<size_t>(kWarps) * (2 * scratch_floats(n_fft / 2) + n_slots) + n_weights);
+}
+
+constexpr int kMaxDevices = 64;
+
+template <int M>
+int launch(const float* y, int batch, int n, int n_frames, int hop, const float* window, const float* twiddles,
+           const float* split, const float* weights, int n_weights, const int* chunks, int n_rounds,
+           const int* slots, int n_mels, int n_slots, float* out, cudaStream_t stream) {
+  static std::mutex lock;
+  static int smem_set[kMaxDevices] = {};  // per device: the limit set so far
+  const int smem = static_cast<int>(smem_bytes(2 * M, hop, n_mels, n_weights, n_rounds, n_slots));
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  {
+    std::lock_guard<std::mutex> guard(lock);
+    if (smem > smem_set[dev]) {
+      err = cudaFuncSetAttribute(mel_rfft_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      smem_set[dev] = smem;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mel_rfft_kernel<M>, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long n_tiles = static_cast<long>(batch) * ((n_frames + kTileT - 1) / kTileT);
+  const int grid = static_cast<int>(n_tiles < static_cast<long>(sms) * per_sm ? n_tiles : static_cast<long>(sms) * per_sm);
+  mel_rfft_kernel<M><<<grid, kThreads, smem, stream>>>(
+      y, batch, n, n_frames, hop, window, reinterpret_cast<const float2*>(twiddles),
+      reinterpret_cast<const float2*>(split), weights, n_weights, reinterpret_cast<const int4*>(chunks), n_rounds,
+      reinterpret_cast<const int2*>(slots), n_mels, n_slots, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory one block needs, in bytes.
+size_t mel_rfft_smem_bytes(int n_fft, int hop, int n_mels, int n_weights, int n_rounds, int n_slots) {
+  return smem_bytes(n_fft, hop, n_mels, n_weights, n_rounds, n_slots);
+}
+
+// Launches the kernel for n_fft in {256, 512, 1024} on `stream` (on the
+// current device); returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for another n_fft. The tables are
+// rfft_plan.tables(): window (N,), twiddles (3, M, 2), split (M/2 + 1, 2),
+// weights (n_weights,), chunks (n_rounds, 32, 4) int32, slots (n_mels, 2)
+// int32, whose counts add up to n_slots.
+int mel_rfft_launch(const float* y, int batch, int n, int n_frames, int n_fft, int hop, const float* window,
+                    const float* twiddles, const float* split, const float* weights, int n_weights,
+                    const int* chunks, int n_rounds, const int* slots, int n_mels, int n_slots, float* out,
+                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (n_fft) {
+    case 256:
+      return launch<128>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights, chunks, n_rounds,
+                         slots, n_mels, n_slots, out, s);
+    case 512:
+      return launch<256>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights, chunks, n_rounds,
+                         slots, n_mels, n_slots, out, s);
+    case 1024:
+      return launch<512>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights, chunks, n_rounds,
+                         slots, n_mels, n_slots, out, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // extern "C"

@@ -1,14 +1,16 @@
-"""The folded mel-power kernel: wrapper, plain version and launch count.
+"""The folded mel-power kernels: wrapper, route, plain version and launch counts.
 
 ``mel_power_folded`` computes what the TPU kernel
 ``audio_edge_ml_pipeline_tpu/ops/pallas_mel.py::_mel_folded_kernel`` computes
 (through ``mel_power_pallas_folded``): the center-padded folded Hann STFT,
 its power, and the slaney mel product, (B, n) waveforms -> (B, T, n_mels)
-mel power, time-major. On a CUDA tensor it launches the hand-written kernel
-``csrc/mel_folded.cu``; on a CPU tensor it runs ``mel_power_folded_plain``,
-the same gather (``dsp.fold_indices``) and GEMMs as torch ops. There is no
-fallback from the one to the other: a CUDA tensor the kernel cannot take
-raises.
+mel power, time-major. On a CUDA tensor it launches one of two hand-written
+kernels, chosen by ``route`` from n_fft alone: ``csrc/mel_rfft.cu``, a real
+FFT, for n_fft in {256, 512, 1024} (``rfft_plan`` builds its tables), and
+``csrc/mel_folded.cu``, the dense folded DFT, for every other even n_fft.
+On a CPU tensor it runs ``mel_power_folded_plain``, the same gather
+(``dsp.fold_indices``) and GEMMs as torch ops. There is no fallback from one
+to another: a CUDA tensor the routed kernel cannot take raises.
 
 ``mel_spec_feature`` adds the masked dB and min-max epilogue (torch ops, from
 ``ops.dsp``), as ``mel_spec_feature_pallas`` does on the TPU side.
@@ -23,7 +25,7 @@ import threading
 import numpy as np
 import torch
 
-from . import _build, dsp
+from . import _build, dsp, rfft_plan
 from .golden import librosa_ref as ref
 
 F_ALIGN = 96              # f_pad is a multiple of 32 lanes x kChunksPerPass
@@ -47,7 +49,8 @@ class KernelCounter:
             self.launches = 0
 
 
-counter = KernelCounter("mel_folded")
+counter = KernelCounter("mel_folded")              # every launch of either kernel
+counter_dense = KernelCounter("mel_folded_dense")  # the launches of the dense one among them
 
 
 def _round_up(x: int, m: int) -> int:
@@ -56,7 +59,7 @@ def _round_up(x: int, m: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def constants(sr: int, n_fft: int, n_mels: int, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """The kernel's float32 constants on ``device``, built once per device:
+    """The dense kernel's float32 constants on ``device``, built once per device:
     (A (half, f_pad), B (half, f_pad), wr (f_pad,), fb (f_pad, n_mels)), zero
     beyond the n_freq live columns / rows."""
     half = n_fft // 2
@@ -79,18 +82,71 @@ def mel_power_folded_plain(
     return dsp.melspectrogram(y, sr, n_mels, n_fft, hop_length).transpose(1, 2)
 
 
-def _check(y: torch.Tensor, n_fft: int) -> None:
+def route(n_fft: int) -> str:
+    """The kernel that takes ``n_fft`` on a card: "rfft" (csrc/mel_rfft.cu)
+    for the FFT's sizes, "dense" (csrc/mel_folded.cu) for any other even
+    n_fft. Odd n_fft raises: the fold pairs x[n] with x[n_fft - n]."""
+    if n_fft % 2 or n_fft < 4:
+        raise ValueError(f"the folded kernels need an even n_fft >= 4, got {n_fft}")
+    return "rfft" if rfft_plan.supports(n_fft) else "dense"
+
+
+def _check(y: torch.Tensor) -> None:
     if y.dtype != torch.float32:
         raise TypeError(f"mel_power_folded takes float32 waveforms, got {y.dtype}")
     if y.ndim != 2 or y.shape[0] == 0 or y.shape[1] == 0:
         raise ValueError(f"mel_power_folded takes a non-empty (B, n) batch, got shape {tuple(y.shape)}")
     if not y.is_contiguous():
         raise ValueError("mel_power_folded takes a contiguous (B, n) tensor")
-    if n_fft % 2 or n_fft < 4:
-        raise ValueError(f"the folded kernel needs an even n_fft >= 4, got {n_fft}")
 
 
-def _library() -> ctypes.CDLL:
+@functools.lru_cache(maxsize=None)
+def rfft_constants(sr: int, n_fft: int, n_mels: int, device: torch.device) -> tuple[torch.Tensor, ...]:
+    """What csrc/mel_rfft.cu reads of ``rfft_plan.tables``, on ``device``,
+    built once per device: (window, twiddles, split, weights, chunks, slots)."""
+    tab = rfft_plan.tables(sr, n_fft, n_mels)
+    return tuple(torch.from_numpy(a).to(device) for a in (tab.window, tab.twiddles, tab.split, tab.weights,
+                                                          tab.chunks, tab.slots))
+
+
+def _rfft_library() -> ctypes.CDLL:
+    lib = _build.load_library("mel_rfft")
+    fn = lib.mel_rfft_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, i, i, i, p, p, p, p, i, p, i, p, i, i, p, p]
+        fn.restype = ctypes.c_int
+        lib.mel_rfft_smem_bytes.argtypes = [i, i, i, i, i, i]
+        lib.mel_rfft_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def _launch_rfft(y: torch.Tensor, sr: int, n_mels: int, n_fft: int, hop_length: int) -> torch.Tensor:
+    window, twiddles, split, weights, chunks, slots = rfft_constants(sr, n_fft, n_mels, y.device)
+    n_slots = int(rfft_plan.tables(sr, n_fft, n_mels).slots[:, 1].sum())
+    batch, n = y.shape
+    T = dsp.n_frames_for(n, hop_length)
+    n_rounds = chunks.shape[0]
+    lib = _rfft_library()
+    smem = lib.mel_rfft_smem_bytes(n_fft, hop_length, n_mels, weights.numel(), n_rounds, n_slots)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"n_fft={n_fft}, hop={hop_length}, n_mels={n_mels} need {smem} B of shared memory "
+                         f"per block (> {SMEM_LIMIT})")
+    out = torch.empty((batch, T, n_mels), dtype=torch.float32, device=y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = lib.mel_rfft_launch(
+            y.data_ptr(), batch, n, T, n_fft, hop_length, window.data_ptr(), twiddles.data_ptr(),
+            split.data_ptr(), weights.data_ptr(), weights.numel(), chunks.data_ptr(), n_rounds,
+            slots.data_ptr(), n_mels, n_slots, out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"mel_rfft kernel launch failed: cudaError {err}")
+    counter.add()
+    return out
+
+
+def _dense_library() -> ctypes.CDLL:
     lib = _build.load_library("mel_folded")
     fn = lib.mel_folded_launch
     if fn.argtypes is None:
@@ -102,12 +158,12 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(y: torch.Tensor, consts: tuple[torch.Tensor, ...], n_fft: int, hop_length: int) -> torch.Tensor:
+def _launch_dense(y: torch.Tensor, consts: tuple[torch.Tensor, ...], n_fft: int, hop_length: int) -> torch.Tensor:
     A, B, wr, fb = consts
     batch, n = y.shape
     T = dsp.n_frames_for(n, hop_length)
     f_pad, n_mels = fb.shape
-    lib = _library()
+    lib = _dense_library()
     smem = lib.mel_folded_smem_bytes(n_fft, f_pad)
     if smem > SMEM_LIMIT:
         raise ValueError(f"n_fft={n_fft} needs {smem} B of shared memory per block (> {SMEM_LIMIT})")
@@ -124,6 +180,7 @@ def _launch(y: torch.Tensor, consts: tuple[torch.Tensor, ...], n_fft: int, hop_l
     if err != 0:
         raise RuntimeError(f"mel_folded kernel launch failed: cudaError {err}")
     counter.add()
+    counter_dense.add()
     return out
 
 
@@ -136,10 +193,14 @@ def mel_power_folded(
 ) -> torch.Tensor:
     """(B, n) float32 waveforms -> (B, T, n_mels) mel power, T = 1 + n // hop.
 
-    A CUDA tensor launches the kernel; a CPU tensor runs the plain version."""
-    _check(y, n_fft)
+    A CUDA tensor launches the kernel ``route(n_fft)`` names; a CPU tensor
+    runs the plain version."""
+    _check(y)
+    kernel = route(n_fft)
     if y.device.type == "cuda":
-        return _launch(y, constants(sr, n_fft, n_mels, y.device), n_fft, hop_length)
+        if kernel == "rfft":
+            return _launch_rfft(y, sr, n_mels, n_fft, hop_length)
+        return _launch_dense(y, constants(sr, n_fft, n_mels, y.device), n_fft, hop_length)
     if y.device.type == "cpu":
         return mel_power_folded_plain(y, sr, n_mels, n_fft, hop_length)
     raise ValueError(f"mel_power_folded runs on cuda (kernel) or cpu (plain version), not {y.device}")

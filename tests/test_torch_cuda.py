@@ -23,18 +23,37 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,n", [(4, 80000), (1, 32000), (3, 16077), (2, 600)])
-def test_mel_folded_matches_plain_version(cuda_device, batch, n):
+@pytest.mark.parametrize("batch,n,sr,n_fft,hop,n_mels", [
+    (4, 80000, 16000, 512, 160, 40), (1, 32000, 16000, 512, 160, 40), (3, 16077, 16000, 512, 160, 40),
+    (2, 600, 16000, 512, 160, 40), (2, 66150, 22050, 1024, 512, 128),
+])
+def test_mel_folded_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop, n_mels):
+    """The FFT sizes go to csrc/mel_rfft.cu."""
     rng = np.random.default_rng(batch * 100003 + n)
     y = torch.from_numpy((0.3 * rng.standard_normal((batch, n))).astype(np.float32)).to(cuda_device)
-    before = mel_kernel.counter.launches
-    out = mel_kernel.mel_power_folded(y)
+    before, dense_before = mel_kernel.counter.launches, mel_kernel.counter_dense.launches
+    out = mel_kernel.mel_power_folded(y, sr, n_mels, n_fft, hop)
     torch.cuda.synchronize()
     assert mel_kernel.counter.launches == before + 1
-    assert out.shape == (batch, 1 + n // 160, 40) and out.is_contiguous()
-    plain = mel_kernel.mel_power_folded_plain(y)
+    assert mel_kernel.counter_dense.launches == dense_before  # the FFT route, not the dense kernel
+    assert out.shape == (batch, 1 + n // hop, n_mels) and out.is_contiguous()
+    plain = mel_kernel.mel_power_folded_plain(y, sr, n_mels, n_fft, hop)
     scale = plain.abs().amax(dim=(1, 2), keepdim=True)
     # float32 sums in another order: ~1e-7 of each clip's peak power
+    assert float(((out - plain).abs() / scale).max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_dense_route_at_n_fft_400_matches_plain_version(cuda_device):
+    rng = np.random.default_rng(400)
+    y = torch.from_numpy((0.3 * rng.standard_normal((3, 16077))).astype(np.float32)).to(cuda_device)
+    before, dense_before = mel_kernel.counter.launches, mel_kernel.counter_dense.launches
+    out = mel_kernel.mel_power_folded(y, n_fft=400)
+    torch.cuda.synchronize()
+    assert mel_kernel.counter.launches == before + 1 and mel_kernel.counter_dense.launches == dense_before + 1
+    plain = mel_kernel.mel_power_folded_plain(y, n_fft=400)
+    scale = plain.abs().amax(dim=(1, 2), keepdim=True)
+    assert out.shape == (3, 1 + 16077 // 160, 40)
     assert float(((out - plain).abs() / scale).max()) <= 1e-6
 
 
@@ -45,7 +64,9 @@ def test_mel_feature_on_the_card_meets_the_golden_gate(cuda_device):
     y = (0.4 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.standard_normal(80000)).astype(np.float32)
     lengths = torch.tensor([80000, 30001], device=cuda_device)
     batch = np.stack([y, np.r_[y[:30001], np.zeros(80000 - 30001, np.float32)]])
+    dense_before = mel_kernel.counter_dense.launches
     feat = mel_kernel.mel_spec_feature(torch.from_numpy(batch).to(cuda_device), lengths=lengths).cpu().numpy()
+    assert mel_kernel.counter_dense.launches == dense_before  # through csrc/mel_rfft.cu
     assert np.max(np.abs(feat[0] - golden.mel_spec_feature(y))) <= 1e-5
     assert np.max(np.abs(feat[1, :, : 1 + 30001 // 160] - golden.mel_spec_feature(y[:30001]))) <= 1e-5
 
