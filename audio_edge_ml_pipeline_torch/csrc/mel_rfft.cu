@@ -1,10 +1,14 @@
 // Mel-power spectrogram through a real FFT, fused in one kernel for Hopper (sm_90a).
 //
-// Replaces audio_edge_ml_pipeline_tpu/ops/pallas_mel.py::_mel_folded_kernel
-// (launched by mel_power_pallas_folded) for n_fft in {256, 512, 1024}; the
-// wrapper (ops/mel_kernel.py) sends every other even n_fft to the dense
-// csrc/mel_folded.cu. For each frame t of a clip x, center-padded with
-// N/2 zeros on each side (N = n_fft), start = t * hop, window w (Hann):
+// Replaces both TPU kernels of audio_edge_ml_pipeline_tpu/ops/pallas_mel.py,
+// which compute the same function: _mel_folded_kernel (launched by
+// mel_power_pallas_folded; wrapper ops/mel_kernel.py::mel_power_folded) and
+// _mel_kernel (launched by mel_power_pallas; wrapper
+// ops/mel_unfolded.py::mel_power_unfolded), for n_fft in {256, 320, 400,
+// 512, 640, 1024}. Each wrapper sends every other even n_fft to its dense
+// kernel, csrc/mel_folded.cu or csrc/mel_unfolded.cu. For each frame t of a
+// clip x, center-padded with N/2 zeros on each side (N = n_fft), start =
+// t * hop, window w (Hann):
 //
 //   xw[i]  = x[start + i] w[i]                        (i = 0 .. N-1)
 //   z[m]   = xw[2m] + i xw[2m+1]                      (m = 0 .. M-1, M = N/2)
@@ -13,25 +17,29 @@
 //   X[k] = E + W^k O,  X[M-k] = conj(E - W^k O)       (k = 0 .. M/2, W = e^{-2 pi i/N})
 //   out[t][j] = sum over f in [lo_j, lo_j + len_j) of |X[f]|^2 fb_j[f]
 //
-// The window, the pass twiddles, the split twiddles W^k, the mel bank's
-// nonzero bands and their lane schedule come as tables from ops/rfft_plan.py,
-// built in float64 with the angles that are multiples of pi/2 exact, so DC
-// and Nyquist come out with an imaginary part of exactly 0. rfft_plan.py also
-// holds a torch emulation of this kernel's framing, passes, scratch
+// The passes' radices are 8 4 4, 8 4 5, 8 5 5, 8 8 4, 8 8 5 and 8 8 8 at
+// M = 128, 160, 200, 256, 320 and 512 (rfft_plan.RADICES). The window, the
+// pass twiddles, the split twiddles W^k, the mel bank's nonzero bands and
+// their lane schedule come as tables from ops/rfft_plan.py, built in float64
+// with the angles that are multiples of pi/2 exact, so DC and Nyquist come
+// out with an imaginary part of exactly 0. rfft_plan.py also holds a torch
+// emulation of this kernel's framing, passes, butterflies, scratch
 // addressing, split and chunk sums, which the CPU tests check against float64
 // np.fft.rfft.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the
 // tensor cores, 700 W). At 512 five-second clips (hop 160, 40 mels) the
 // function reads 164 MB of waveform and writes 41 MB of mel power: 205 MB,
-// 0.061 ms. Its least operations, a real FFT at 2.5 N log2 N FLOP, the
-// window, the power and the mel product over the bank's 490 nonzeros, are
-// 3.5e9 FLOP, 0.053 ms: the function is bound by bytes. The dense folded DFT
-// of csrc/mel_folded.cu needs 6.8e10 FLOP, 1.018 ms at the float32 peak; this
-// formulation does about 20 times fewer operations, so it can get under that.
-// All products are plain float32 FMAs: once the FFT has removed the dense
-// DFT, the tensor cores have nothing large to multiply, and TF32 misses the
-// 1e-5 feature gate.
+// 0.061 ms, whatever n_fft. Its least operations, a real FFT at 2.5 N log2 N
+// FLOP, the window, the power and the mel product over the bank's nonzeros
+// (490 at n_fft 512, 383 at 400), are 3.5e9 FLOP, 0.053 ms, at n_fft 512 and
+// 2.7e9 FLOP, 0.040 ms, at 400: the function is bound by bytes up to n_fft
+// 512 (at 640 the operations take 0.068 ms). The dense folded DFT of
+// csrc/mel_folded.cu needs 6.8e10 FLOP, 1.018 ms at the float32 peak, at
+// n_fft 512 (0.624 ms at 400); this formulation does about 20 times fewer
+// operations, so it can get under that. All products are plain float32
+// FMAs: once the FFT has removed the dense DFT, the tensor cores have
+// nothing large to multiply, and TF32 misses the 1e-5 feature gate.
 //
 // Design. A persistent grid: each block loads the window, the mel weights
 // and their schedule into shared memory and its lanes' twiddles into
@@ -47,24 +55,36 @@
 // butterflies in registers and exchanges through a per-warp shared-memory
 // scratch (re and im apart, five floats of padding every 32 so the strided
 // writes spread over the banks), with __syncwarp between reads and writes.
-// The split reads Z[k] and Z[M-k] and writes the power of both bins back
-// into the scratch. The mel product then sums each filter's nonzero band
-// only: the bands are cut into chunks spread evenly over the lanes
-// (rfft_plan.mel_schedule; at 512 / 40 mels no lane walks more than 17 bins,
-// where one filter a lane walked 41), each chunk is summed in ascending bin
-// order into its own slot, and each filter adds its slots in ascending order
-// and is written to the (B, T, n_mels) output time-major. Frames past T are
-// not computed.
+// Lane l takes butterflies l, l + 32, ...: where M / R is not a multiple of
+// 32, lanes idle (at M = 200, 7 of 32 in the first pass's 25 butterflies,
+// and 24 in the second round of each radix-5 pass's 40). The split reads
+// Z[k] and Z[M-k] and writes the power of both bins back into the scratch.
+// The mel product then sums each filter's nonzero band only: the bands are
+// cut into chunks spread evenly over the lanes (rfft_plan.mel_schedule; at
+// 512 / 40 mels no lane walks more than 17 bins, where one filter a lane
+// walked 41), each chunk is summed in ascending bin order into its own slot,
+// and each filter adds its slots in ascending order and is written to the
+// (B, T, n_mels) output time-major. Frames past T are not computed.
+//
+// Bank wavefronts of one scratch array and frame (the passes' exchanges and
+// the split's reads, counted by tests/test_torch_mel_rfft.py): 62 for 50
+// warp accesses at n_fft 512 (78 with one float of padding, 130 with none),
+// 73 for 56 at n_fft 400, which no padding of 1-8 floats every 8, 16, 32 or
+// 64 values brings lower.
 //
 // Measured on an H100 80GB HBM3 at 700 W (scripts/torch_mel_rfft_variants.py,
-// 512 five-second clips): 0.44 ms, 7x the bound, 22x faster than the dense
-// kernel. Shared-memory traffic and instruction throughput bound it, not
-// device memory: the tile spans and tables alone take 0.062 ms, the mel
-// sums 0.15 ms and the second and third passes 0.11 ms. One filter a lane
-// costs 11 % more, one float of padding 7 %, __ldg span loads 2 %. ptxas:
-// 80 registers at n_fft 512 (63 at 256, 175 at 1024), no spills; 47,560
-// bytes of shared memory a block at hop 160 and 40 mels, so registers
-// allow 3 blocks an SM.
+// 512 five-second clips). At n_fft 512: 0.44 ms, 7x the bound, 20x faster
+// than either dense kernel. Shared-memory traffic and instruction throughput
+// bound it, not device memory: the tile spans and tables alone take 0.063
+// ms, the mel sums 0.15 ms and the second and third passes 0.11 ms. One
+// filter a lane costs 10 % more, one float of padding 7 %, __ldg span loads
+// 3 %. At n_fft 400: 0.456 ms, 7.4x the bound; the mel sums take 0.134 ms
+// and the two radix-5 passes 0.165 ms, one float of padding costs nothing
+// (the same 73 wavefronts), __ldg span loads 8 %, one filter a lane 10 %.
+// ptxas: 79 registers at n_fft 512 (63 at 256, 95 at 320, 128 at 400 and
+// 640, 172 at 1024), no spills; 47,560 bytes of shared memory a block at
+// n_fft 512, hop 160 and 40 mels (42,332 at 400), so registers allow 3
+// blocks an SM at 512 and 2 at 400.
 
 #include <cuda_runtime.h>
 
@@ -75,16 +95,31 @@ namespace {
 constexpr int kTileT = 32;          // frames per tile
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr float kSqrtHalf = 0.70710678118654752440f;  // the radix-8 butterfly's constant, rounded once
+// The butterflies' constants, each rounded to float32 once (rfft_plan.SQRT_HALF, COS1, SIN1, COS2, SIN2).
+constexpr float kSqrtHalf = 0.70710678118654752440f;  // radix 8
+constexpr float kCos1 = 0.30901699437494742410f;      // radix 5: cos and sin of 2 pi/5 ...
+constexpr float kSin1 = 0.95105651629515357212f;
+constexpr float kCos2 = -0.80901699437494742410f;     // ... and of 4 pi/5
+constexpr float kSin2 = 0.58778525229247312917f;
 
 __host__ __device__ constexpr int pad_index(int i) { return i + 5 * (i >> 5); }  // rfft_plan.pad_index
 __host__ __device__ constexpr int scratch_floats(int M) { return pad_index(M - 1) + 1; }
 
-// Radices of the M-point complex FFT, in pass order (rfft_plan.RADICES).
+__host__ __device__ constexpr int plan(int s, int r0, int r1, int r2) { return s == 0 ? r0 : s == 1 ? r1 : r2; }
+
+// Radices of the M-point complex FFT, in pass order (rfft_plan.RADICES, n_fft = 2 M).
 template <int M>
 __host__ __device__ constexpr int radix(int s) {
-  static_assert(M == 128 || M == 256 || M == 512, "n_fft must be 256, 512 or 1024");
-  return M == 128 ? (s == 0 ? 8 : 4) : M == 256 ? (s < 2 ? 8 : 4) : 8;
+  static_assert(M == 128 || M == 160 || M == 200 || M == 256 || M == 320 || M == 512,
+                "n_fft must be 256, 320, 400, 512, 640 or 1024");
+  switch (M) {
+    case 128: return plan(s, 8, 4, 4);
+    case 160: return plan(s, 8, 4, 5);
+    case 200: return plan(s, 8, 5, 5);
+    case 256: return plan(s, 8, 8, 4);
+    case 320: return plan(s, 8, 8, 5);
+    default: return plan(s, 8, 8, 8);
+  }
 }
 constexpr int kPasses = 3;
 
@@ -116,6 +151,23 @@ __device__ __forceinline__ void dft(float2 (&v)[R]);
 template <>
 __device__ __forceinline__ void dft<4>(float2 (&v)[4]) {
   dft4(v[0], v[1], v[2], v[3]);
+}
+
+// With t1 = v1 + v4, t2 = v2 + v3, t3 = v1 - v4, t4 = v2 - v3: v0 = v0 + (t1 + t2),
+// v1, v4 = a1 -+ i b1 and v2, v3 = a2 -+ i b2, where a1 = v0 + c1 t1 + c2 t2,
+// a2 = v0 + c2 t1 + c1 t2, b1 = s1 t3 + s2 t4, b2 = s2 t3 - s1 t4 (rfft_plan._dft5).
+template <>
+__device__ __forceinline__ void dft<5>(float2 (&v)[5]) {
+  const float2 t1 = add(v[1], v[4]), t2 = add(v[2], v[3]), t3 = sub(v[1], v[4]), t4 = sub(v[2], v[3]);
+  const float2 a1 = make_float2(v[0].x + kCos1 * t1.x + kCos2 * t2.x, v[0].y + kCos1 * t1.y + kCos2 * t2.y);
+  const float2 a2 = make_float2(v[0].x + kCos2 * t1.x + kCos1 * t2.x, v[0].y + kCos2 * t1.y + kCos1 * t2.y);
+  const float2 b1 = make_float2(kSin1 * t3.x + kSin2 * t4.x, kSin1 * t3.y + kSin2 * t4.y);
+  const float2 b2 = make_float2(kSin2 * t3.x - kSin1 * t4.x, kSin2 * t3.y - kSin1 * t4.y);
+  v[0] = add(v[0], add(t1, t2));
+  v[1] = make_float2(a1.x + b1.y, a1.y - b1.x);  // a1 - i b1
+  v[2] = make_float2(a2.x + b2.y, a2.y - b2.x);
+  v[3] = make_float2(a2.x - b2.y, a2.y + b2.x);  // a2 + i b2
+  v[4] = make_float2(a1.x - b1.y, a1.y + b1.x);
 }
 
 template <>
@@ -301,7 +353,7 @@ mel_rfft_kernel(const float* __restrict__ y, int batch, int n, int n_frames, int
       for (int i = 0; i < KS; ++i) {
         const int k = lane + 32 * i;
         if (k <= M / 2) {
-          const int ia = pad_index(k), ib = pad_index((M - k) & (M - 1));
+          const int ia = pad_index(k), ib = pad_index((M - k) % M);
           const float2 a = make_float2(re[ia], im[ia]);
           const float2 c = make_float2(re[ib], im[ib]);
           const float2 e = make_float2((a.x + c.x) * 0.5f, (a.y - c.y) * 0.5f);
@@ -399,7 +451,7 @@ size_t mel_rfft_smem_bytes(int n_fft, int hop, int n_mels, int n_weights, int n_
   return smem_bytes(n_fft, hop, n_mels, n_weights, n_rounds, n_slots);
 }
 
-// Launches the kernel for n_fft in {256, 512, 1024} on `stream` (on the
+// Launches the kernel for n_fft in {256, 320, 400, 512, 640, 1024} on `stream` (on the
 // current device); returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for another n_fft. The tables are
 // rfft_plan.tables(): window (N,), twiddles (3, M, 2), split (M/2 + 1, 2),
@@ -414,8 +466,17 @@ int mel_rfft_launch(const float* y, int batch, int n, int n_frames, int n_fft, i
     case 256:
       return launch<128>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights, chunks, n_rounds,
                          slots, n_mels, n_slots, out, s);
+    case 320:
+      return launch<160>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights, chunks, n_rounds,
+                         slots, n_mels, n_slots, out, s);
+    case 400:
+      return launch<200>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights, chunks, n_rounds,
+                         slots, n_mels, n_slots, out, s);
     case 512:
       return launch<256>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights, chunks, n_rounds,
+                         slots, n_mels, n_slots, out, s);
+    case 640:
+      return launch<320>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights, chunks, n_rounds,
                          slots, n_mels, n_slots, out, s);
     case 1024:
       return launch<512>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights, chunks, n_rounds,

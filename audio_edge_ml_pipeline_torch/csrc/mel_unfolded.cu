@@ -1,7 +1,9 @@
 // Unfolded mel-power spectrogram, fused in one kernel for Hopper (sm_90a).
 //
 // Replaces audio_edge_ml_pipeline_tpu/ops/pallas_mel.py::_mel_kernel
-// (launched by mel_power_pallas). For each frame t of a clip x, with the clip
+// (launched by mel_power_pallas) for the even n_fft that the real FFT of
+// csrc/mel_rfft.cu has no plan for (480 or 2048, say): ops/mel_unfolded.py
+// routes by n_fft alone. For each frame t of a clip x, with the clip
 // center-padded by n_fft/2 zeros on each side and start = t * hop:
 //
 //   re[f] = sum_k x[start + k] C[k][f]        (k = 0 .. n_fft - 1)

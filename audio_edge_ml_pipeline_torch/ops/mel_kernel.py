@@ -6,11 +6,15 @@
 its power, and the slaney mel product, (B, n) waveforms -> (B, T, n_mels)
 mel power, time-major. On a CUDA tensor it launches one of two hand-written
 kernels, chosen by ``route`` from n_fft alone: ``csrc/mel_rfft.cu``, a real
-FFT, for n_fft in {256, 512, 1024} (``rfft_plan`` builds its tables), and
-``csrc/mel_folded.cu``, the dense folded DFT, for every other even n_fft.
-On a CPU tensor it runs ``mel_power_folded_plain``, the same gather
-(``dsp.fold_indices``) and GEMMs as torch ops. There is no fallback from one
-to another: a CUDA tensor the routed kernel cannot take raises.
+FFT, for n_fft in {256, 320, 400, 512, 640, 1024} (``rfft_plan`` builds its
+tables), and ``csrc/mel_folded.cu``, the dense folded DFT, for every other
+even n_fft. On a CPU tensor it runs ``mel_power_folded_plain``, the same
+gather (``dsp.fold_indices``) and GEMMs as torch ops. There is no fallback
+from one to another: a CUDA tensor the routed kernel cannot take raises.
+
+``launch_rfft`` and ``launch_dense`` launch a kernel and count nothing: the
+wrapper counts. ``mel_unfolded.mel_power_unfolded`` calls ``launch_rfft``
+too and adds to its own counter.
 
 ``mel_spec_feature`` adds the masked dB and min-max epilogue (torch ops, from
 ``ops.dsp``), as ``mel_spec_feature_pallas`` does on the TPU side.
@@ -121,7 +125,8 @@ def _rfft_library() -> ctypes.CDLL:
     return lib
 
 
-def _launch_rfft(y: torch.Tensor, sr: int, n_mels: int, n_fft: int, hop_length: int) -> torch.Tensor:
+def launch_rfft(y: torch.Tensor, sr: int, n_mels: int, n_fft: int, hop_length: int) -> torch.Tensor:
+    """csrc/mel_rfft.cu on a CUDA (B, n) float32 tensor -> (B, T, n_mels)."""
     window, twiddles, split, weights, chunks, slots = rfft_constants(sr, n_fft, n_mels, y.device)
     n_slots = int(rfft_plan.tables(sr, n_fft, n_mels).slots[:, 1].sum())
     batch, n = y.shape
@@ -142,7 +147,6 @@ def _launch_rfft(y: torch.Tensor, sr: int, n_mels: int, n_fft: int, hop_length: 
         )
     if err != 0:
         raise RuntimeError(f"mel_rfft kernel launch failed: cudaError {err}")
-    counter.add()
     return out
 
 
@@ -158,7 +162,8 @@ def _dense_library() -> ctypes.CDLL:
     return lib
 
 
-def _launch_dense(y: torch.Tensor, consts: tuple[torch.Tensor, ...], n_fft: int, hop_length: int) -> torch.Tensor:
+def launch_dense(y: torch.Tensor, consts: tuple[torch.Tensor, ...], n_fft: int, hop_length: int) -> torch.Tensor:
+    """csrc/mel_folded.cu on a CUDA (B, n) float32 tensor -> (B, T, n_mels)."""
     A, B, wr, fb = consts
     batch, n = y.shape
     T = dsp.n_frames_for(n, hop_length)
@@ -179,8 +184,6 @@ def _launch_dense(y: torch.Tensor, consts: tuple[torch.Tensor, ...], n_fft: int,
         )
     if err != 0:
         raise RuntimeError(f"mel_folded kernel launch failed: cudaError {err}")
-    counter.add()
-    counter_dense.add()
     return out
 
 
@@ -199,8 +202,12 @@ def mel_power_folded(
     kernel = route(n_fft)
     if y.device.type == "cuda":
         if kernel == "rfft":
-            return _launch_rfft(y, sr, n_mels, n_fft, hop_length)
-        return _launch_dense(y, constants(sr, n_fft, n_mels, y.device), n_fft, hop_length)
+            out = launch_rfft(y, sr, n_mels, n_fft, hop_length)
+        else:
+            out = launch_dense(y, constants(sr, n_fft, n_mels, y.device), n_fft, hop_length)
+            counter_dense.add()
+        counter.add()
+        return out
     if y.device.type == "cpu":
         return mel_power_folded_plain(y, sr, n_mels, n_fft, hop_length)
     raise ValueError(f"mel_power_folded runs on cuda (kernel) or cpu (plain version), not {y.device}")

@@ -1,17 +1,21 @@
-"""The unfolded mel-power kernel: wrapper, plain version and launch count.
+"""The unfolded mel-power kernel: wrapper, route, plain version and launch counts.
 
 ``mel_power_unfolded`` computes what the TPU kernel
 ``audio_edge_ml_pipeline_tpu/ops/pallas_mel.py::_mel_kernel`` computes
 (through ``mel_power_pallas``): each center-padded frame times the Hann
 windowed cos|sin DFT basis (``dsp.dft_bases``), its power, and the slaney
 mel product, (B, n) waveforms -> (B, T, n_mels) mel power, time-major, with
-T = 1 + n // hop. On a CUDA tensor it launches the hand-written kernel
-``csrc/mel_unfolded.cu``; on a CPU tensor it runs
+T = 1 + n // hop. That is the folded kernel's function, so on a CUDA tensor
+it launches one of two hand-written kernels, chosen by ``route`` from n_fft
+alone: the real FFT ``csrc/mel_rfft.cu`` (``mel_kernel.launch_rfft``) for
+n_fft in {256, 320, 400, 512, 640, 1024}, and ``csrc/mel_unfolded.cu``, the
+dense unfolded DFT, for every other even n_fft. On a CPU tensor it runs
 ``mel_power_unfolded_plain``, the same product as torch ops on frames cut
-with ``Tensor.unfold``. A CUDA tensor the kernel cannot take raises.
+with ``Tensor.unfold``. There is no fallback from one to another: a CUDA
+tensor the routed kernel cannot take raises.
 
 Odd n_fft is refused, as the JAX kernel refuses it (its frame tiles run out
-of bounds there). Nothing in the port's CLIs calls this kernel: no JAX path
+of bounds there). Nothing in the port's CLIs calls this wrapper: no JAX path
 calls ``mel_power_pallas``, and ``audio_mel_spec`` runs the folded kernel.
 """
 
@@ -23,11 +27,12 @@ import functools
 import numpy as np
 import torch
 
-from . import _build, dsp
+from . import _build, dsp, rfft_plan
 from .golden import librosa_ref as ref
-from .mel_kernel import F_ALIGN, SMEM_LIMIT, KernelCounter, _round_up
+from .mel_kernel import F_ALIGN, SMEM_LIMIT, KernelCounter, _round_up, launch_rfft
 
-counter = KernelCounter("mel_unfolded")
+counter = KernelCounter("mel_unfolded")              # every launch of either kernel
+counter_dense = KernelCounter("mel_unfolded_dense")  # the launches of the dense one among them
 BLOCK_K = 64  # samples per partial DFT sum; csrc/mel_unfolded.cu's kBlockK
 
 
@@ -78,17 +83,24 @@ def mel_power_unfolded_plain(
     return torch.matmul(re * re + im * im, fb_t)
 
 
-def _check(y: torch.Tensor, n_fft: int) -> None:
+def _check(y: torch.Tensor) -> None:
     if y.dtype != torch.float32:
         raise TypeError(f"mel_power_unfolded takes float32 waveforms, got {y.dtype}")
     if y.ndim != 2 or y.shape[0] == 0 or y.shape[1] == 0:
         raise ValueError(f"mel_power_unfolded takes a non-empty (B, n) batch, got shape {tuple(y.shape)}")
     if not y.is_contiguous():
         raise ValueError("mel_power_unfolded takes a contiguous (B, n) tensor")
+
+
+def route(n_fft: int) -> str:
+    """The kernel that takes ``n_fft`` on a card: "rfft" (csrc/mel_rfft.cu)
+    for the FFT's sizes, "dense" (csrc/mel_unfolded.cu) for any other even
+    n_fft, as ``mel_kernel.route`` sends the folded entry's. Odd n_fft raises."""
     if n_fft % 2 or n_fft < 2:
         raise ValueError(
             f"mel_power_unfolded needs an even n_fft, got {n_fft}: the JAX kernel it ports "
             "(pallas_mel.mel_power_pallas) does not take odd sizes either")
+    return "rfft" if rfft_plan.supports(n_fft) else "dense"
 
 
 def _library() -> ctypes.CDLL:
@@ -103,7 +115,9 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _launch(y: torch.Tensor, consts: tuple[torch.Tensor, ...], n_fft: int, hop_length: int) -> torch.Tensor:
+def launch_dense(y: torch.Tensor, consts: tuple[torch.Tensor, ...], n_fft: int, hop_length: int) -> torch.Tensor:
+    """csrc/mel_unfolded.cu on a CUDA (B, n) float32 tensor -> (B, T, n_mels).
+    Counts nothing: the wrapper counts."""
     C, S, fb = consts
     batch, n = y.shape
     T = dsp.n_frames_for(n, hop_length)
@@ -124,7 +138,6 @@ def _launch(y: torch.Tensor, consts: tuple[torch.Tensor, ...], n_fft: int, hop_l
         )
     if err != 0:
         raise RuntimeError(f"mel_unfolded kernel launch failed: cudaError {err}")
-    counter.add()
     return out
 
 
@@ -137,10 +150,18 @@ def mel_power_unfolded(
 ) -> torch.Tensor:
     """(B, n) float32 waveforms -> (B, T, n_mels) mel power, T = 1 + n // hop.
 
-    A CUDA tensor launches the kernel; a CPU tensor runs the plain version."""
-    _check(y, n_fft)
+    A CUDA tensor launches the kernel ``route(n_fft)`` names; a CPU tensor
+    runs the plain version."""
+    _check(y)
+    kernel = route(n_fft)
     if y.device.type == "cuda":
-        return _launch(y, constants(sr, n_fft, n_mels, y.device), n_fft, hop_length)
+        if kernel == "rfft":
+            out = launch_rfft(y, sr, n_mels, n_fft, hop_length)
+        else:
+            out = launch_dense(y, constants(sr, n_fft, n_mels, y.device), n_fft, hop_length)
+            counter_dense.add()
+        counter.add()
+        return out
     if y.device.type == "cpu":
         return mel_power_unfolded_plain(y, sr, n_mels, n_fft, hop_length)
     raise ValueError(f"mel_power_unfolded runs on cuda (kernel) or cpu (plain version), not {y.device}")

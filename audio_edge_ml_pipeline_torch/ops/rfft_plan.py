@@ -35,10 +35,16 @@ LANES = 32            # a warp: one frame per warp, M / LANES values a lane
 TILE_T = 32           # frames per tile (csrc/mel_rfft.cu kTileT)
 RADICES = {           # n_fft -> radices of the M = n_fft / 2 point complex FFT, in pass order
     256: (8, 4, 4),
+    320: (8, 4, 5),
+    400: (8, 5, 5),
     512: (8, 8, 4),
+    640: (8, 8, 5),
     1024: (8, 8, 8),
 }
-SQRT_HALF = float(np.float32(math.sqrt(0.5)))  # the radix-8 butterfly's constant, as the kernel rounds it
+# The butterflies' constants, each rounded to float32 once, as the kernel rounds them.
+SQRT_HALF = float(np.float32(math.sqrt(0.5)))                       # radix 8
+COS1, SIN1, COS2, SIN2 = (float(np.float32(v)) for v in (           # radix 5: cos, sin of 2 pi/5 and 4 pi/5
+    math.cos(0.4 * math.pi), math.sin(0.4 * math.pi), math.cos(0.8 * math.pi), math.sin(0.8 * math.pi)))
 
 
 def supports(n_fft: int) -> bool:
@@ -202,7 +208,24 @@ def _dft8(v):
     return lo + hi
 
 
-_DFT = {4: _dft4, 8: _dft8}
+def _dft5(v):
+    """With t1 = v1 + v4, t2 = v2 + v3, t3 = v1 - v4, t4 = v2 - v3 (c1, s1 the
+    cos and sin of 2 pi/5, c2, s2 of 4 pi/5): X0 = v0 + (t1 + t2),
+    X1, X4 = a1 -+ i b1 and X2, X3 = a2 -+ i b2, where a1 = v0 + c1 t1 + c2 t2,
+    a2 = v0 + c2 t1 + c1 t2, b1 = s1 t3 + s2 t4, b2 = s2 t3 - s1 t4."""
+    (a0r, a0i), (a1r, a1i), (a2r, a2i), (a3r, a3i), (a4r, a4i) = v
+    t1r, t1i, t2r, t2i = a1r + a4r, a1i + a4i, a2r + a3r, a2i + a3i
+    t3r, t3i, t4r, t4i = a1r - a4r, a1i - a4i, a2r - a3r, a2i - a3i
+    p1r, p1i = a0r + COS1 * t1r + COS2 * t2r, a0i + COS1 * t1i + COS2 * t2i
+    p2r, p2i = a0r + COS2 * t1r + COS1 * t2r, a0i + COS2 * t1i + COS1 * t2i
+    q1r, q1i = SIN1 * t3r + SIN2 * t4r, SIN1 * t3i + SIN2 * t4i
+    q2r, q2i = SIN2 * t3r - SIN1 * t4r, SIN2 * t3i - SIN1 * t4i
+    return [(a0r + (t1r + t2r), a0i + (t1i + t2i)),
+            (p1r + q1i, p1i - q1r), (p2r + q2i, p2i - q2r),     # a - i b
+            (p2r - q2i, p2i + q2r), (p1r - q1i, p1i + q1r)]     # a + i b
+
+
+_DFT = {4: _dft4, 5: _dft5, 8: _dft8}
 
 
 def frame_power_emulated(frames: torch.Tensor, tab: Tables) -> torch.Tensor:

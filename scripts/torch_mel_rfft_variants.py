@@ -4,8 +4,9 @@ by timing it beside copies with one design choice undone or one stage cut.
 
 Each variant is the shipped source with one text substitution, built with
 the port's nvcc flags into build/variants/ and launched on the same
-B=512 five-second clips (chip_smoke.synth_clips, n_fft 512, hop 160, 40
-mels) through the same tables, in alternating turns on one card:
+B=512 five-second clips (chip_smoke.synth_clips, hop 160, 40 mels, n_fft
+512 or the one --n-fft names, any size of rfft_plan.RADICES) through the
+same tables, in alternating turns on one card:
 
   shipped             the kernel as it is
   one_filter_a_lane   the same binary with a schedule of one whole filter a
@@ -19,11 +20,13 @@ mels) through the same tables, in alternating turns on one card:
 The first four must agree with the plain version within chip_smoke's
 KERNEL_REL_TOL; the last three only time what is left.
 
-Usage (on a machine with an NVIDIA card and nvcc): python3 scripts/torch_mel_rfft_variants.py
+Usage (on a machine with an NVIDIA card and nvcc):
+    python3 scripts/torch_mel_rfft_variants.py [--n-fft 400]
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -38,7 +41,7 @@ sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402
 from audio_edge_ml_pipeline_torch.ops import _build, mel_kernel, rfft_plan  # noqa: E402
 
-SR, N_FFT, HOP, N_MELS, BATCH = 16000, 512, 160, 40, 512
+SR, HOP, N_MELS, BATCH = 16000, 160, 40, 512
 SUBSTITUTIONS = {
     "pad1": ("return i + 5 * (i >> 5);", "return i + (i >> 5);"),
     "ldg_span": ("copy_async(xs + i, inside ? row + j : row, inside);", "xs[i] = inside ? __ldg(row + j) : 0.0f;"),
@@ -81,7 +84,10 @@ def build(out_dir: Path) -> dict[str, Path]:
     return {name: out_dir / f"lib{name}.so" for name in sources}
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--n-fft", type=int, default=512, choices=sorted(rfft_plan.RADICES))
+    n_fft = parser.parse_args(argv).n_fft
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
@@ -91,8 +97,8 @@ def main() -> int:
     waves = torch.from_numpy(np.tile(chip_smoke.synth_clips(np.random.default_rng(0), 8), (BATCH // 8, 1))).to(dev)
     n = waves.shape[1]
     T = 1 + n // HOP
-    tab = rfft_plan.tables(SR, N_FFT, N_MELS)
-    plain = mel_kernel.mel_power_folded_plain(waves)
+    tab = rfft_plan.tables(SR, n_fft, N_MELS)
+    plain = mel_kernel.mel_power_folded_plain(waves, SR, N_MELS, n_fft, HOP)
     scale = plain.abs().amax(dim=(1, 2), keepdim=True)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -108,7 +114,7 @@ def main() -> int:
         keep = (window, twiddles, split, weights, chunks, slots)
 
         def run():
-            err = fn(waves.data_ptr(), BATCH, n, T, N_FFT, HOP, *(t.data_ptr() for t in keep[:4]), weights.numel(),
+            err = fn(waves.data_ptr(), BATCH, n, T, n_fft, HOP, *(t.data_ptr() for t in keep[:4]), weights.numel(),
                      chunks.data_ptr(), chunks.shape[0], slots.data_ptr(), N_MELS, int(slots_np[:, 1].sum()),
                      out.data_ptr(), stream)
             if err != 0:
@@ -131,7 +137,7 @@ def main() -> int:
             times[name].append(chip_smoke.cuda_ms(runs[name]))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    print(f"mel_rfft variants at B={BATCH} x 5 s, n_fft {N_FFT}, hop {HOP}, {N_MELS} mels on {card}:")
+    print(f"mel_rfft variants at B={BATCH} x 5 s, n_fft {n_fft}, hop {HOP}, {N_MELS} mels on {card}:")
     for name in names:
         tag = " (diagnostic, wrong output)" if name in DIAGNOSTIC else ""
         print(f"  {name:18s} {np.mean(times[name]):.4f} ms  turns {' '.join(f'{t:.4f}' for t in times[name])}{tag}")

@@ -25,7 +25,8 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,n,sr,n_fft,hop,n_mels", [
     (4, 80000, 16000, 512, 160, 40), (1, 32000, 16000, 512, 160, 40), (3, 16077, 16000, 512, 160, 40),
-    (2, 600, 16000, 512, 160, 40), (2, 66150, 22050, 1024, 512, 128),
+    (2, 600, 16000, 512, 160, 40), (2, 66150, 22050, 1024, 512, 128), (2, 80000, 16000, 320, 160, 40),
+    (3, 16077, 16000, 400, 160, 40), (2, 80000, 16000, 400, 160, 40), (2, 80000, 16000, 640, 160, 40),
 ])
 def test_mel_folded_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop, n_mels):
     """The FFT sizes go to csrc/mel_rfft.cu."""
@@ -44,17 +45,22 @@ def test_mel_folded_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop,
 
 
 @pytest.mark.cuda
-def test_dense_route_at_n_fft_400_matches_plain_version(cuda_device):
-    rng = np.random.default_rng(400)
+@pytest.mark.parametrize("module,entry,plain", [
+    (mel_kernel, "mel_power_folded", "mel_power_folded_plain"),
+    (mel_unfolded, "mel_power_unfolded", "mel_power_unfolded_plain"),
+])
+def test_dense_route_at_n_fft_480_matches_plain_version(cuda_device, module, entry, plain):
+    """M = 240 has no FFT plan: each entry launches its dense kernel."""
+    rng = np.random.default_rng(480)
     y = torch.from_numpy((0.3 * rng.standard_normal((3, 16077))).astype(np.float32)).to(cuda_device)
-    before, dense_before = mel_kernel.counter.launches, mel_kernel.counter_dense.launches
-    out = mel_kernel.mel_power_folded(y, n_fft=400)
+    before, dense_before = module.counter.launches, module.counter_dense.launches
+    out = getattr(module, entry)(y, n_fft=480)
     torch.cuda.synchronize()
-    assert mel_kernel.counter.launches == before + 1 and mel_kernel.counter_dense.launches == dense_before + 1
-    plain = mel_kernel.mel_power_folded_plain(y, n_fft=400)
-    scale = plain.abs().amax(dim=(1, 2), keepdim=True)
+    assert module.counter.launches == before + 1 and module.counter_dense.launches == dense_before + 1
+    ref = getattr(module, plain)(y, n_fft=480)
+    scale = ref.abs().amax(dim=(1, 2), keepdim=True)
     assert out.shape == (3, 1 + 16077 // 160, 40)
-    assert float(((out - plain).abs() / scale).max()) <= 1e-6
+    assert float(((out - ref).abs() / scale).max()) <= 1e-6
 
 
 @pytest.mark.cuda
@@ -83,15 +89,17 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,n,sr,n_fft,hop,n_mels", [
     (4, 80000, 16000, 512, 160, 40), (1, 32000, 16000, 512, 160, 40),
-    (3, 16077, 16000, 512, 160, 40), (2, 66150, 22050, 1024, 512, 128),
+    (3, 16077, 16000, 512, 160, 40), (2, 66150, 22050, 1024, 512, 128), (2, 80000, 16000, 400, 160, 40),
 ])
 def test_mel_unfolded_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop, n_mels):
+    """The FFT sizes go to csrc/mel_rfft.cu, as for the folded entry."""
     rng = np.random.default_rng(batch * 100003 + n)
     y = torch.from_numpy((0.3 * rng.standard_normal((batch, n))).astype(np.float32)).to(cuda_device)
-    before = mel_unfolded.counter.launches
+    before, dense_before = mel_unfolded.counter.launches, mel_unfolded.counter_dense.launches
     out = mel_unfolded.mel_power_unfolded(y, sr, n_mels, n_fft, hop)
     torch.cuda.synchronize()
     assert mel_unfolded.counter.launches == before + 1
+    assert mel_unfolded.counter_dense.launches == dense_before  # the FFT route, not the dense kernel
     assert out.shape == (batch, 1 + n // hop, n_mels) and out.is_contiguous()
     plain = mel_unfolded.mel_power_unfolded_plain(y, sr, n_mels, n_fft, hop)
     scale = plain.abs().amax(dim=(1, 2), keepdim=True)

@@ -5,6 +5,8 @@ in interpret mode, and the wrapper's route by n_fft. The CUDA kernel
 (csrc/mel_rfft.cu) runs only on a card: tests/test_torch_cuda.py holds it
 against the plain version there."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -14,7 +16,7 @@ import jax.numpy as jnp
 from audio_edge_ml_pipeline_tpu.ops import dsp as jdsp
 from audio_edge_ml_pipeline_tpu.ops import pallas_mel
 from audio_edge_ml_pipeline_tpu.ops.golden import librosa_ref as jref
-from audio_edge_ml_pipeline_torch.ops import mel_kernel, rfft_plan
+from audio_edge_ml_pipeline_torch.ops import _build, mel_kernel, rfft_plan
 
 REL_TOL = 1e-6  # of each frame's (or clip's) peak power: float32 sums in another order
 
@@ -33,7 +35,9 @@ def _clips(rng, batch, n, sr=16000):
     return out
 
 
-@pytest.mark.parametrize("sr,n_fft,n_mels", [(16000, 512, 40), (22050, 1024, 128), (16000, 256, 40), (16000, 256, 128)])
+@pytest.mark.parametrize("sr,n_fft,n_mels", [
+    (16000, 512, 40), (22050, 1024, 128), (16000, 256, 40), (16000, 256, 128), (16000, 400, 40),
+])
 def test_bands_rebuild_the_dense_mel_bank_and_the_window_is_hann(sr, n_fft, n_mels):
     tab = rfft_plan.tables(sr, n_fft, n_mels)
     dense = np.zeros((n_mels, 1 + n_fft // 2), np.float32)
@@ -42,6 +46,32 @@ def test_bands_rebuild_the_dense_mel_bank_and_the_window_is_hann(sr, n_fft, n_me
     np.testing.assert_array_equal(dense, jdsp.mel_fb(sr, n_fft, n_mels))
     assert tab.bands[:, 2].tolist() == np.r_[0, np.cumsum(tab.bands[:-1, 1])].tolist()
     np.testing.assert_array_equal(tab.window, jref.hann_periodic(n_fft).astype(np.float32))
+
+
+def test_the_kernels_plans_and_constants_are_rfft_plans():
+    """csrc/mel_rfft.cu's radix plans, launch sizes and butterfly constants
+    are the ones the emulation runs."""
+    source = (_build.CSRC / "mel_rfft.cu").read_text()
+    plans = {2 * int(m): tuple(map(int, r)) for m, *r in
+             re.findall(r"case (\d+): return plan\(s, (\d+), (\d+), (\d+)\);", source)}
+    plans[1024] = tuple(map(int, re.search(r"default: return plan\(s, (\d+), (\d+), (\d+)\);", source).groups()))
+    assert plans == rfft_plan.RADICES
+    launches = {int(n): int(m) for n, m in re.findall(r"case (\d+):\s+return launch<(\d+)>", source)}
+    assert launches == {n_fft: n_fft // 2 for n_fft in rfft_plan.RADICES}
+    constants = {name: float(np.float32(float(v))) for name, v in
+                 re.findall(r"constexpr float (k\w+) = (-?[\d.]+)f;", source)}
+    assert constants == {"kSqrtHalf": rfft_plan.SQRT_HALF, "kCos1": rfft_plan.COS1, "kSin1": rfft_plan.SIN1,
+                         "kCos2": rfft_plan.COS2, "kSin2": rfft_plan.SIN2}
+
+
+@pytest.mark.parametrize("R", sorted(rfft_plan._DFT))
+def test_butterfly_matches_numpy_fft(rng, R):
+    """Each radix's butterfly in float32 against float64 np.fft.fft on R points."""
+    x = rng.standard_normal((R, 2, 64)).astype(np.float32)
+    got = rfft_plan._DFT[R]([(torch.from_numpy(a[0]), torch.from_numpy(a[1])) for a in x])
+    got = np.stack([re.numpy() + 1j * im.numpy() for re, im in got])
+    exact = np.fft.fft(x[:, 0].astype(np.float64) + 1j * x[:, 1], axis=0)
+    assert np.max(np.abs(got - exact)) <= 1e-6 * np.max(np.abs(exact))
 
 
 @pytest.mark.parametrize("n_fft", sorted(rfft_plan.RADICES))
@@ -107,6 +137,18 @@ def test_scratch_padding_spreads_the_passes_over_the_banks():
     assert _bank_wavefronts(256, lambda i: i)[0] == 130
 
 
+def test_scratch_padding_at_n_fft_400():
+    """At n_fft 400 (radices 8 5 5): 56 warp accesses an array and frame;
+    five floats of padding every 32 cost 73 wavefronts, as one float does,
+    none 105, and no padding of 1-8 floats every 8, 16, 32 or 64 values
+    costs fewer, so M = 200 keeps the padding of the other sizes."""
+    assert _bank_wavefronts(200, rfft_plan.pad_index) == (73, 56)
+    assert _bank_wavefronts(200, lambda i: i + (i >> 5))[0] == 73
+    assert _bank_wavefronts(200, lambda i: i)[0] == 105
+    assert min(_bank_wavefronts(200, lambda i, p=p, sh=sh: i + p * (i >> sh))[0]
+               for p in range(1, 9) for sh in (3, 4, 5, 6)) == 73
+
+
 @pytest.mark.parametrize("n_fft", sorted(rfft_plan.RADICES))
 def test_emulated_frame_power_matches_float64_rfft(rng, n_fft):
     frames = (0.3 * rng.standard_normal((48, n_fft))).astype(np.float32)
@@ -163,7 +205,10 @@ def test_zero_frames_and_zero_padded_tails_give_exact_zeros(rng):
     assert not out[1, first_silent:].any() and out[1, : first_silent].any()
 
 
-@pytest.mark.parametrize("n_fft,kernel", [(256, "rfft"), (512, "rfft"), (1024, "rfft"), (400, "dense"), (2048, "dense")])
+@pytest.mark.parametrize("n_fft,kernel", [
+    (256, "rfft"), (320, "rfft"), (400, "rfft"), (512, "rfft"), (640, "rfft"), (1024, "rfft"),
+    (480, "dense"), (2048, "dense"),
+])
 def test_route_sends_fft_sizes_to_the_fft_kernel(n_fft, kernel):
     assert mel_kernel.route(n_fft) == kernel
 
@@ -182,7 +227,9 @@ def test_rfft_constants_are_what_the_kernel_reads():
     assert consts[4].dtype == torch.int32 and consts[3].numel() == int(np.count_nonzero(jdsp.mel_fb(16000, 512, 40)))
 
 
-@pytest.mark.parametrize("sr,n_fft,n_mels", [(16000, 512, 40), (22050, 1024, 128), (16000, 256, 128), (16000, 1024, 64)])
+@pytest.mark.parametrize("sr,n_fft,n_mels", [
+    (16000, 512, 40), (22050, 1024, 128), (16000, 256, 128), (16000, 1024, 64), (16000, 400, 40), (16000, 640, 64),
+])
 def test_mel_schedule_covers_every_weight_once_and_balances_the_lanes(sr, n_fft, n_mels):
     tab = rfft_plan.tables(sr, n_fft, n_mels)
     n_weights = len(tab.weights)
