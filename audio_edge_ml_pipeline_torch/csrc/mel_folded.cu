@@ -2,8 +2,9 @@
 //
 // Replaces audio_edge_ml_pipeline_tpu/ops/pallas_mel.py::_mel_folded_kernel
 // (launched by mel_power_pallas_folded) for the even n_fft that the real FFT
-// of csrc/mel_rfft.cu has no plan for (480 or 2048, say): ops/mel_kernel.py
-// routes by n_fft alone. For each frame t of a clip x, with the clip
+// of csrc/mel_rfft.cu has no plan for (480, say): ops/mel_kernel.py routes by
+// n_fft alone. A block's shared memory holds n_fft up to 1150; the wrapper
+// refuses a larger one (2048, say). For each frame t of a clip x, with the clip
 // center-padded by n_fft/2 zeros on each side and start = t * hop:
 //
 //   p[k]  = x[start + k] + x[start + n_fft - k]     (k = 1 .. n_fft/2 - 1)

@@ -85,6 +85,20 @@
 // 640, 172 at 1024), no spills; 47,560 bytes of shared memory a block at
 // n_fft 512, hop 160 and 40 mels (42,332 at 400), so registers allow 3
 // blocks an SM at 512 and 2 at 400.
+//
+// Float64. Every stage above rounds in float32, which leaves a bin error of
+// about 1e-7 of the frame's loudest bin: a bin 60 dB under it comes out
+// 2.5e-5 off (relative power). The mel spectrogram (ref = max, min-max to
+// [0, 1]) does not see that, but the MFCC does: power_to_db at ref = 1 keeps
+// every bin down to 80 dB under the clip's peak, the DCT mixes them and the
+// z-score divides by each coefficient's spread over time, which put the
+// MFCC sequence of fsc22-like 5 s clips at 22.05 kHz 1.38e-5 from float64
+// against a gate of 1e-5. So the kernel has a second instantiation, T =
+// double, that takes the same steps on float64 tables (window, twiddles,
+// split, mel weights): the window product, the passes, the split, the power
+// and the mel sums run in float64, the waveform comes in and the mel power
+// goes out as float32. Its twiddles are read through the L1 cache at each
+// use instead of held in registers, which would spill at n_fft 1024.
 
 #include <cuda_runtime.h>
 
@@ -129,15 +143,40 @@ __host__ __device__ constexpr int stride_before(int s) {
   return s == 0 ? 1 : stride_before<M>(s - 1) * radix<M>(s - 1);
 }
 
-__device__ __forceinline__ float2 add(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
-__device__ __forceinline__ float2 sub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(fmaf(a.x, b.x, -(a.y * b.y)), fmaf(a.x, b.y, a.y * b.x));
+// The same constants for T = double, exact to float64.
+constexpr double kSqrtHalf64 = 0.70710678118654752440;
+constexpr double kCos1_64 = 0.30901699437494742410;
+constexpr double kSin1_64 = 0.95105651629515357212;
+constexpr double kCos2_64 = -0.80901699437494742410;
+constexpr double kSin2_64 = 0.58778525229247312917;
+
+// T's complex type and constants.
+template <typename T> struct Real;
+template <> struct Real<float> {
+  using C = float2;
+  static constexpr float sqrt_half = kSqrtHalf, cos1 = kCos1, sin1 = kSin1, cos2 = kCos2, sin2 = kSin2;
+};
+template <> struct Real<double> {
+  using C = double2;
+  static constexpr double sqrt_half = kSqrtHalf64, cos1 = kCos1_64, sin1 = kSin1_64, cos2 = kCos2_64,
+                          sin2 = kSin2_64;
+};
+
+__device__ __forceinline__ float2 cplx(float x, float y) { return make_float2(x, y); }
+__device__ __forceinline__ double2 cplx(double x, double y) { return make_double2(x, y); }
+__device__ __forceinline__ float fma_(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_(double a, double b, double c) { return fma(a, b, c); }
+
+template <typename C> __device__ __forceinline__ C add(C a, C b) { return cplx(a.x + b.x, a.y + b.y); }
+template <typename C> __device__ __forceinline__ C sub(C a, C b) { return cplx(a.x - b.x, a.y - b.y); }
+template <typename C> __device__ __forceinline__ C cmul(C a, C b) {
+  return cplx(fma_(a.x, b.x, -(a.y * b.y)), fma_(a.x, b.y, a.y * b.x));
 }
 
-__device__ __forceinline__ void dft4(float2& a0, float2& a1, float2& a2, float2& a3) {
-  const float2 t0 = add(a0, a2), t1 = sub(a0, a2), t2 = add(a1, a3);
-  const float2 t3 = make_float2(a1.y - a3.y, a3.x - a1.x);  // -i (a1 - a3)
+template <typename C>
+__device__ __forceinline__ void dft4(C& a0, C& a1, C& a2, C& a3) {
+  const C t0 = add(a0, a2), t1 = sub(a0, a2), t2 = add(a1, a3);
+  const C t3 = cplx(a1.y - a3.y, a3.x - a1.x);  // -i (a1 - a3)
   a0 = add(t0, t2);
   a1 = add(t1, t3);
   a2 = sub(t0, t2);
@@ -145,73 +184,90 @@ __device__ __forceinline__ void dft4(float2& a0, float2& a1, float2& a2, float2&
 }
 
 // In place, natural order out: v[k] = sum_r v[r] e^{-2 pi i r k / R}.
-template <int R>
-__device__ __forceinline__ void dft(float2 (&v)[R]);
+template <int R, typename T>
+struct Dft;
 
-template <>
-__device__ __forceinline__ void dft<4>(float2 (&v)[4]) {
-  dft4(v[0], v[1], v[2], v[3]);
-}
+template <typename T>
+struct Dft<4, T> {
+  using C = typename Real<T>::C;
+  __device__ __forceinline__ static void run(C (&v)[4]) { dft4(v[0], v[1], v[2], v[3]); }
+};
 
 // With t1 = v1 + v4, t2 = v2 + v3, t3 = v1 - v4, t4 = v2 - v3: v0 = v0 + (t1 + t2),
 // v1, v4 = a1 -+ i b1 and v2, v3 = a2 -+ i b2, where a1 = v0 + c1 t1 + c2 t2,
 // a2 = v0 + c2 t1 + c1 t2, b1 = s1 t3 + s2 t4, b2 = s2 t3 - s1 t4 (rfft_plan._dft5).
-template <>
-__device__ __forceinline__ void dft<5>(float2 (&v)[5]) {
-  const float2 t1 = add(v[1], v[4]), t2 = add(v[2], v[3]), t3 = sub(v[1], v[4]), t4 = sub(v[2], v[3]);
-  const float2 a1 = make_float2(v[0].x + kCos1 * t1.x + kCos2 * t2.x, v[0].y + kCos1 * t1.y + kCos2 * t2.y);
-  const float2 a2 = make_float2(v[0].x + kCos2 * t1.x + kCos1 * t2.x, v[0].y + kCos2 * t1.y + kCos1 * t2.y);
-  const float2 b1 = make_float2(kSin1 * t3.x + kSin2 * t4.x, kSin1 * t3.y + kSin2 * t4.y);
-  const float2 b2 = make_float2(kSin2 * t3.x - kSin1 * t4.x, kSin2 * t3.y - kSin1 * t4.y);
-  v[0] = add(v[0], add(t1, t2));
-  v[1] = make_float2(a1.x + b1.y, a1.y - b1.x);  // a1 - i b1
-  v[2] = make_float2(a2.x + b2.y, a2.y - b2.x);
-  v[3] = make_float2(a2.x - b2.y, a2.y + b2.x);  // a2 + i b2
-  v[4] = make_float2(a1.x - b1.y, a1.y + b1.x);
-}
+template <typename T>
+struct Dft<5, T> {
+  using C = typename Real<T>::C;
+  __device__ __forceinline__ static void run(C (&v)[5]) {
+    constexpr T c1 = Real<T>::cos1, s1 = Real<T>::sin1, c2 = Real<T>::cos2, s2 = Real<T>::sin2;
+    const C t1 = add(v[1], v[4]), t2 = add(v[2], v[3]), t3 = sub(v[1], v[4]), t4 = sub(v[2], v[3]);
+    const C a1 = cplx(v[0].x + c1 * t1.x + c2 * t2.x, v[0].y + c1 * t1.y + c2 * t2.y);
+    const C a2 = cplx(v[0].x + c2 * t1.x + c1 * t2.x, v[0].y + c2 * t1.y + c1 * t2.y);
+    const C b1 = cplx(s1 * t3.x + s2 * t4.x, s1 * t3.y + s2 * t4.y);
+    const C b2 = cplx(s2 * t3.x - s1 * t4.x, s2 * t3.y - s1 * t4.y);
+    v[0] = add(v[0], add(t1, t2));
+    v[1] = cplx(a1.x + b1.y, a1.y - b1.x);  // a1 - i b1
+    v[2] = cplx(a2.x + b2.y, a2.y - b2.x);
+    v[3] = cplx(a2.x - b2.y, a2.y + b2.x);  // a2 + i b2
+    v[4] = cplx(a1.x - b1.y, a1.y + b1.x);
+  }
+};
 
-template <>
-__device__ __forceinline__ void dft<8>(float2 (&v)[8]) {
-  float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
-  float2 o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
-  dft4(e0, e1, e2, e3);
-  dft4(o0, o1, o2, o3);
-  o1 = make_float2((o1.x + o1.y) * kSqrtHalf, (o1.y - o1.x) * kSqrtHalf);     // e^{-i pi/4} o1
-  o2 = make_float2(o2.y, -o2.x);                                               // -i o2
-  o3 = make_float2((o3.y - o3.x) * kSqrtHalf, -(o3.x + o3.y) * kSqrtHalf);    // e^{-3i pi/4} o3
-  v[0] = add(e0, o0); v[4] = sub(e0, o0);
-  v[1] = add(e1, o1); v[5] = sub(e1, o1);
-  v[2] = add(e2, o2); v[6] = sub(e2, o2);
-  v[3] = add(e3, o3); v[7] = sub(e3, o3);
-}
+template <typename T>
+struct Dft<8, T> {
+  using C = typename Real<T>::C;
+  __device__ __forceinline__ static void run(C (&v)[8]) {
+    constexpr T h = Real<T>::sqrt_half;
+    C e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
+    C o0 = v[1], o1 = v[3], o2 = v[5], o3 = v[7];
+    dft4(e0, e1, e2, e3);
+    dft4(o0, o1, o2, o3);
+    o1 = cplx((o1.x + o1.y) * h, (o1.y - o1.x) * h);     // e^{-i pi/4} o1
+    o2 = cplx(o2.y, -o2.x);                               // -i o2
+    o3 = cplx((o3.y - o3.x) * h, -(o3.x + o3.y) * h);    // e^{-3i pi/4} o3
+    v[0] = add(e0, o0); v[4] = sub(e0, o0);
+    v[1] = add(e1, o1); v[5] = sub(e1, o1);
+    v[2] = add(e2, o2); v[6] = sub(e2, o2);
+    v[3] = add(e3, o3); v[7] = sub(e3, o3);
+  }
+};
 
 // Pass S of the Stockham FFT: butterfly j (lane + 32 b) reads z[j + r M/R],
 // twiddles input r by e^{-2 pi i r (j % Ns) / (Ns R)}, and writes its
-// outputs to (j / Ns) Ns R + j % Ns + r Ns (rfft_plan.pass_indices).
-template <int M, int S>
+// outputs to (j / Ns) Ns R + j % Ns + r Ns (rfft_plan.pass_indices). In
+// float32 a lane holds its twiddles in registers; in float64 it reads them
+// at each use (kHeld).
+template <int M, int S, typename T>
 struct Pass {
+  using C = typename Real<T>::C;
   static constexpr int R = radix<M>(S);
   static constexpr int Ns = stride_before<M>(S);
   static constexpr int NB = M / R;               // butterflies
   static constexpr int BPL = (NB + 31) / 32;     // butterflies a lane
-  float2 tw[BPL][R];
+  static constexpr bool kHeld = sizeof(T) == 4;
+  C tw[kHeld ? BPL : 1][R];
+  const C* __restrict__ table;
 
-  __device__ __forceinline__ void load(const float2* __restrict__ twiddles, int lane) {
+  __device__ __forceinline__ void load(const C* __restrict__ twiddles, int lane) {
+    table = twiddles + S * M;
+    if constexpr (kHeld) {
 #pragma unroll
-    for (int b = 0; b < BPL; ++b) {
-      const int j = lane + 32 * b;
+      for (int b = 0; b < BPL; ++b) {
+        const int j = lane + 32 * b;
 #pragma unroll
-      for (int r = 1; r < R; ++r) tw[b][r] = j < NB ? __ldg(twiddles + S * M + j * R + r) : make_float2(1.0f, 0.0f);
+        for (int r = 1; r < R; ++r) tw[b][r] = j < NB ? __ldg(table + j * R + r) : cplx(T(1), T(0));
+      }
     }
   }
 
   // Butterflies and the write of v; the caller has read v (with twiddles applied).
-  __device__ __forceinline__ static void finish(float2 (&v)[BPL][R], float* re, float* im, int lane) {
+  __device__ __forceinline__ static void finish(C (&v)[BPL][R], T* re, T* im, int lane) {
 #pragma unroll
     for (int b = 0; b < BPL; ++b) {
       const int j = lane + 32 * b;
       if (j < NB) {
-        dft<R>(v[b]);
+        Dft<R, T>::run(v[b]);
         const int d = (j / Ns) * Ns * R + j % Ns;
 #pragma unroll
         for (int r = 0; r < R; ++r) {
@@ -225,8 +281,8 @@ struct Pass {
   }
 
   // Passes after the first: in place on the scratch.
-  __device__ __forceinline__ void run(float* re, float* im, int lane) const {
-    float2 v[BPL][R];
+  __device__ __forceinline__ void run(T* re, T* im, int lane) const {
+    C v[BPL][R];
 #pragma unroll
     for (int b = 0; b < BPL; ++b) {
       const int j = lane + 32 * b;
@@ -234,23 +290,30 @@ struct Pass {
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const int i = pad_index(j + r * NB);
-          v[b][r] = make_float2(re[i], im[i]);
+          v[b][r] = cplx(re[i], im[i]);
         }
       }
     }
     __syncwarp();  // every lane has read before any lane writes
 #pragma unroll
     for (int b = 0; b < BPL; ++b) {
+      const int j = lane + 32 * b;
 #pragma unroll
-      for (int r = 1; r < R; ++r) v[b][r] = cmul(v[b][r], tw[b][r]);
+      for (int r = 1; r < R; ++r) {
+        if constexpr (kHeld) {
+          v[b][r] = cmul(v[b][r], tw[b][r]);
+        } else if (j < NB) {
+          v[b][r] = cmul(v[b][r], __ldg(table + j * R + r));
+        }
+      }
     }
     finish(v, re, im, lane);
   }
 
   // The first pass (Ns = 1, no twiddles) reads z from the frame and the window.
-  __device__ __forceinline__ static void first(const float* x, const float2* win2, float* re, float* im, int lane) {
+  __device__ __forceinline__ static void first(const float* x, const C* win2, T* re, T* im, int lane) {
     static_assert(S == 0, "only pass 0 reads the frame");
-    float2 v[BPL][R];
+    C v[BPL][R];
 #pragma unroll
     for (int b = 0; b < BPL; ++b) {
       const int j = lane + 32 * b;
@@ -258,8 +321,8 @@ struct Pass {
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const int m = j + r * NB;
-          const float2 w = win2[m];
-          v[b][r] = make_float2(x[2 * m] * w.x, x[2 * m + 1] * w.y);
+          const C w = win2[m];
+          v[b][r] = cplx(x[2 * m] * w.x, x[2 * m + 1] * w.y);
         }
       }
     }
@@ -286,13 +349,14 @@ __device__ __forceinline__ void load_span(float* xs, const float* row, int n, lo
   copy_async_commit();
 }
 
-template <int M>
+template <int M, typename T>
 __global__ void __launch_bounds__(kThreads)
 mel_rfft_kernel(const float* __restrict__ y, int batch, int n, int n_frames, int hop,
-                const float* __restrict__ window, const float2* __restrict__ twiddles,
-                const float2* __restrict__ split, const float* __restrict__ weights, int n_weights,
+                const T* __restrict__ window, const typename Real<T>::C* __restrict__ twiddles,
+                const typename Real<T>::C* __restrict__ split, const T* __restrict__ weights, int n_weights,
                 const int4* __restrict__ chunks, int n_rounds, const int2* __restrict__ slots, int n_mels,
                 int n_slots, float* __restrict__ out) {
+  using C = typename Real<T>::C;
   constexpr int N = 2 * M;
   constexpr int KS = (M / 2 + 1 + 31) / 32;   // split bins k = lane + 32 i, k <= M/2
   static_assert(kPasses == 3 && stride_before<M>(3) == M, "three passes cover M");
@@ -301,32 +365,32 @@ mel_rfft_kernel(const float* __restrict__ y, int batch, int n, int n_frames, int
   const int span = (kTileT - 1) * hop + N;
   float* xs = smem;                                                      // [span], padded to 4
   int4* chunk = reinterpret_cast<int4*>(xs + ((span + 3) & ~3));         // [n_rounds][32]
-  float* win = reinterpret_cast<float*>(chunk + 32 * n_rounds);          // [N]
+  T* win = reinterpret_cast<T*>(chunk + 32 * n_rounds);                  // [N]
   int2* slot = reinterpret_cast<int2*>(win + N);                         // [n_mels]
-  float* scratch = reinterpret_cast<float*>(slot + n_mels);              // [kWarps][2][scratch_floats(M)]
-  float* parts = scratch + kWarps * 2 * scratch_floats(M);               // [kWarps][n_slots]
-  float* wt = parts + kWarps * n_slots;                                  // [n_weights]
+  T* scratch = reinterpret_cast<T*>(slot + n_mels);                      // [kWarps][2][scratch_floats(M)]
+  T* parts = scratch + kWarps * 2 * scratch_floats(M);                   // [kWarps][n_slots]
+  T* wt = parts + kWarps * n_slots;                                      // [n_weights]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float* re = scratch + warp * 2 * scratch_floats(M);
-  float* im = re + scratch_floats(M);
-  float* part = parts + warp * n_slots;
-  const float2* win2 = reinterpret_cast<const float2*>(win);
+  T* re = scratch + warp * 2 * scratch_floats(M);
+  T* im = re + scratch_floats(M);
+  T* part = parts + warp * n_slots;
+  const C* win2 = reinterpret_cast<const C*>(win);
 
   for (int i = threadIdx.x; i < N; i += kThreads) win[i] = __ldg(window + i);
   for (int i = threadIdx.x; i < 32 * n_rounds; i += kThreads) chunk[i] = __ldg(chunks + i);
   for (int i = threadIdx.x; i < n_mels; i += kThreads) slot[i] = __ldg(slots + i);
   for (int i = threadIdx.x; i < n_weights; i += kThreads) wt[i] = __ldg(weights + i);
-  Pass<M, 1> p1;
-  Pass<M, 2> p2;
+  Pass<M, 1, T> p1;
+  Pass<M, 2, T> p2;
   p1.load(twiddles, lane);
   p2.load(twiddles, lane);
-  float2 sw[KS];
+  C sw[KS];
 #pragma unroll
   for (int i = 0; i < KS; ++i) {
     const int k = lane + 32 * i;
-    sw[i] = k <= M / 2 ? __ldg(split + k) : make_float2(1.0f, 0.0f);
+    sw[i] = k <= M / 2 ? __ldg(split + k) : cplx(T(1), T(0));
   }
 
   const int tiles_per_clip = (n_frames + kTileT - 1) / kTileT;
@@ -343,29 +407,29 @@ mel_rfft_kernel(const float* __restrict__ y, int batch, int n, int n_frames, int
       const int t = t0 + f;
       if (t >= n_frames) break;  // warp-uniform: frames past T are not computed
 
-      Pass<M, 0>::first(xs + f * hop, win2, re, im, lane);
+      Pass<M, 0, T>::first(xs + f * hop, win2, re, im, lane);
       p1.run(re, im, lane);
       p2.run(re, im, lane);
 
       // Real split: power of bins k and M - k from Z[k] and Z[M - k].
-      float pk[KS], pm[KS];
+      T pk[KS], pm[KS];
 #pragma unroll
       for (int i = 0; i < KS; ++i) {
         const int k = lane + 32 * i;
         if (k <= M / 2) {
           const int ia = pad_index(k), ib = pad_index((M - k) % M);
-          const float2 a = make_float2(re[ia], im[ia]);
-          const float2 c = make_float2(re[ib], im[ib]);
-          const float2 e = make_float2((a.x + c.x) * 0.5f, (a.y - c.y) * 0.5f);
-          const float2 o = make_float2((a.y + c.y) * 0.5f, (c.x - a.x) * 0.5f);
-          const float2 wo = cmul(o, sw[i]);
-          const float2 x1 = add(e, wo), x2 = sub(e, wo);
-          pk[i] = fmaf(x1.x, x1.x, x1.y * x1.y);
-          pm[i] = fmaf(x2.x, x2.x, x2.y * x2.y);
+          const C a = cplx(re[ia], im[ia]);
+          const C c = cplx(re[ib], im[ib]);
+          const C e = cplx((a.x + c.x) * T(0.5), (a.y - c.y) * T(0.5));
+          const C o = cplx((a.y + c.y) * T(0.5), (c.x - a.x) * T(0.5));
+          const C wo = cmul(o, sw[i]);
+          const C x1 = add(e, wo), x2 = sub(e, wo);
+          pk[i] = fma_(x1.x, x1.x, x1.y * x1.y);
+          pm[i] = fma_(x2.x, x2.x, x2.y * x2.y);
         }
       }
       __syncwarp();
-      float* pw = re;  // power of bins 0 .. M, unpadded
+      T* pw = re;  // power of bins 0 .. M, unpadded
 #pragma unroll
       for (int i = 0; i < KS; ++i) {
         const int k = lane + 32 * i;
@@ -381,8 +445,8 @@ mel_rfft_kernel(const float* __restrict__ y, int batch, int n, int n_frames, int
       for (int q = 0; q < n_rounds; ++q) {
         const int4 c = chunk[32 * q + lane];
         if (c.w >= 0) {
-          float acc = 0.0f;
-          for (int i = 0; i < c.y; ++i) acc = fmaf(pw[c.x + i], wt[c.z + i], acc);
+          T acc = T(0);
+          for (int i = 0; i < c.y; ++i) acc = fma_(pw[c.x + i], wt[c.z + i], acc);
           part[c.w] = acc;
         }
       }
@@ -390,31 +454,33 @@ mel_rfft_kernel(const float* __restrict__ y, int batch, int n, int n_frames, int
       float* orow = out + (static_cast<long>(b) * n_frames + t) * n_mels;
       for (int j = lane; j < n_mels; j += 32) {
         const int2 sj = slot[j];
-        float acc = part[sj.x];
+        T acc = part[sj.x];
         for (int c = 1; c < sj.y; ++c) acc += part[sj.x + c];
-        orow[j] = acc;
+        orow[j] = static_cast<float>(acc);
       }
       __syncwarp();  // the next frame overwrites the power and the partial sums
     }
   }
 }
 
-size_t smem_bytes(int n_fft, int hop, int n_mels, int n_weights, int n_rounds, int n_slots) {
+// The span, chunks and slots take 4-byte words; the window, scratch, partial sums and weights T.
+size_t smem_bytes(int n_fft, int hop, int n_mels, int n_weights, int n_rounds, int n_slots, size_t t_bytes = 4) {
   const size_t span = static_cast<size_t>(kTileT - 1) * hop + n_fft;
   return sizeof(float) * (((span + 3) & ~static_cast<size_t>(3)) + 4 * 32 * static_cast<size_t>(n_rounds) +
-                          n_fft + 2 * static_cast<size_t>(n_mels) +
-                          static_cast<size_t>(kWarps) * (2 * scratch_floats(n_fft / 2) + n_slots) + n_weights);
+                          2 * static_cast<size_t>(n_mels)) +
+         t_bytes * (n_fft + static_cast<size_t>(kWarps) * (2 * scratch_floats(n_fft / 2) + n_slots) + n_weights);
 }
 
 constexpr int kMaxDevices = 64;
 
-template <int M>
-int launch(const float* y, int batch, int n, int n_frames, int hop, const float* window, const float* twiddles,
-           const float* split, const float* weights, int n_weights, const int* chunks, int n_rounds,
+template <int M, typename T = float>
+int launch(const float* y, int batch, int n, int n_frames, int hop, const T* window, const T* twiddles,
+           const T* split, const T* weights, int n_weights, const int* chunks, int n_rounds,
            const int* slots, int n_mels, int n_slots, float* out, cudaStream_t stream) {
+  using C = typename Real<T>::C;
   static std::mutex lock;
   static int smem_set[kMaxDevices] = {};  // per device: the limit set so far
-  const int smem = static_cast<int>(smem_bytes(2 * M, hop, n_mels, n_weights, n_rounds, n_slots));
+  const int smem = static_cast<int>(smem_bytes(2 * M, hop, n_mels, n_weights, n_rounds, n_slots, sizeof(T)));
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -422,7 +488,7 @@ int launch(const float* y, int batch, int n, int n_frames, int hop, const float*
   {
     std::lock_guard<std::mutex> guard(lock);
     if (smem > smem_set[dev]) {
-      err = cudaFuncSetAttribute(mel_rfft_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      err = cudaFuncSetAttribute(mel_rfft_kernel<M, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
       smem_set[dev] = smem;
     }
@@ -430,25 +496,49 @@ int launch(const float* y, int batch, int n, int n_frames, int hop, const float*
   int sms = 0, per_sm = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mel_rfft_kernel<M>, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mel_rfft_kernel<M, T>, kThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long n_tiles = static_cast<long>(batch) * ((n_frames + kTileT - 1) / kTileT);
   const int grid = static_cast<int>(n_tiles < static_cast<long>(sms) * per_sm ? n_tiles : static_cast<long>(sms) * per_sm);
-  mel_rfft_kernel<M><<<grid, kThreads, smem, stream>>>(
-      y, batch, n, n_frames, hop, window, reinterpret_cast<const float2*>(twiddles),
-      reinterpret_cast<const float2*>(split), weights, n_weights, reinterpret_cast<const int4*>(chunks), n_rounds,
+  mel_rfft_kernel<M, T><<<grid, kThreads, smem, stream>>>(
+      y, batch, n, n_frames, hop, window, reinterpret_cast<const C*>(twiddles),
+      reinterpret_cast<const C*>(split), weights, n_weights, reinterpret_cast<const int4*>(chunks), n_rounds,
       reinterpret_cast<const int2*>(slots), n_mels, n_slots, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 instantiation for n_fft in {256, 320, 400, 512, 640, 1024}.
+int launch_f64(const float* y, int batch, int n, int n_frames, int n_fft, int hop, const double* window,
+               const double* twiddles, const double* split, const double* weights, int n_weights, const int* chunks,
+               int n_rounds, const int* slots, int n_mels, int n_slots, float* out, cudaStream_t s) {
+  switch (n_fft) {
+    case 256: return launch<128, double>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights,
+                                         chunks, n_rounds, slots, n_mels, n_slots, out, s);
+    case 320: return launch<160, double>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights,
+                                         chunks, n_rounds, slots, n_mels, n_slots, out, s);
+    case 400: return launch<200, double>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights,
+                                         chunks, n_rounds, slots, n_mels, n_slots, out, s);
+    case 512: return launch<256, double>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights,
+                                         chunks, n_rounds, slots, n_mels, n_slots, out, s);
+    case 640: return launch<320, double>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights,
+                                         chunks, n_rounds, slots, n_mels, n_slots, out, s);
+    case 1024: return launch<512, double>(y, batch, n, n_frames, hop, window, twiddles, split, weights, n_weights,
+                                          chunks, n_rounds, slots, n_mels, n_slots, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block needs, in bytes.
+// Dynamic shared memory one block needs, in bytes (float32 and float64 instantiations).
 size_t mel_rfft_smem_bytes(int n_fft, int hop, int n_mels, int n_weights, int n_rounds, int n_slots) {
   return smem_bytes(n_fft, hop, n_mels, n_weights, n_rounds, n_slots);
+}
+size_t mel_rfft_smem_bytes_f64(int n_fft, int hop, int n_mels, int n_weights, int n_rounds, int n_slots) {
+  return smem_bytes(n_fft, hop, n_mels, n_weights, n_rounds, n_slots, sizeof(double));
 }
 
 // Launches the kernel for n_fft in {256, 320, 400, 512, 640, 1024} on `stream` (on the
@@ -484,6 +574,16 @@ int mel_rfft_launch(const float* y, int batch, int n, int n_frames, int n_fft, i
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The same launch on the float64 instantiation, with rfft_plan.tables64()'s
+// window, twiddles, split and weights (float64; chunks and slots as above).
+int mel_rfft_launch_f64(const float* y, int batch, int n, int n_frames, int n_fft, int hop, const double* window,
+                        const double* twiddles, const double* split, const double* weights, int n_weights,
+                        const int* chunks, int n_rounds, const int* slots, int n_mels, int n_slots, float* out,
+                        void* stream) {
+  return launch_f64(y, batch, n, n_frames, n_fft, hop, window, twiddles, split, weights, n_weights, chunks,
+                    n_rounds, slots, n_mels, n_slots, out, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -193,6 +193,13 @@ class BatchedAudioExtractor(BaseFeatureExtractor):
     duration: Optional[float] = None
     batch_size: int = 256
     decode_workers: int = 8
+    # Masked padded batches are exact for per-frame features (mel, mfcc_seq:
+    # per-frame ops + masked reductions). Features with cross-frame
+    # couplings (savgol deltas, per-band sorts in the classical stack) are
+    # contaminated near the valid/pad boundary, so those extractors set
+    # exact_length_batching: clips are grouped by exact length and each
+    # group runs unmasked.
+    exact_length_batching: bool = False
 
     # -- subclass hooks -------------------------------------------------
     def target_samples(self) -> Optional[int]:
@@ -237,6 +244,38 @@ class BatchedAudioExtractor(BaseFeatureExtractor):
         with torch.inference_mode():
             return self.batch_feature(waves_d, lengths_d).cpu().numpy()
 
+    def _exact_length_groups(self, good: list) -> list[np.ndarray]:
+        """One unmasked device batch per distinct clip length in ``good``,
+        its rows padded to a power of two capped at ``batch_size`` so that
+        group sizes repeat from chunk to chunk. Only for extractors whose
+        output shape does not depend on the length (flat vectors): framed
+        outputs would be ragged across groups."""
+        if self.frames_for(self.min_samples()) is not None:
+            raise TypeError(
+                f"{self.name}: exact_length_batching requires a "
+                "length-independent output shape (frames_for must return None)"
+            )
+        feat_per_item: list = [None] * len(good)
+        groups: dict[int, list[int]] = {}
+        for j, (y, _, _) in enumerate(good):
+            groups.setdefault(len(y), []).append(j)
+        if len(groups) > 16 and not getattr(self, "_warned_lengths", False):
+            self._warned_lengths = True
+            logger.warning(
+                "%s: %d distinct clip lengths in one batch, one device batch each. "
+                "Pass duration=... (pad/trim) to fix the shape.",
+                self.name, len(groups),
+            )
+        for length, idxs in sorted(groups.items()):
+            rows = len(idxs)
+            waves = np.zeros((max(rows, min(self.batch_size, 1 << (rows - 1).bit_length())), length), np.float32)
+            for k, j in enumerate(idxs):
+                waves[k] = good[j][0]
+            feats = self._device_batch(waves, None).astype(np.float32)
+            for k, j in enumerate(idxs):
+                feat_per_item[j] = feats[k]
+        return feat_per_item
+
     def _pad_bucket(self, n: int) -> int:
         """Round variable lengths up to 1 s steps to bound the shape count."""
         step = self.sample_rate
@@ -276,6 +315,8 @@ class BatchedAudioExtractor(BaseFeatureExtractor):
                     waves[j, : len(y)] = y[:tgt]
                 feats = self._device_batch(waves, None).astype(np.float32)[:rows]
                 return list(feats)
+            if self.exact_length_batching:
+                return self._exact_length_groups(good)
             # rows fixed at batch_size; pad rows carry a FULL-length mask
             # over all-zero audio and are sliced away below. Sample dim
             # bucketed to 1 s steps

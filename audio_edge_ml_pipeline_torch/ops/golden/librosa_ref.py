@@ -1,14 +1,16 @@
-"""Float64 numpy reference DSP for the mel path, algorithmically compatible
-with librosa.
+"""Float64 numpy reference DSP, algorithmically compatible with librosa.
 
-The port's own copy of the functions its mel path is checked against; the
-JAX package keeps the full oracle. Conventions (librosa 0.10/0.11 defaults):
+The port's own copy of the functions its audio features are checked
+against (the JAX package keeps the same oracle, with the CQT besides).
+Conventions (librosa 0.10/0.11 defaults):
 
 - STFT: win_length = n_fft, periodic Hann, center=True, pad_mode="constant".
   n_frames = 1 + len(y) // hop_length for even n_fft.
 - mel filterbank: slaney scale, slaney area normalization, fmin=0,
   fmax=sr/2, weights from librosa.filters.mel.
 - power_to_db: amin=1e-10, top_db=80, ref may be a scalar or the array max.
+- mfcc: log-mel (power_to_db with ref=1.0) -> DCT-II ortho over mel axis.
+- delta: Savitzky-Golay filter, width=9, mode="interp".
 """
 
 from __future__ import annotations
@@ -31,12 +33,28 @@ def frame_signal(y: np.ndarray, frame_length: int, hop_length: int) -> np.ndarra
     return y[idx]
 
 
-def stft(y: np.ndarray, n_fft: int, hop_length: int, center: bool = True) -> np.ndarray:
-    """Complex Hann-window STFT, shape (1 + n_fft//2, n_frames)."""
+def stft(
+    y: np.ndarray,
+    n_fft: int,
+    hop_length: int,
+    window: str | np.ndarray = "hann",
+    center: bool = True,
+    pad_mode: str = "constant",
+) -> np.ndarray:
+    """Complex STFT, shape (1 + n_fft//2, n_frames) (librosa.stft)."""
     y = np.asarray(y, dtype=np.float64)
+    if isinstance(window, str):
+        if window == "hann":
+            win = hann_periodic(n_fft)
+        elif window in ("ones", "rect", "boxcar"):
+            win = np.ones(n_fft)
+        else:
+            raise ValueError(f"unsupported window: {window}")
+    else:
+        win = np.asarray(window, dtype=np.float64)
     if center:
-        y = np.pad(y, n_fft // 2, mode="constant")
-    frames = frame_signal(y, n_fft, hop_length) * hann_periodic(n_fft)[None, :]
+        y = np.pad(y, n_fft // 2, mode=pad_mode)
+    frames = frame_signal(y, n_fft, hop_length) * win[None, :]
     return np.fft.rfft(frames, n=n_fft, axis=-1).T  # (freq, time)
 
 
@@ -113,6 +131,16 @@ def power_to_db(S, ref=1.0, amin: float = 1e-10, top_db: float | None = 80.0):
     return log_spec
 
 
+def amplitude_to_db(S, ref=1.0, amin: float = 1e-5, top_db: float | None = 80.0):
+    """20*log10(|S|/ref); librosa.amplitude_to_db."""
+    magnitude = np.abs(np.asarray(S, dtype=np.float64))
+    if isinstance(ref, str) and ref == "max":
+        ref_value = magnitude.max()
+    else:
+        ref_value = np.abs(ref)
+    return power_to_db(magnitude**2, ref=ref_value**2, amin=amin**2, top_db=top_db)
+
+
 def minmax_normalize(x, eps: float = 1e-8):
     """Min-max normalize to [0,1]."""
     x = np.asarray(x, dtype=np.float64)
@@ -143,3 +171,384 @@ def mel_spec_feature(
     mel = melspectrogram(y, sr, n_mels=n_mels, n_fft=n_fft, hop_length=hop_length)
     log_mel = power_to_db(mel, ref="max")
     return minmax_normalize(log_mel)
+
+
+# ----------------------------------------------------------------------
+# MFCC + deltas
+# ----------------------------------------------------------------------
+
+
+def dct_ii_ortho_matrix(n_out: int, n_in: int) -> np.ndarray:
+    """Orthonormal DCT-II matrix (n_out, n_in): scipy.fft.dct(type=2, norm='ortho').
+
+    Same matrix the reference bakes into the device SVM bundle
+    (export_svm.py:69) and that mfcc applies along the mel axis.
+    """
+    k = np.arange(n_out, dtype=np.float64)[:, None]
+    n = np.arange(n_in, dtype=np.float64)[None, :]
+    mat = 2.0 * np.cos(np.pi * k * (2 * n + 1) / (2.0 * n_in))
+    # ortho scaling
+    mat *= np.sqrt(1.0 / (4.0 * n_in))
+    mat[0] *= np.sqrt(0.5)
+    return mat * np.sqrt(2.0)
+
+
+def mfcc(
+    y: np.ndarray,
+    sr: float,
+    n_mfcc: int,
+    n_fft: int,
+    hop_length: int,
+    n_mels: int = 128,
+) -> np.ndarray:
+    """MFCC sequence (n_mfcc, n_frames); librosa.feature.mfcc defaults:
+    log-mel via power_to_db(ref=1.0, top_db=80) then ortho DCT-II over mels.
+    Reference audio/classical.py:284-285, audio/deep.py:318-324.
+    """
+    S = melspectrogram(y, sr, n_mels=n_mels, n_fft=n_fft, hop_length=hop_length)
+    S_db = power_to_db(S, ref=1.0, amin=1e-10, top_db=80.0)
+    D = dct_ii_ortho_matrix(n_mfcc, n_mels)
+    return D @ S_db
+
+
+def _savgol_coeffs(window_length: int, polyorder: int, deriv: int) -> np.ndarray:
+    """Savitzky-Golay FIR coefficients (centered), via least-squares design."""
+    import math
+
+    half = (window_length - 1) // 2
+    t = np.arange(-half, half + 1, dtype=np.float64)
+    A = np.vander(t, polyorder + 1, increasing=True)  # (w, p+1)
+    pinv = np.linalg.pinv(A)
+    # deriv-th derivative at t=0 of the LS polynomial = deriv! * c_deriv
+    return pinv[deriv] * math.factorial(deriv)
+
+
+def delta(data: np.ndarray, width: int = 9, order: int = 1, axis: int = -1) -> np.ndarray:
+    """librosa.feature.delta: savgol_filter(width, polyorder=order,
+    deriv=order, mode='interp'). Reference audio/classical.py:289-293.
+    """
+    data = np.asarray(data, dtype=np.float64)
+    data = np.moveaxis(data, axis, -1)
+    n = data.shape[-1]
+    if n < width:
+        raise ValueError(f"delta width {width} exceeds sequence length {n}")
+    half = (width - 1) // 2
+    coeffs = _savgol_coeffs(width, polyorder=order, deriv=order)
+    # interior: correlation with coeffs
+    out = np.empty_like(data)
+    # full correlation over valid positions
+    windows = np.lib.stride_tricks.sliding_window_view(data, width, axis=-1)
+    out[..., half : n - half] = windows @ coeffs
+    # edges, mode='interp': fit polyorder polynomial to first/last window,
+    # evaluate its deriv-th derivative at the edge positions.
+    import math
+
+    t = np.arange(width, dtype=np.float64)
+    A = np.vander(t, order + 1, increasing=True)
+    pinv = np.linalg.pinv(A)  # (order+1, width)
+    # derivative polynomial coefficients evaluated at positions 0..half-1
+    def _edge(block, positions):
+        # block: (..., width); returns (..., len(positions)).
+        # deriv-th derivative of sum_m c_m t^m is sum_{m>=d} c_m m!/(m-d)! t^{m-d}
+        poly = block @ pinv.T  # (..., order+1) polynomial coeffs c0..c_order
+        vals = np.zeros(block.shape[:-1] + (len(positions),))
+        d = order
+        for j, pos in enumerate(positions):
+            acc = np.zeros(block.shape[:-1])
+            for m in range(d, order + 1):
+                fac = math.factorial(m) / math.factorial(m - d)
+                acc = acc + poly[..., m] * fac * (pos ** (m - d))
+            vals[..., j] = acc
+        return vals
+
+    out[..., :half] = _edge(data[..., :width], list(range(half)))
+    out[..., n - half :] = _edge(data[..., n - width :], [width - half + i for i in range(half)])
+    return np.moveaxis(out, -1, axis)
+
+
+# ----------------------------------------------------------------------
+# Chroma + tonnetz
+# ----------------------------------------------------------------------
+
+
+def _hz_to_octs(freqs: np.ndarray, tuning: float = 0.0, bins_per_octave: int = 12) -> np.ndarray:
+    A440 = 440.0 * 2.0 ** (tuning / bins_per_octave)
+    return np.log2(freqs / (A440 / 16))
+
+
+def chroma_filterbank(
+    sr: float,
+    n_fft: int,
+    n_chroma: int = 12,
+    tuning: float = 0.0,
+    ctroct: float = 5.0,
+    octwidth: float = 2.0,
+    base_c: bool = True,
+) -> np.ndarray:
+    """Ellis chroma filterbank, shape (n_chroma, 1 + n_fft//2).
+
+    Models librosa.filters.chroma. NOTE: librosa.feature.chroma_stft by
+    default *estimates* tuning from the signal; this framework fixes
+    tuning=0.0 (documented deviation — deterministic and batch-friendly).
+    """
+    wts = np.zeros((n_chroma, n_fft))
+    frequencies = np.linspace(0, sr, n_fft, endpoint=False)[1:]
+    frqbins = n_chroma * _hz_to_octs(frequencies, tuning=tuning, bins_per_octave=n_chroma)
+    frqbins = np.concatenate(([frqbins[0] - 1.5 * n_chroma], frqbins))
+    binwidthbins = np.concatenate((np.maximum(frqbins[1:] - frqbins[:-1], 1.0), [1.0]))
+    D = np.subtract.outer(frqbins, np.arange(0, n_chroma, dtype="d")).T
+    n_chroma2 = np.round(float(n_chroma) / 2)
+    D = np.remainder(D + n_chroma2 + 10 * n_chroma, n_chroma) - n_chroma2
+    wts = np.exp(-0.5 * (2 * D / np.tile(binwidthbins, (n_chroma, 1))) ** 2)
+    # normalize each column by its L2 norm
+    norms = np.sqrt(np.sum(wts**2, axis=0, keepdims=True))
+    norms[norms < np.finfo(np.float64).tiny] = 1.0
+    wts = wts / norms
+    if octwidth is not None:
+        wts *= np.tile(np.exp(-0.5 * (((frqbins / n_chroma - ctroct) / octwidth) ** 2)), (n_chroma, 1))
+    if base_c:
+        wts = np.roll(wts, -3 * (n_chroma // 12), axis=0)
+    return np.ascontiguousarray(wts[:, : int(1 + n_fft / 2)])
+
+
+def _normalize_cols(S: np.ndarray, norm: float, axis: int = 0) -> np.ndarray:
+    """librosa.util.normalize: columns with norm below float tiny unchanged."""
+    if norm == np.inf:
+        length = np.max(np.abs(S), axis=axis, keepdims=True)
+    elif norm == 1:
+        length = np.sum(np.abs(S), axis=axis, keepdims=True)
+    elif norm == 2:
+        length = np.sqrt(np.sum(np.abs(S) ** 2, axis=axis, keepdims=True))
+    else:
+        raise ValueError(norm)
+    length = np.where(length < np.finfo(np.float64).tiny, 1.0, length)
+    return S / length
+
+
+def chroma_stft(
+    y: np.ndarray, sr: float, n_fft: int, hop_length: int, n_chroma: int = 12
+) -> np.ndarray:
+    """Chromagram from power STFT, max-normalized per frame (tuning=0.0).
+
+    Reference audio/classical.py:323-324.
+    """
+    S = np.abs(stft(y, n_fft=n_fft, hop_length=hop_length)) ** 2
+    fb = chroma_filterbank(sr, n_fft, n_chroma=n_chroma)
+    raw = fb @ S
+    return _normalize_cols(raw, norm=np.inf, axis=0)
+
+
+def tonnetz(chroma: np.ndarray) -> np.ndarray:
+    """Tonal centroid features (6, n_frames); librosa.feature.tonnetz
+    (chroma= path). Reference audio/classical.py:336.
+    """
+    n_chroma = chroma.shape[-2]
+    dim_map = np.linspace(0, 12, num=n_chroma, endpoint=False)
+    scale = np.asarray([7.0 / 6, 7.0 / 6, 3.0 / 2, 3.0 / 2, 2.0 / 3, 2.0 / 3])
+    V = np.multiply.outer(scale, dim_map)
+    V[::2] -= 0.5
+    R = np.array([1, 1, 1, 1, 0.5, 0.5])
+    phi = R[:, None] * np.cos(np.pi * V)
+    return phi @ _normalize_cols(chroma, norm=1, axis=-2)
+
+
+# ----------------------------------------------------------------------
+# Spectral descriptors
+# ----------------------------------------------------------------------
+
+
+def spectral_centroid(y: np.ndarray, sr: float, n_fft: int, hop_length: int) -> np.ndarray:
+    S = np.abs(stft(y, n_fft=n_fft, hop_length=hop_length))
+    freq = fft_frequencies(sr, n_fft)
+    Sn = _normalize_cols(S, norm=1, axis=-2)
+    return np.sum(freq[:, None] * Sn, axis=-2, keepdims=True)
+
+
+def spectral_rolloff(
+    y: np.ndarray, sr: float, n_fft: int, hop_length: int, roll_percent: float = 0.85
+) -> np.ndarray:
+    S = np.abs(stft(y, n_fft=n_fft, hop_length=hop_length))
+    freq = fft_frequencies(sr, n_fft)
+    total = np.cumsum(S, axis=-2)
+    threshold = roll_percent * total[-1:, :]
+    ind = np.where(total < threshold, np.nan, 1.0)
+    return np.nanmin(ind * freq[:, None], axis=-2, keepdims=True)
+
+
+def spectral_bandwidth(
+    y: np.ndarray, sr: float, n_fft: int, hop_length: int, p: float = 2.0
+) -> np.ndarray:
+    S = np.abs(stft(y, n_fft=n_fft, hop_length=hop_length))
+    freq = fft_frequencies(sr, n_fft)
+    centroid = spectral_centroid(y, sr, n_fft, hop_length)
+    deviation = np.abs(freq[:, None] - centroid)
+    Sn = _normalize_cols(S, norm=1, axis=-2)
+    return np.sum(Sn * deviation**p, axis=-2, keepdims=True) ** (1.0 / p)
+
+
+def spectral_contrast(
+    y: np.ndarray,
+    sr: float,
+    n_fft: int,
+    hop_length: int,
+    fmin: float = 200.0,
+    n_bands: int = 6,
+    quantile: float = 0.02,
+    linear: bool = False,
+) -> np.ndarray:
+    """Octave-band peak-valley contrast (n_bands+1, n_frames)."""
+    S = np.abs(stft(y, n_fft=n_fft, hop_length=hop_length))
+    freq = fft_frequencies(sr, n_fft)
+    octa = np.zeros(n_bands + 2)
+    octa[1:] = fmin * (2.0 ** np.arange(0, n_bands + 1))
+    valley = np.zeros((n_bands + 1, S.shape[-1]))
+    peak = np.zeros_like(valley)
+    for k, (f_low, f_high) in enumerate(zip(octa[:-1], octa[1:])):
+        current_band = np.logical_and(freq >= f_low, freq <= f_high)
+        idx = np.flatnonzero(current_band)
+        if k > 0:
+            current_band[idx[0] - 1] = True
+        if k == n_bands:
+            current_band[idx[-1] + 1 :] = True
+        sub_band = S[current_band]
+        if k < n_bands:
+            sub_band = sub_band[:-1]
+        nsel = int(np.maximum(np.rint(quantile * np.sum(current_band)), 1))
+        sortedr = np.sort(sub_band, axis=-2)
+        valley[k] = np.mean(sortedr[:nsel], axis=-2)
+        peak[k] = np.mean(sortedr[-nsel:], axis=-2)
+    if linear:
+        return peak - valley
+    return power_to_db(peak) - power_to_db(valley)
+
+
+def spectral_flatness(
+    y: np.ndarray, n_fft: int, hop_length: int, amin: float = 1e-10, power: float = 2.0
+) -> np.ndarray:
+    S = np.abs(stft(y, n_fft=n_fft, hop_length=hop_length))
+    S_thresh = np.maximum(amin, S**power)
+    gmean = np.exp(np.mean(np.log(S_thresh), axis=-2, keepdims=True))
+    amean = np.mean(S_thresh, axis=-2, keepdims=True)
+    return gmean / amean
+
+
+def zero_crossing_rate(
+    y: np.ndarray, frame_length: int = 2048, hop_length: int = 512, threshold: float = 1e-10
+) -> np.ndarray:
+    """librosa.feature.zero_crossing_rate: edge padding, signbit diffs,
+    pad=True so the first row of each frame counts as no crossing.
+    Reference audio/classical.py:328.
+    """
+    y = np.asarray(y, dtype=np.float64)
+    y_pad = np.pad(y, frame_length // 2, mode="edge")
+    frames = frame_signal(y_pad, frame_length, hop_length)  # (n_frames, frame_length)
+    yy = frames.copy()
+    yy[np.abs(yy) <= threshold] = 0.0
+    sb = np.signbit(yy)
+    crossings = np.abs(np.diff(sb, axis=-1)).astype(np.float64)
+    crossings = np.concatenate([np.zeros((frames.shape[0], 1)), crossings], axis=-1)
+    return crossings.mean(axis=-1)[None, :]
+
+
+def rms(y: np.ndarray, frame_length: int, hop_length: int) -> np.ndarray:
+    """librosa.feature.rms with center=True constant padding.
+    Reference audio/classical.py:332.
+    """
+    y = np.asarray(y, dtype=np.float64)
+    y_pad = np.pad(y, frame_length // 2, mode="constant")
+    frames = frame_signal(y_pad, frame_length, hop_length)
+    return np.sqrt(np.mean(frames**2, axis=-1))[None, :]
+
+
+# ----------------------------------------------------------------------
+# End-to-end feature functions (mirror the registered extractors)
+# ----------------------------------------------------------------------
+
+
+def mfcc_seq_feature(
+    y: np.ndarray, sr: float = 22050, n_mfcc: int = 40, n_fft: int = 1024, hop_length: int = 512
+) -> np.ndarray:
+    """audio_mfcc_seq contract: per-coefficient z-score; audio/deep.py:304-328."""
+    M = mfcc(y, sr, n_mfcc=n_mfcc, n_fft=n_fft, hop_length=hop_length)
+    mean = M.mean(axis=1, keepdims=True)
+    std = M.std(axis=1, keepdims=True) + 1e-8
+    return (M - mean) / std
+
+
+def waveform_feature(y: np.ndarray) -> np.ndarray:
+    """audio_waveform contract: peak-normalize to [-1,1]; audio/deep.py:170-188."""
+    y = np.asarray(y, dtype=np.float64)
+    peak = np.abs(y).max()
+    return y / peak if peak > 0 else y
+
+
+_ALL_CLASSICAL = [
+    "mfcc",
+    "delta_mfcc",
+    "delta2_mfcc",
+    "spectral_centroid",
+    "spectral_rolloff",
+    "spectral_bandwidth",
+    "spectral_contrast",
+    "spectral_flatness",
+    "chroma",
+    "zcr",
+    "rms",
+    "tonnetz",
+]
+
+
+def classical_feature_vector(
+    y: np.ndarray,
+    sr: float = 22050,
+    n_mfcc: int = 40,
+    n_mels: int = 128,
+    n_fft: int = 1024,
+    hop_length: int = 512,
+    features: list[str] | None = None,
+    aggregations: list[str] | None = None,
+) -> np.ndarray:
+    """audio_classical contract: per-group mean/std aggregation in canonical
+    order -> flat vector (302-d default). Reference audio/classical.py:272-355.
+    """
+    feats = list(_ALL_CLASSICAL) if features is None else [k for k in _ALL_CLASSICAL if k in set(features)]
+    aggs = ["mean", "std"] if aggregations is None else [a for a in ["mean", "std"] if a in set(aggregations)]
+    active = set(feats)
+
+    def agg(x, scalar=False):
+        parts = []
+        if "mean" in aggs:
+            parts.append(np.array([float(x.mean())]) if scalar else x.mean(axis=1))
+        if "std" in aggs:
+            parts.append(np.array([float(x.std())]) if scalar else x.std(axis=1))
+        return np.concatenate(parts)
+
+    cache: dict[str, np.ndarray] = {}
+    if active & {"mfcc", "delta_mfcc", "delta2_mfcc"}:
+        cache["mfcc"] = mfcc(y, sr, n_mfcc=n_mfcc, n_fft=n_fft, hop_length=hop_length, n_mels=n_mels)
+    if "delta_mfcc" in active:
+        cache["delta_mfcc"] = delta(cache["mfcc"], order=1)
+    if "delta2_mfcc" in active:
+        cache["delta2_mfcc"] = delta(cache["mfcc"], order=2)
+    if "spectral_centroid" in active:
+        cache["spectral_centroid"] = spectral_centroid(y, sr, n_fft, hop_length)
+    if "spectral_rolloff" in active:
+        cache["spectral_rolloff"] = spectral_rolloff(y, sr, n_fft, hop_length)
+    if "spectral_bandwidth" in active:
+        cache["spectral_bandwidth"] = spectral_bandwidth(y, sr, n_fft, hop_length)
+    if "spectral_contrast" in active:
+        cache["spectral_contrast"] = spectral_contrast(y, sr, n_fft, hop_length)
+    if "spectral_flatness" in active:
+        cache["spectral_flatness"] = spectral_flatness(y, n_fft, hop_length)
+    if active & {"chroma", "tonnetz"}:
+        cache["chroma"] = chroma_stft(y, sr, n_fft, hop_length)
+    if "zcr" in active:
+        cache["zcr"] = zero_crossing_rate(y, hop_length=hop_length)
+    if "rms" in active:
+        cache["rms"] = rms(y, frame_length=n_fft, hop_length=hop_length)
+    if "tonnetz" in active:
+        cache["tonnetz"] = tonnetz(cache["chroma"])
+
+    scalar_groups = {"spectral_centroid", "spectral_rolloff", "spectral_bandwidth", "spectral_flatness", "zcr", "rms"}
+    parts = [agg(cache[k], scalar=(k in scalar_groups)) for k in feats]
+    return np.concatenate(parts)

@@ -16,6 +16,13 @@ from one to another: a CUDA tensor the routed kernel cannot take raises.
 wrapper counts. ``mel_unfolded.mel_power_unfolded`` calls ``launch_rfft``
 too and adds to its own counter.
 
+``precise=True`` (the MFCC features, ``ops/audio_features.py``) launches
+``mel_rfft.cu``'s float64 instantiation on the FFT route: the same steps in
+float64, which the MFCC's dB scale at ref = 1 needs (see that file). Those
+launches count on ``counter`` and on ``counter_f64``. The dense route has no
+float64 kernel, so ``precise=True`` on a CUDA tensor at an n_fft off the FFT
+route raises rather than run the float32 dense kernel.
+
 ``mel_spec_feature`` adds the masked dB and min-max epilogue (torch ops, from
 ``ops.dsp``), as ``mel_spec_feature_pallas`` does on the TPU side.
 """
@@ -55,6 +62,7 @@ class KernelCounter:
 
 counter = KernelCounter("mel_folded")              # every launch of either kernel
 counter_dense = KernelCounter("mel_folded_dense")  # the launches of the dense one among them
+counter_f64 = KernelCounter("mel_folded_f64")      # the launches of mel_rfft's float64 instantiation among them
 
 
 def _round_up(x: int, m: int) -> int:
@@ -105,10 +113,12 @@ def _check(y: torch.Tensor) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def rfft_constants(sr: int, n_fft: int, n_mels: int, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """What csrc/mel_rfft.cu reads of ``rfft_plan.tables``, on ``device``,
-    built once per device: (window, twiddles, split, weights, chunks, slots)."""
-    tab = rfft_plan.tables(sr, n_fft, n_mels)
+def rfft_constants(sr: int, n_fft: int, n_mels: int, device: torch.device,
+                   precise: bool = False) -> tuple[torch.Tensor, ...]:
+    """What csrc/mel_rfft.cu reads of ``rfft_plan.tables`` (``tables64`` if
+    ``precise``), on ``device``, built once per device: (window, twiddles,
+    split, weights, chunks, slots)."""
+    tab = (rfft_plan.tables64 if precise else rfft_plan.tables)(sr, n_fft, n_mels)
     return tuple(torch.from_numpy(a).to(device) for a in (tab.window, tab.twiddles, tab.split, tab.weights,
                                                           tab.chunks, tab.slots))
 
@@ -118,29 +128,35 @@ def _rfft_library() -> ctypes.CDLL:
     fn = lib.mel_rfft_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, i, i, i, i, p, p, p, p, i, p, i, p, i, i, p, p]
-        fn.restype = ctypes.c_int
-        lib.mel_rfft_smem_bytes.argtypes = [i, i, i, i, i, i]
-        lib.mel_rfft_smem_bytes.restype = ctypes.c_size_t
+        for launch, smem_bytes in ((lib.mel_rfft_launch, lib.mel_rfft_smem_bytes),
+                                   (lib.mel_rfft_launch_f64, lib.mel_rfft_smem_bytes_f64)):
+            launch.argtypes = [p, i, i, i, i, i, p, p, p, p, i, p, i, p, i, i, p, p]
+            launch.restype = ctypes.c_int
+            smem_bytes.argtypes = [i, i, i, i, i, i]
+            smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
-def launch_rfft(y: torch.Tensor, sr: int, n_mels: int, n_fft: int, hop_length: int) -> torch.Tensor:
-    """csrc/mel_rfft.cu on a CUDA (B, n) float32 tensor -> (B, T, n_mels)."""
-    window, twiddles, split, weights, chunks, slots = rfft_constants(sr, n_fft, n_mels, y.device)
+def launch_rfft(y: torch.Tensor, sr: int, n_mels: int, n_fft: int, hop_length: int,
+                precise: bool = False) -> torch.Tensor:
+    """csrc/mel_rfft.cu on a CUDA (B, n) float32 tensor -> (B, T, n_mels),
+    its float64 instantiation if ``precise``."""
+    window, twiddles, split, weights, chunks, slots = rfft_constants(sr, n_fft, n_mels, y.device, precise)
     n_slots = int(rfft_plan.tables(sr, n_fft, n_mels).slots[:, 1].sum())
     batch, n = y.shape
     T = dsp.n_frames_for(n, hop_length)
     n_rounds = chunks.shape[0]
     lib = _rfft_library()
-    smem = lib.mel_rfft_smem_bytes(n_fft, hop_length, n_mels, weights.numel(), n_rounds, n_slots)
+    launch, smem_bytes = ((lib.mel_rfft_launch_f64, lib.mel_rfft_smem_bytes_f64) if precise
+                          else (lib.mel_rfft_launch, lib.mel_rfft_smem_bytes))
+    smem = smem_bytes(n_fft, hop_length, n_mels, weights.numel(), n_rounds, n_slots)
     if smem > SMEM_LIMIT:
         raise ValueError(f"n_fft={n_fft}, hop={hop_length}, n_mels={n_mels} need {smem} B of shared memory "
                          f"per block (> {SMEM_LIMIT})")
     out = torch.empty((batch, T, n_mels), dtype=torch.float32, device=y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = lib.mel_rfft_launch(
+        err = launch(
             y.data_ptr(), batch, n, T, n_fft, hop_length, window.data_ptr(), twiddles.data_ptr(),
             split.data_ptr(), weights.data_ptr(), weights.numel(), chunks.data_ptr(), n_rounds,
             slots.data_ptr(), n_mels, n_slots, out.data_ptr(), stream,
@@ -193,16 +209,24 @@ def mel_power_folded(
     n_mels: int = 40,
     n_fft: int = 512,
     hop_length: int = 160,
+    precise: bool = False,
 ) -> torch.Tensor:
     """(B, n) float32 waveforms -> (B, T, n_mels) mel power, T = 1 + n // hop.
 
-    A CUDA tensor launches the kernel ``route(n_fft)`` names; a CPU tensor
-    runs the plain version."""
+    A CUDA tensor launches the kernel ``route(n_fft)`` names (on the FFT
+    route, its float64 instantiation if ``precise``); a CPU tensor runs the
+    plain version, whose products run in float64 either way."""
     _check(y)
     kernel = route(n_fft)
     if y.device.type == "cuda":
+        if precise and kernel == "dense":
+            raise ValueError(f"precise=True needs mel_rfft.cu's float64 instantiation, which has no plan for "
+                             f"n_fft={n_fft}; it takes n_fft in {sorted(rfft_plan.RADICES)}, and the dense "
+                             f"kernel runs in float32 only")
         if kernel == "rfft":
-            out = launch_rfft(y, sr, n_mels, n_fft, hop_length)
+            out = launch_rfft(y, sr, n_mels, n_fft, hop_length, precise)
+            if precise:
+                counter_f64.add()
         else:
             out = launch_dense(y, constants(sr, n_fft, n_mels, y.device), n_fft, hop_length)
             counter_dense.add()

@@ -18,6 +18,9 @@ framing, passes, scratch addressing, real split, chunk sums and their
 combination in the same order with those tables, as torch ops. The CPU tests hold the emulation against float64
 ``np.fft.rfft`` and against the plain and Pallas versions; the CUDA kernel
 itself runs only on a card. No path of the port calls the emulation.
+
+The kernel's float64 instantiation takes the same steps in float64 on
+``tables64``; the emulation follows it when given those tables.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ RADICES = {           # n_fft -> radices of the M = n_fft / 2 point complex FFT,
 SQRT_HALF = float(np.float32(math.sqrt(0.5)))                       # radix 8
 COS1, SIN1, COS2, SIN2 = (float(np.float32(v)) for v in (           # radix 5: cos, sin of 2 pi/5 and 4 pi/5
     math.cos(0.4 * math.pi), math.sin(0.4 * math.pi), math.cos(0.8 * math.pi), math.sin(0.8 * math.pi)))
+# The same in float64, correctly rounded, for the kernel's float64 instantiation
+# (math.cos(0.8 * math.pi) is one ulp off: 0.8 * pi is rounded first).
+CONSTANTS64 = (0.70710678118654752440, 0.30901699437494742410, 0.95105651629515357212, -0.80901699437494742410,
+               0.58778525229247312917)
 
 
 def supports(n_fft: int) -> bool:
@@ -164,7 +171,10 @@ def mel_schedule(bands: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
-def tables(sr: int, n_fft: int, n_mels: int) -> Tables:
+def tables64(sr: int, n_fft: int, n_mels: int) -> Tables:
+    """The tables of the kernel's float64 instantiation: window, twiddles,
+    split and weights in float64 (the weights are the float64 bank over the
+    same bands), the schedule as in ``tables``."""
     if not supports(n_fft):
         raise ValueError(f"the FFT kernel takes n_fft in {sorted(RADICES)}, got {n_fft}")
     M = n_fft // 2
@@ -174,9 +184,19 @@ def tables(sr: int, n_fft: int, n_mels: int) -> Tables:
             for r in range(R):
                 tw[s, j * R + r] = _unit(r * (j % ns), ns * R)
     split = np.array([_unit(k, n_fft) for k in range(M // 2 + 1)])
-    bands, weights = mel_bands(sr, n_fft, n_mels)
-    return Tables(ref.hann_periodic(n_fft).astype(np.float32), tw.astype(np.float32),
-                  split.astype(np.float32), bands, weights, *mel_schedule(bands))
+    bands, _ = mel_bands(sr, n_fft, n_mels)
+    fb = ref.mel_filterbank(sr, n_fft, n_mels)
+    weights = np.concatenate([fb[j, lo : lo + length] for j, (lo, length, _) in enumerate(bands.tolist())])
+    return Tables(ref.hann_periodic(n_fft), tw, split, bands, weights, *mel_schedule(bands))
+
+
+@functools.lru_cache(maxsize=None)
+def tables(sr: int, n_fft: int, n_mels: int) -> Tables:
+    """The float32 kernel's tables: ``tables64`` rounded to float32 once, the
+    weights from the float32 bank."""
+    t = tables64(sr, n_fft, n_mels)
+    return t._replace(window=t.window.astype(np.float32), twiddles=t.twiddles.astype(np.float32),
+                      split=t.split.astype(np.float32), weights=mel_bands(sr, n_fft, n_mels)[1])
 
 
 # ----------------------------------------------------------------------
@@ -195,49 +215,54 @@ def _dft4(v):
     return [(t0r + t2r, t0i + t2i), (t1r + t3r, t1i + t3i), (t0r - t2r, t0i - t2i), (t1r - t3r, t1i - t3i)]
 
 
-def _dft8(v):
+def _dft8(v, constants=None):
+    h = SQRT_HALF if constants is None else constants[0]
     e = _dft4(v[0::2])
     o = _dft4(v[1::2])
     (o1r, o1i), (o2r, o2i), (o3r, o3i) = o[1], o[2], o[3]
     o = [o[0],
-         ((o1r + o1i) * SQRT_HALF, (o1i - o1r) * SQRT_HALF),     # exp(-i pi/4) o1
-         (o2i, -o2r),                                             # -i o2
-         ((o3i - o3r) * SQRT_HALF, -(o3r + o3i) * SQRT_HALF)]     # exp(-3i pi/4) o3
+         ((o1r + o1i) * h, (o1i - o1r) * h),     # exp(-i pi/4) o1
+         (o2i, -o2r),                             # -i o2
+         ((o3i - o3r) * h, -(o3r + o3i) * h)]     # exp(-3i pi/4) o3
     lo = [(er + orr, ei + oi) for (er, ei), (orr, oi) in zip(e, o)]
     hi = [(er - orr, ei - oi) for (er, ei), (orr, oi) in zip(e, o)]
     return lo + hi
 
 
-def _dft5(v):
+def _dft5(v, constants=None):
     """With t1 = v1 + v4, t2 = v2 + v3, t3 = v1 - v4, t4 = v2 - v3 (c1, s1 the
     cos and sin of 2 pi/5, c2, s2 of 4 pi/5): X0 = v0 + (t1 + t2),
     X1, X4 = a1 -+ i b1 and X2, X3 = a2 -+ i b2, where a1 = v0 + c1 t1 + c2 t2,
     a2 = v0 + c2 t1 + c1 t2, b1 = s1 t3 + s2 t4, b2 = s2 t3 - s1 t4."""
+    c1, s1, c2, s2 = (COS1, SIN1, COS2, SIN2) if constants is None else constants[1:]
     (a0r, a0i), (a1r, a1i), (a2r, a2i), (a3r, a3i), (a4r, a4i) = v
     t1r, t1i, t2r, t2i = a1r + a4r, a1i + a4i, a2r + a3r, a2i + a3i
     t3r, t3i, t4r, t4i = a1r - a4r, a1i - a4i, a2r - a3r, a2i - a3i
-    p1r, p1i = a0r + COS1 * t1r + COS2 * t2r, a0i + COS1 * t1i + COS2 * t2i
-    p2r, p2i = a0r + COS2 * t1r + COS1 * t2r, a0i + COS2 * t1i + COS1 * t2i
-    q1r, q1i = SIN1 * t3r + SIN2 * t4r, SIN1 * t3i + SIN2 * t4i
-    q2r, q2i = SIN2 * t3r - SIN1 * t4r, SIN2 * t3i - SIN1 * t4i
+    p1r, p1i = a0r + c1 * t1r + c2 * t2r, a0i + c1 * t1i + c2 * t2i
+    p2r, p2i = a0r + c2 * t1r + c1 * t2r, a0i + c2 * t1i + c1 * t2i
+    q1r, q1i = s1 * t3r + s2 * t4r, s1 * t3i + s2 * t4i
+    q2r, q2i = s2 * t3r - s1 * t4r, s2 * t3i - s1 * t4i
     return [(a0r + (t1r + t2r), a0i + (t1i + t2i)),
             (p1r + q1i, p1i - q1r), (p2r + q2i, p2i - q2r),     # a - i b
             (p2r - q2i, p2i + q2r), (p1r - q1i, p1i + q1r)]     # a + i b
 
 
-_DFT = {4: _dft4, 5: _dft5, 8: _dft8}
+_DFT = {4: lambda v, constants=None: _dft4(v), 5: _dft5, 8: _dft8}
 
 
 def frame_power_emulated(frames: torch.Tensor, tab: Tables) -> torch.Tensor:
     """(F, N) float32 frames (before the window) -> (F, N/2 + 1) power, by
-    the kernel's passes, scratch addressing and real split."""
+    the kernel's passes, scratch addressing and real split, in the tables'
+    precision (``tables``: float32, ``tables64``: float64)."""
     n_fft = frames.shape[1]
     M = n_fft // 2
+    dtype = torch.float64 if tab.window.dtype == np.float64 else torch.float32
+    constants = CONSTANTS64 if dtype == torch.float64 else None
     window = torch.from_numpy(tab.window)
     tw = torch.from_numpy(tab.twiddles)
-    xw = frames * window
+    xw = frames.to(dtype) * window
     zr, zi = xw[:, 0::2], xw[:, 1::2]                    # the first pass reads the frame
-    sr = torch.zeros((frames.shape[0], scratch_size(M)), dtype=torch.float32)
+    sr = torch.zeros((frames.shape[0], scratch_size(M)), dtype=dtype)
     si = torch.zeros_like(sr)
     for s, (R, _) in enumerate(pass_strides(M)):
         read, write = (torch.from_numpy(a) for a in pass_indices(M, s))
@@ -247,7 +272,7 @@ def frame_power_emulated(frames: torch.Tensor, tab: Tables) -> torch.Tensor:
             v = [(sr[:, pad_index(read[:, r])], si[:, pad_index(read[:, r])]) for r in range(R)]
             j = torch.arange(M // R)
             v = [v[0]] + [_cmul(*v[r], tw[s, j * R + r, 0], tw[s, j * R + r, 1]) for r in range(1, R)]
-        v = _DFT[R](v)
+        v = _DFT[R](v, constants)
         for r in range(R):
             sr[:, pad_index(write[:, r])] = v[r][0]
             si[:, pad_index(write[:, r])] = v[r][1]
@@ -259,7 +284,7 @@ def frame_power_emulated(frames: torch.Tensor, tab: Tables) -> torch.Tensor:
     orr, oi = (ai + bi) * 0.5, (br - ar) * 0.5
     split = torch.from_numpy(tab.split)
     wr, wi = _cmul(orr, oi, split[:, 0], split[:, 1])
-    power = torch.zeros((frames.shape[0], M + 1), dtype=torch.float32)
+    power = torch.zeros((frames.shape[0], M + 1), dtype=dtype)
     power[:, k] = (er + wr) * (er + wr) + (ei + wi) * (ei + wi)
     power[:, M - k] = (er - wr) * (er - wr) + (ei - wi) * (ei - wi)
     return power
@@ -268,18 +293,18 @@ def frame_power_emulated(frames: torch.Tensor, tab: Tables) -> torch.Tensor:
 def band_mel(power: torch.Tensor, tab: Tables) -> torch.Tensor:
     """(F, N/2 + 1) power -> (F, n_mels): each chunk of the schedule summed
     in ascending bin order into its slot, then each filter's slots added in
-    ascending order."""
+    ascending order, in the power's precision."""
     weights = torch.from_numpy(tab.weights)
     n_slots = int(tab.slots[:, 1].sum())
-    part = torch.zeros((power.shape[0], n_slots), dtype=torch.float32)
+    part = torch.zeros((power.shape[0], n_slots), dtype=power.dtype)
     for lo, length, off, slot in tab.chunks.reshape(-1, 4).tolist():
         if slot < 0:
             continue
-        acc = torch.zeros(power.shape[0], dtype=torch.float32)
+        acc = torch.zeros(power.shape[0], dtype=power.dtype)
         for f in range(length):
             acc = acc + power[:, lo + f] * weights[off + f]
         part[:, slot] = acc
-    out = torch.zeros((power.shape[0], len(tab.slots)), dtype=torch.float32)
+    out = torch.zeros((power.shape[0], len(tab.slots)), dtype=power.dtype)
     for j, (base, count) in enumerate(tab.slots.tolist()):
         acc = part[:, base]
         for c in range(1, count):
@@ -308,11 +333,13 @@ def tile_frames(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
 
 def mel_power_emulated(
     y: torch.Tensor, sr: int = 16000, n_mels: int = 40, n_fft: int = 512, hop_length: int = 160,
+    precise: bool = False,
 ) -> torch.Tensor:
-    """(B, n) float32 CPU waveforms -> (B, T, n_mels) mel power, by the
-    kernel's stages in the kernel's order."""
-    tab = tables(sr, n_fft, n_mels)
+    """(B, n) float32 CPU waveforms -> (B, T, n_mels) float32 mel power, by
+    the kernel's stages in the kernel's order (``precise``: its float64
+    instantiation's)."""
+    tab = (tables64 if precise else tables)(sr, n_fft, n_mels)
     frames = tile_frames(y, n_fft, hop_length)
     batch, T, _ = frames.shape
     power = frame_power_emulated(frames.reshape(batch * T, n_fft), tab)
-    return band_mel(power, tab).reshape(batch, T, n_mels)
+    return band_mel(power, tab).reshape(batch, T, n_mels).to(torch.float32)

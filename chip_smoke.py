@@ -12,9 +12,16 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      launches of each route counted: the FFT mel kernel at n_fft 512 (two
      shapes), 1024 / 512 / 128 mels at 22.05 kHz and n_fft 320, 400 and 640
      (folded) or 400 (unfolded), and no dense launch; each entry's dense
-     kernel on its route (n_fft 480), one launch each; the unfolded entry's
-     refusal of odd n_fft; and the mel feature against the float64 golden
-     copy;
+     kernel on its route (n_fft 480), one launch each; ``mel_rfft``'s
+     float64 instantiation (``precise=True``) at n_fft 1024, 512 and 400,
+     also per bin; the unfolded entry's refusal of odd n_fft and the folded
+     entry's of ``precise=True`` on the dense route; and the mel feature
+     against the float64 golden copy;
+  3c. the MFCC and classical features on the card (``mfcc_seq_feature``,
+     raw ``mfcc``, ``classical_feature_vector``, ``waveform_feature``) on 4
+     five-second clips at 22.05 kHz against the float64 golden copy, with
+     both TF32 flags on (the DSP must pin its own precision); each MFCC
+     call must launch the FFT mel kernel once and no dense kernel;
   4. the feature-extraction CLI on a 27-class x 5-clip fsc22-style WAV tree
      (5 s, 16 kHz), which must launch the FFT mel kernel and not the dense
      one, and the FFT kernel's mel power on the tree's clips against the
@@ -22,6 +29,12 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      (``mel_power_unfolded``, which no CLI calls, as no JAX path calls
      ``mel_power_pallas``) on the same clips, which must launch the FFT
      kernel and not its dense one, against the same;
+  4c. the shipped ``configs/feature_extraction.yaml`` through the extraction
+     CLI on the same tree (its own splits, train and validation; its
+     dataset and outputs moved to the temporary directory): all four
+     experiments, each FeatureSet's shape and labels, 3 rows of each
+     against golden (the 22.05 kHz features on the clips as ``load_audio``
+     resamples them), and each experiment's kernel launches;
   5. serving: the flagship CNN [16, 64, 64] (strides 4, 2; 27 classes) from
      a seeded generator, saved as a flax-layout bundle, loaded back, and
      8 edge-simulator requests; logits on the card against the CPU;
@@ -34,12 +47,17 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      entry's FFT route beside its dense kernel, in turns, and the plain
      versions; at n_fft 400 the FFT kernel beside both dense kernels, in
      turns; each kernel's share of the bound, which is worked out from this
-     run's shapes; the stages and waveform -> mel -> CNN) and one training
-     step at B=32 and B=512;
+     run's shapes; the stages and waveform -> mel -> CNN), one training
+     step at B=32 and B=512, and at B=512 five-second clips at 22.05 kHz the
+     FFT kernel at the MFCC front end (1024 / 512 / 128 mels) against its
+     bound and its plain version, ``mfcc_seq_feature`` and
+     ``classical_feature_vector`` with its MFCC block, magnitude STFT and
+     spectral groups alone;
   7. one JSON line per kernel, then the result line.
 
-Matmuls and cuDNN convolutions run in full float32 throughout (TF32 off):
-the mel features must stay within 1e-5 of the float64 oracle.
+Matmuls and cuDNN convolutions run in full float32 throughout (TF32 off),
+but for phase 3c, which turns TF32 on: the features must stay within 1e-5
+of the float64 oracle.
 
 Usage: python3 chip_smoke.py
 """
@@ -60,14 +78,21 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 SR, N_MELS, N_FFT, HOP = 16000, 40, 512, 160
 CLIP = 5 * SR                      # fsc22 clips: 5 s at 16 kHz
+SR22, MFCC_N_FFT, MFCC_HOP, MFCC_MELS = 22050, 1024, 512, 128   # the MFCC and classical extractors' defaults
+CLIP22 = 5 * SR22
 N_CLASSES, PER_CLASS = 27, 5        # 5 a class: 27 val rows, so the train CLI's split stratifies
 F32_PEAK = 67e12                   # H100 SXM float32 FLOP/s outside the tensor cores, 700 W
+F64_PEAK = 67e12                   # H100 SXM float64 FLOP/s, its peak on the tensor cores (NVIDIA's data sheet), 700 W
+F64_ELEMENT_TOL = 1e-6             # float64 kernel vs plain mel power, relative to each bin: a float32 kernel misses it
 HBM_RATE = 3.35e12                 # H100 SXM bytes/s
 KERNEL_REL_TOL = 1e-6              # kernel vs plain mel power, relative to each clip's peak power
 FEATURE_TOL = 1e-5                 # the repo's DSP parity gate (max|delta| vs float64)
 LOGIT_TOL = 1e-4                   # CNN logits card vs CPU, float32 convolutions in other orders
 GOLDEN_REL_TOL = 1e-5              # unfolded mel power vs float64 golden, relative to each clip's peak
 STEP_LOSS_TOL = 1e-5               # train-step loss card vs CPU, relative
+RAW_MFCC_TOL = 1e-3                # raw MFCC (dB scale) vs float64, max|delta| (tests/test_dsp_parity.py)
+CLASSICAL_REL_TOL = 1e-4           # classical vector vs float64, per dimension over max(|golden|, 1)
+WAVEFORM_TOL = 1e-6                # peak-normalized waveform vs float64
 GRAD_TOL = 1e-4                    # train-step gradients card vs CPU, max|d| over each tensor's max|g|:
                                    # float32 reductions over 32 x 40 x 501 inputs in other orders, and
                                    # cuDNN's backward may sum in a run-dependent order
@@ -85,9 +110,9 @@ def check(ok: bool, msg: str) -> None:
         fail(msg)
 
 
-def synth_clips(rng: np.random.Generator, batch: int, n: int = CLIP) -> np.ndarray:
+def synth_clips(rng: np.random.Generator, batch: int, n: int = CLIP, sr: int = SR) -> np.ndarray:
     """fsc22-like clips: a harmonic stack, noise floor, transient bursts."""
-    t = np.arange(n) / SR
+    t = np.arange(n) / sr
     out = np.empty((batch, n), np.float32)
     for i in range(batch):
         f0 = rng.uniform(90.0, 3000.0)
@@ -95,8 +120,8 @@ def synth_clips(rng: np.random.Generator, batch: int, n: int = CLIP) -> np.ndarr
         y = y * (0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(0.3, 3.0) * t) ** 2)
         y = y + rng.uniform(0.01, 0.1) * rng.standard_normal(n)
         for _ in range(3):
-            s = int(rng.integers(0, n - SR // 10))
-            y[s : s + SR // 10] += 0.6 * rng.standard_normal(SR // 10)
+            s = int(rng.integers(0, n - sr // 10))
+            y[s : s + sr // 10] += 0.6 * rng.standard_normal(sr // 10)
         out[i] = 0.8 * y / np.abs(y).max()
     return out
 
@@ -119,35 +144,38 @@ def ptxas_report(log: str) -> list[str]:
     """'<kernel>[<M>]: <spill stores>, <registers>' for each kernel in nvcc's -Xptxas -v output."""
     kernels: list[list[str]] = []
     for ln in log.splitlines():
-        name = re.search(r"Compiling entry function '\w*?\d+(mel_\w+?_kernel)(?:ILi(\d+)E)?", ln)
+        name = re.search(r"Compiling entry function '\w*?\d+(mel_\w+?_kernel)(?:ILi(\d+)E([fd])?)?", ln)
         if name:
-            kernels.append([name.group(1) + (f"<{name.group(2)}>" if name.group(2) else "")])
+            args = [a for a in (name.group(2), {"f": "float", "d": "double"}.get(name.group(3) or "")) if a]
+            kernels.append([name.group(1) + (f"<{', '.join(args)}>" if args else "")])
         elif kernels and (m := re.search(r"Used (\d+ registers)|(\d+ bytes spill stores)", ln)):
             kernels[-1].append(m.group(1) or m.group(2))
     return [f"{k[0]}: {', '.join(k[1:])}" for k in kernels]
 
 
-def mel_folded_bound(batch: int, n: int, n_fft: int, mel_nonzeros: int) -> tuple[float, str, float, float, float]:
+def mel_folded_bound(batch: int, n: int, n_fft: int, mel_nonzeros: int, hop: int = HOP, n_mels: int = N_MELS,
+                     peak: float = F32_PEAK) -> tuple[float, str, float, float, float]:
     """Least time of the mel-power function on this card, in ms, and what
     bounds it: the larger of its bytes (each clip read once, the mel power
-    written once) over HBM_RATE and its float32 operations at their least
-    over F32_PEAK. Per frame those are the Hann window (n_fft multiplies), a
+    written once) over HBM_RATE and its operations at their least over
+    ``peak``, the rate of their type (F32_PEAK, or F64_PEAK for the float64
+    instantiation). Per frame those are the Hann window (n_fft multiplies), a
     real FFT at the nominal 2.5 n_fft log2(n_fft) FLOP, the power (3 per
     bin) and the mel product over the bank's nonzeros only (2 per nonzero).
 
-    Also returns the ms at F32_PEAK of those least operations alone (the
-    FFT kernel's formulation) and of each dense kernel's own formulation:
+    Also returns the ms at ``peak`` of those least operations alone (the
+    FFT kernel's formulation) and at F32_PEAK of each dense kernel's own formulation:
     the folded dense DFT (per frame 2 adds per fold pair, two (n_fft/2 x
     n_freq) multiply-add products, the center term, the power and the same
     band-only mel product) and the unfolded dense DFT (two (n_fft x n_freq)
     multiply-add products, the power and the mel product)."""
     half, n_freq = n_fft // 2, 1 + n_fft // 2
-    frames = batch * (1 + n // HOP)
+    frames = batch * (1 + n // hop)
     fft_flops = frames * (n_fft + 2.5 * n_fft * np.log2(n_fft) + 3 * n_freq + 2 * mel_nonzeros)
     folded_flops = frames * (2 * half + 4 * half * n_freq + 2 * n_freq + 3 * n_freq + 2 * mel_nonzeros)
     unfolded_flops = frames * (4 * n_fft * n_freq + 3 * n_freq + 2 * mel_nonzeros)
-    nbytes = 4 * (batch * n + frames * N_MELS)
-    t_ops, t_bytes = fft_flops / F32_PEAK, nbytes / HBM_RATE
+    nbytes = 4 * (batch * n + frames * n_mels)
+    t_ops, t_bytes = fft_flops / peak, nbytes / HBM_RATE
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", 1e3 * t_ops,
             1e3 * folded_flops / F32_PEAK, 1e3 * unfolded_flops / F32_PEAK)
 
@@ -174,6 +202,22 @@ def write_wav_tree(root: Path, rng: np.random.Generator) -> tuple[Path, Path, li
                 write_wav(folder / name / fname, y, SR)
     (meta_dir / "Metadata V1.0 FSC22.csv").write_text("\n".join(rows) + "\n")
     return root / "fsc22", folder, names
+
+
+def shipped_config_copy(dataset: Path, out_root: Path) -> tuple[Path, list[dict]]:
+    """configs/feature_extraction.yaml with its dataset and outputs moved
+    under ``out_root``, written as JSON (a YAML document too); its
+    experiments as the file lists them."""
+    import yaml
+
+    doc = yaml.safe_load((REPO / "configs" / "feature_extraction.yaml").read_text())
+    doc["dataset"] = str(dataset)
+    for exp in doc["experiments"]:
+        exp["output"] = str(out_root / Path(exp["output"]).name)
+    path = out_root / "feature_extraction.yaml"
+    out_root.mkdir(parents=True)
+    path.write_text(json.dumps(doc, indent=1))
+    return path, doc["experiments"]
 
 
 def step_and_grads(dev, X: np.ndarray, y: np.ndarray, bundle: Path) -> tuple[float, dict]:
@@ -212,7 +256,7 @@ def main() -> int:
     from audio_edge_ml_pipeline_torch.entry import flagship
     from audio_edge_ml_pipeline_torch.features import pipeline
     from audio_edge_ml_pipeline_torch.models.deep import MODEL_FILENAME, CNNTrainer, load_any_model
-    from audio_edge_ml_pipeline_torch.ops import _build, dsp, golden, mel_kernel, mel_unfolded
+    from audio_edge_ml_pipeline_torch.ops import _build, audio_features, dsp, golden, mel_kernel, mel_unfolded
     from audio_edge_ml_pipeline_torch.serve.edge_simulator import EdgeDeviceSimulator
     from audio_edge_ml_pipeline_torch.train import train
 
@@ -245,24 +289,34 @@ def main() -> int:
     }
 
     def against_plain(entry: str, label: str, batch: int, n: int, sr: int, n_fft: int, hop: int,
-                      n_mels: int) -> float:
+                      n_mels: int, precise: bool = False) -> float:
         """One call of ``entry`` on the card, which must launch its kernel once
-        on the route ``route(n_fft)`` names, held against its plain version at
-        KERNEL_REL_TOL of each clip's peak power. Returns max|d|."""
+        on the route ``route(n_fft)`` names (``mel_rfft``'s float64
+        instantiation if ``precise``), held against its plain version at
+        KERNEL_REL_TOL of each clip's peak power, and if ``precise`` at
+        F64_ELEMENT_TOL of each bin (the plain version's products run in
+        float64, so only the float64 kernel meets that). Returns max|d|."""
         module, plain_fn, dense_kernel = entries[entry]
         dense = module.route(n_fft) == "dense"
         y = torch.from_numpy(synth_clips(rng, batch, n)).to(dev)
         module.counter.reset()
         module.counter_dense.reset()
-        out = getattr(module, entry)(y, sr, n_mels, n_fft, hop)
+        mel_kernel.counter_f64.reset()
+        out = getattr(module, entry)(y, sr, n_mels, n_fft, hop, **({"precise": True} if precise else {}))
         torch.cuda.synchronize()
         launches = (module.counter.launches, module.counter_dense.launches)
+        check(mel_kernel.counter_f64.launches == int(precise), f"{entry} float64 launches")
         ref = plain_fn(y, sr, n_mels, n_fft, hop)
         err = (out - ref).abs()
         rel = float((err / ref.abs().amax(dim=(1, 2), keepdim=True)).max())
-        print(f"[3] {entry} n_fft {n_fft} ({'dense ' + dense_kernel if dense else 'mel_rfft.cu'}) vs plain, {label}: "
+        rel_bin = float((err / ref.abs().clamp_min(torch.finfo(torch.float32).tiny)).max())
+        kernel = "dense " + dense_kernel if dense else "mel_rfft.cu" + (" float64" if precise else "")
+        print(f"[3] {entry} n_fft {n_fft} ({kernel}) vs plain, {label}: "
               f"launches (all, dense) {launches}, max|d| {float(err.max()):.3e}, max|d|/clip peak {rel:.3e} "
-              f"(tol {KERNEL_REL_TOL:g})")
+              f"(tol {KERNEL_REL_TOL:g}), max|d|/|plain| per bin {rel_bin:.3e}"
+              + (f" (tol {F64_ELEMENT_TOL:g})" if precise else " (not checked)"))
+        check(not precise or rel_bin <= F64_ELEMENT_TOL,
+              f"{entry}'s float64 instantiation disagrees with its plain version per bin at n_fft {n_fft}: {rel_bin:.3e}")
         check(launches == (1, int(dense)), f"{entry} at n_fft {n_fft} launched (all, dense) {launches}")
         check(out.shape == (batch, 1 + n // hop, n_mels), f"{entry} output shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), f"{entry} output is not finite")
@@ -273,6 +327,9 @@ def main() -> int:
     worst_abs = max(against_plain("mel_power_folded", *shape) for shape in shapes + [
         ("MFCC frontend 1024/512/128 mels @ 22.05 kHz", 2, 66150, 22050, 1024, 512, 128),
         *(("B=4 x 5 s", 4, CLIP, SR, n_fft, HOP, N_MELS) for n_fft in (320, 400, 640))])
+    worst_abs_f64 = max(against_plain("mel_power_folded", *shape, precise=True) for shape in [
+        ("MFCC frontend 1024/512/128 mels @ 22.05 kHz", 2, 66150, 22050, 1024, 512, 128),
+        ("B=4 x 5 s", 4, CLIP, SR, N_FFT, HOP, N_MELS), ("B=4 x 5 s", 4, CLIP, SR, 400, HOP, N_MELS)])
     worst_abs_unfolded = max(against_plain("mel_power_unfolded", *shape) for shape in shapes + [
         ("MFCC frontend 1024/512/128 mels @ 22.05 kHz", 8, 5 * 22050, 22050, 1024, 512, 128),
         ("B=4 x 5 s", 4, CLIP, SR, 400, HOP, N_MELS)])
@@ -283,6 +340,13 @@ def main() -> int:
         fail("mel_unfolded took an odd n_fft")
     except ValueError as exc:
         print(f"[3] mel_unfolded refuses odd n_fft: {exc}")
+    mel_kernel.counter.reset()
+    try:
+        mel_kernel.mel_power_folded(torch.zeros((2, 4000), device=dev), n_fft=DENSE_N_FFT, precise=True)
+        fail("mel_power_folded ran precise=True on the float32 dense kernel")
+    except ValueError as exc:
+        print(f"[3] mel_power_folded refuses precise=True at n_fft {DENSE_N_FFT} (the dense route): {exc}")
+    check(mel_kernel.counter.launches == 0, "a refused precise=True call launched a kernel")
     lengths = np.array([CLIP, 61234, 17001, 4000], np.int64)
     y_np = synth_clips(rng, len(lengths))
     for i, n in enumerate(lengths):
@@ -298,6 +362,55 @@ def main() -> int:
     print(f"[3] mel_spec_feature padded batch with lengths: card vs float64 golden max|d| {gold_err:.3e}, "
           f"card vs CPU plain {pad_err:.3e} (tol {FEATURE_TOL:g})")
     check(gold_err <= FEATURE_TOL and pad_err <= FEATURE_TOL, "mel_spec_feature misses the 1e-5 gate")
+
+    # 3c. the MFCC and classical features on the card, with TF32 allowed everywhere
+    y22_np = synth_clips(rng, 4, CLIP22, SR22)
+    y22 = torch.from_numpy(y22_np).to(dev)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        mfcc_launches = {}
+        feats3c = {}
+        for label, fn in [
+            ("mfcc_seq_feature", lambda: audio_features.mfcc_seq_feature(y22)),
+            ("mfcc", lambda: audio_features.mfcc(y22, SR22, 40, MFCC_N_FFT, MFCC_HOP)),
+            ("classical_feature_vector", lambda: audio_features.classical_feature_vector(y22)),
+            ("waveform_feature", lambda: dsp.waveform_feature(y22)),
+        ]:
+            mel_kernel.counter.reset()
+            mel_kernel.counter_dense.reset()
+            mel_kernel.counter_f64.reset()
+            feats3c[label] = fn().cpu().numpy()
+            torch.cuda.synchronize()
+            mfcc_launches[label] = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches,
+                                    mel_kernel.counter_f64.launches)
+        flags_after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    y22_64 = y22_np.astype(np.float64)
+    gold3c = {
+        "mfcc_seq_feature": np.stack([golden.mfcc_seq_feature(c) for c in y22_64]),
+        "mfcc": np.stack([golden.mfcc(c, SR22, 40, MFCC_N_FFT, MFCC_HOP) for c in y22_64]),
+        "classical_feature_vector": np.stack([golden.classical_feature_vector(c) for c in y22_64]),
+        "waveform_feature": np.stack([golden.waveform_feature(c) for c in y22_64]),
+    }
+    err3c = {k: float(np.abs(feats3c[k] - gold3c[k]).max()) for k in gold3c}
+    err3c["classical_feature_vector"] = float((np.abs(feats3c["classical_feature_vector"] - gold3c["classical_feature_vector"])
+                                               / np.maximum(np.abs(gold3c["classical_feature_vector"]), 1.0)).max())
+    tol3c = {"mfcc_seq_feature": FEATURE_TOL, "mfcc": RAW_MFCC_TOL, "classical_feature_vector": CLASSICAL_REL_TOL,
+             "waveform_feature": WAVEFORM_TOL}
+    shapes3c = {"mfcc_seq_feature": (4, 40, 1 + CLIP22 // MFCC_HOP), "mfcc": (4, 40, 1 + CLIP22 // MFCC_HOP),
+                "classical_feature_vector": (4, 302), "waveform_feature": (4, CLIP22)}
+    for k in gold3c:
+        print(f"[3c] {k} on the card, TF32 flags on: shape {feats3c[k].shape}, vs float64 golden "
+              f"{'max|d|/max(|g|, 1)' if k == 'classical_feature_vector' else 'max|d|'} {err3c[k]:.3e} "
+              f"(tol {tol3c[k]:g}); mel kernel launches (all, dense, float64) {mfcc_launches[k]}")
+        check(feats3c[k].shape == shapes3c[k] and bool(np.isfinite(feats3c[k]).all()), f"{k} shape or finiteness")
+        check(err3c[k] <= tol3c[k], f"{k} on the card misses its gate against golden: {err3c[k]:.3e}")
+    check(flags_after == (True, True), "the DSP changed the caller's TF32 flags")
+    check(all(mfcc_launches[k] == (1, 0, 1) for k in ("mfcc_seq_feature", "mfcc", "classical_feature_vector")),
+          f"an MFCC call did not launch mel_rfft's float64 instantiation exactly once: {mfcc_launches}")
+    check(mfcc_launches["waveform_feature"] == (0, 0, 0), "waveform_feature launched a mel kernel")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -354,6 +467,62 @@ def main() -> int:
               f"mel_power_unfolded launched {unfolded_launches} kernels ({unfolded_dense} dense) for one call")
         check(mel_u.shape == (n_clips, 1 + CLIP // HOP, N_MELS), "unfolded mel shape")
         check(gold_rel <= GOLDEN_REL_TOL, "the unfolded kernel misses the golden mel power")
+
+        # 4c. the shipped extraction config on the same tree, through the CLI on the card
+        cfg, shipped = shipped_config_copy(fsc22, tmp / "shipped")
+        shipped_launches: dict[str, tuple[int, int]] = {}
+        shipped_s: dict[str, float] = {}
+        run_experiment = pipeline._run_experiment
+
+        counters = (mel_kernel.counter, mel_kernel.counter_dense, mel_kernel.counter_f64)
+
+        def counted(exp, *args, **kwargs):
+            before = [c.launches for c in counters]
+            t0 = time.perf_counter()
+            run_experiment(exp, *args, **kwargs)
+            torch.cuda.synchronize()
+            shipped_s[exp.resolved_name()] = time.perf_counter() - t0
+            shipped_launches[exp.resolved_name()] = tuple(c.launches - b for c, b in zip(counters, before))
+
+        pipeline._run_experiment = counted
+        try:
+            for c in counters:
+                c.reset()
+            pipeline.main(["--config", str(cfg)])
+        finally:
+            pipeline._run_experiment = run_experiment
+        shipped_f64 = mel_kernel.counter_f64.launches
+        shipped_f32 = mel_kernel.counter.launches - shipped_f64
+        split_rows = {"train": N_CLASSES * 4, "validation": N_CLASSES}   # 5 a class: 4 train, 1 validation
+        per_clip = {"audio_mel_spec": ((N_MELS, 1 + CLIP // HOP), golden.mel_spec_feature, SR, FEATURE_TOL),
+                    "audio_mfcc_seq": ((40, 1 + CLIP22 // MFCC_HOP), golden.mfcc_seq_feature, SR22, FEATURE_TOL),
+                    "audio_classical": ((302,), golden.classical_feature_vector, SR22, CLASSICAL_REL_TOL)}
+        check(len(shipped_launches) == len(shipped) == 4, f"the shipped config ran {sorted(shipped_launches)}")
+        for exp in shipped:
+            shape, gold_fn, sr_exp, tol = per_clip[exp["extractor"]]
+            fs_exp = pipeline.FeaturePipeline.load(exp["output"])
+            rows = split_rows[exp["split"]]
+            check(fs_exp.features.shape == (rows, *shape), f"{exp['name']} FeatureSet shape {fs_exp.features.shape}")
+            check(fs_exp.n_classes == N_CLASSES and len(fs_exp.labels) == rows
+                  and all(fs_exp.label_names[c] == m["class_name"] for c, m in zip(fs_exp.labels, fs_exp.metadata)),
+                  f"{exp['name']} labels")
+            check(bool(np.isfinite(fs_exp.features).all()), f"{exp['name']} features are not finite")
+            err_exp = 0.0
+            for j in (0, rows // 2, rows - 1):
+                yj, _ = load_audio(audio_dir / fs_exp.metadata[j]["filename"], sr=sr_exp)
+                gj = gold_fn(yj)
+                d = np.abs(fs_exp.features[j] - gj)
+                err_exp = max(err_exp, float((d / np.maximum(np.abs(gj), 1.0)).max() if exp["extractor"] == "audio_classical"
+                                             else d.max()))
+            launches_exp = shipped_launches[exp["name"]]
+            print(f"[4c] shipped config {exp['name']} ({exp['extractor']}, split {exp['split']}): {fs_exp} in "
+                  f"{shipped_s[exp['name']]:.2f} s; mel_rfft launches {launches_exp[0] - launches_exp[1]} "
+                  f"({launches_exp[2]} float64), dense {launches_exp[1]}; 3 rows vs float64 golden {err_exp:.3e} "
+                  f"(tol {tol:g})")
+            check(err_exp <= tol, f"{exp['name']} misses its gate against golden")
+            mfcc_exp = exp["extractor"] != "audio_mel_spec"
+            check(launches_exp[0] >= 1 and launches_exp[1] == 0 and launches_exp[2] == launches_exp[0] * mfcc_exp,
+                  f"{exp['name']} launched (all, dense, float64) {launches_exp}: not the FFT mel kernel it should")
 
         # 5. serving
         trainer = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, device=dev)
@@ -539,22 +708,83 @@ def main() -> int:
         step_ms[b] = cuda_ms(lambda: tr.train_step(opt, X_d, y_d, idx, w), iters=20)
         print(f"[6] train step (forward + backward + Adam, dropout 0.3) of the flagship CNN at B={b}: "
               f"{step_ms[b]:.3f} ms, {b / step_ms[b] * 1e3:.0f} clips/s on {card}")
+
+    # MFCC front end and the 22.05 kHz features at B=512 five-second clips
+    waves22 = torch.from_numpy(np.tile(synth_clips(rng, 8, CLIP22, SR22), (batch // 8, 1))).to(dev)
+
+    # classical_feature_vector's groups after its magnitude STFT S, but for the MFCC block and its deltas
+    groups = {
+        "centroid": lambda S: dsp.spectral_centroid_from_mag(S, SR22, MFCC_N_FFT),
+        "rolloff": lambda S: dsp.spectral_rolloff_from_mag(S, SR22, MFCC_N_FFT),
+        "bandwidth": lambda S: dsp.spectral_bandwidth_from_mag(S, SR22, MFCC_N_FFT),
+        "contrast": lambda S: dsp.spectral_contrast_from_mag(S, SR22, MFCC_N_FFT),
+        "flatness": dsp.spectral_flatness_from_mag,
+        "chroma+tonnetz": lambda S: dsp.tonnetz_from_chroma(dsp.chroma_from_power(S * S, SR22, MFCC_N_FFT)),
+        "zcr": lambda S: dsp.zero_crossing_rate(waves22, hop_length=MFCC_HOP),
+        "rms": lambda S: dsp.rms(waves22, MFCC_N_FFT, MFCC_HOP),
+    }
+
+    def spectral_groups(S):
+        return [fn(S) for fn in groups.values()]
+
+    with torch.inference_mode():
+        (ms_mfcc_kernel, ms_mfcc_f64), turns_mfcc = in_turns(
+            lambda: mel_kernel.mel_power_folded(waves22, SR22, MFCC_MELS, MFCC_N_FFT, MFCC_HOP),
+            lambda: mel_kernel.mel_power_folded(waves22, SR22, MFCC_MELS, MFCC_N_FFT, MFCC_HOP, precise=True))
+        ms_mfcc_plain = cuda_ms(lambda: mel_kernel.mel_power_folded_plain(waves22, SR22, MFCC_MELS, MFCC_N_FFT,
+                                                                          MFCC_HOP), iters=5)
+        ms_mfcc_seq = cuda_ms(lambda: audio_features.mfcc_seq_feature(waves22), iters=10)
+        ms_classical = cuda_ms(lambda: audio_features.classical_feature_vector(waves22), iters=5)
+        ms_mfcc_block = cuda_ms(lambda: audio_features.mfcc(waves22, SR22, 40, MFCC_N_FFT, MFCC_HOP), iters=10)
+        ms_mag_stft = cuda_ms(lambda: dsp.stft_spectrum(waves22, MFCC_N_FFT, MFCC_HOP, power=1.0), iters=5)
+        Smag = dsp.stft_spectrum(waves22, MFCC_N_FFT, MFCC_HOP, power=1.0)
+        ms_groups = cuda_ms(lambda: spectral_groups(Smag), iters=5)
+        ms_group = {k: cuda_ms(lambda fn=fn: fn(Smag), iters=5) for k, fn in groups.items()}
+        M40 = audio_features.mfcc(waves22, SR22, 40, MFCC_N_FFT, MFCC_HOP)
+        ms_group["deltas"] = cuda_ms(lambda: (dsp.delta(M40, order=1), dsp.delta(M40, order=2)), iters=5)
+        del Smag, M40
+    nonzeros_mfcc = int(np.count_nonzero(golden.mel_filterbank(SR22, MFCC_N_FFT, MFCC_MELS)))
+    bound_mfcc, bound_by_mfcc, fft_mfcc, dense_mfcc, _ = mel_folded_bound(batch, CLIP22, MFCC_N_FFT, nonzeros_mfcc,
+                                                                         MFCC_HOP, MFCC_MELS)
+    bound_f64, bound_by_f64, fft_f64, _, _ = mel_folded_bound(batch, CLIP22, MFCC_N_FFT, nonzeros_mfcc, MFCC_HOP,
+                                                             MFCC_MELS, F64_PEAK)
+    print(f"[6] MFCC front end at B={batch} x 5 s, 22.05 kHz, n_fft {MFCC_N_FFT}, hop {MFCC_HOP}, {MFCC_MELS} mels: "
+          f"mel_rfft float32 {ms_mfcc_kernel:.3f} ms ({ms_turns(turns_mfcc[0])}), {share(ms_mfcc_kernel, bound_mfcc)} "
+          f"{bound_mfcc:.4f} ms ({bound_by_mfcc}; FFT least operations {fft_mfcc:.4f} ms at the float32 peak with "
+          f"{nonzeros_mfcc} mel nonzeros, dense folded DFT {dense_mfcc:.3f} ms); mel_rfft float64 (what the MFCC "
+          f"features launch) {ms_mfcc_f64:.3f} ms ({ms_turns(turns_mfcc[1])}), {share(ms_mfcc_f64, bound_f64)} "
+          f"{bound_f64:.4f} ms ({bound_by_f64}; its least operations {fft_f64:.4f} ms at the float64 peak); "
+          f"plain version {ms_mfcc_plain:.3f} ms on {card}")
+    print(f"[6] 22.05 kHz features at B={batch} x 5 s: mfcc_seq_feature {ms_mfcc_seq:.3f} ms, "
+          f"{batch / ms_mfcc_seq * 1e3:.0f} clips/s; classical_feature_vector {ms_classical:.3f} ms, "
+          f"{batch / ms_classical * 1e3:.0f} clips/s; alone: its MFCC block (mfcc) {ms_mfcc_block:.3f} ms, its "
+          f"magnitude STFT {ms_mag_stft:.3f} ms, its spectral groups, zcr and rms {ms_groups:.3f} ms "
+          f"({', '.join(f'{k} {v:.3f}' for k, v in ms_group.items())} ms) on {card}")
     check(all(np.isfinite([ms_kernel, ms_dense, ms_plain, ms_unf, ms_unf_dense, ms_unf_plain, ms_400, ms_400_folded,
-                            ms_400_unfolded, ms_e2e, ms_epilogue, ms_cnn, *step_ms.values()])), "timing")
+                            ms_400_unfolded, ms_e2e, ms_epilogue, ms_cnn, *step_ms.values(), ms_mfcc_kernel, ms_mfcc_f64,
+                            ms_mfcc_plain, ms_mfcc_seq, ms_classical, ms_mfcc_block, ms_mag_stft, ms_groups])), "timing")
 
     # 7. results
     print(json.dumps({"kernels": [{
         "name": "mel_folded", "route": "cuda", "source": "audio_edge_ml_pipeline_torch/csrc/mel_rfft.cu",
         "replaces": "audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:119",
-        "launches": extract_launches + serve_launches + trained_launches, "max_abs_err": worst_abs,
+        "launches": extract_launches + shipped_f32 + serve_launches + trained_launches, "max_abs_err": worst_abs,
         "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "dense_ms": ms_dense, "dense_source": "audio_edge_ml_pipeline_torch/csrc/mel_folded.cu",
+        "plain_products": "float64", "dense_ms": ms_dense,
+        "dense_source": "audio_edge_ml_pipeline_torch/csrc/mel_folded.cu",
+    }, {
+        "name": "mel_folded_f64", "route": "cuda", "source": "audio_edge_ml_pipeline_torch/csrc/mel_rfft.cu",
+        "replaces": "audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:119",
+        "launches": shipped_f64, "max_abs_err": worst_abs_f64,
+        "ms": ms_mfcc_f64, "plain_ms": ms_mfcc_plain, "bound_ms": bound_f64, "bound_by": bound_by_f64,
+        "library_ms": None, "plain_products": "float64",
+        "shape": f"B={batch} x 5 s at 22.05 kHz, n_fft {MFCC_N_FFT}, hop {MFCC_HOP}, {MFCC_MELS} mels",
     }, {
         "name": "mel_unfolded", "route": "cuda", "source": "audio_edge_ml_pipeline_torch/csrc/mel_rfft.cu",
         "replaces": "audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:35",
         "launches": unfolded_launches, "max_abs_err": worst_abs_unfolded,
         "ms": ms_unf, "plain_ms": ms_unf_plain, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "dense_ms": ms_unf_dense, "dense_source": "audio_edge_ml_pipeline_torch/csrc/mel_unfolded.cu",
+        "plain_products": "float32", "dense_ms": ms_unf_dense, "dense_source": "audio_edge_ml_pipeline_torch/csrc/mel_unfolded.cu",
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

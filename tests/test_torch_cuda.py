@@ -113,3 +113,56 @@ def test_mel_unfolded_raises_instead_of_falling_back(cuda_device):
         mel_unfolded.mel_power_unfolded(torch.zeros((2, 4000), device=cuda_device), n_fft=511)
     with pytest.raises(TypeError):
         mel_unfolded.mel_power_unfolded(torch.zeros((2, 4000), dtype=torch.float64, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,sr,n_fft,hop,n_mels", [
+    (2, 66150, 22050, 1024, 512, 128), (3, 16077, 16000, 512, 160, 40), (2, 80000, 16000, 400, 160, 40),
+])
+def test_mel_folded_float64_instantiation_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop, n_mels):
+    """precise=True launches mel_rfft.cu's float64 instantiation; the plain
+    version's products run in float64 too, so the two meet at float32
+    rounding of the result."""
+    rng = np.random.default_rng(batch * 7919 + n)
+    y = torch.from_numpy((0.3 * rng.standard_normal((batch, n))).astype(np.float32)).to(cuda_device)
+    before, f64_before = mel_kernel.counter.launches, mel_kernel.counter_f64.launches
+    out = mel_kernel.mel_power_folded(y, sr, n_mels, n_fft, hop, precise=True)
+    torch.cuda.synchronize()
+    assert mel_kernel.counter.launches == before + 1 and mel_kernel.counter_f64.launches == f64_before + 1
+    plain = mel_kernel.mel_power_folded_plain(y, sr, n_mels, n_fft, hop)
+    assert float(((out - plain).abs() / plain.abs().clamp_min(1e-30)).max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_precise_refuses_the_float32_dense_route(cuda_device):
+    """n_fft 480 has no FFT plan, and the dense kernel has no float64
+    instantiation: precise=True raises and launches nothing."""
+    before = mel_kernel.counter.launches
+    with pytest.raises(ValueError, match="precise=True"):
+        mel_kernel.mel_power_folded(torch.zeros((2, 4000), device=cuda_device), n_fft=480, precise=True)
+    assert mel_kernel.counter.launches == before
+
+
+@pytest.mark.cuda
+def test_mfcc_and_classical_features_on_the_card_with_tf32_allowed(cuda_device):
+    """The MFCC and classical features meet their golden gates on the card
+    whatever the TF32 flags say, and leave the flags as they were."""
+    from audio_edge_ml_pipeline_torch.ops import audio_features
+
+    rng = np.random.default_rng(11)
+    t = np.arange(66150) / 22050
+    y = np.stack([(0.5 * np.sin(2 * np.pi * (220 + 97 * i) * t) + 0.05 * rng.standard_normal(66150))
+                  for i in range(3)]).astype(np.float32)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yd = torch.from_numpy(y).to(cuda_device)
+        seq = audio_features.mfcc_seq_feature(yd).cpu().numpy()
+        vec = audio_features.classical_feature_vector(yd).cpu().numpy()
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (True, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    for i in range(3):
+        assert np.max(np.abs(seq[i] - golden.mfcc_seq_feature(y[i].astype(np.float64)))) <= 1e-5
+        gold = golden.classical_feature_vector(y[i].astype(np.float64))
+        assert np.max(np.abs(vec[i] - gold) / np.maximum(np.abs(gold), 1.0)) <= 1e-4
