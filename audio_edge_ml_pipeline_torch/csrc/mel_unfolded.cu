@@ -2,7 +2,7 @@
 //
 // Replaces audio_edge_ml_pipeline_tpu/ops/pallas_mel.py::_mel_kernel
 // (launched by mel_power_pallas) for the even n_fft that the real FFT of
-// csrc/mel_rfft.cu has no plan for (480 or 2048, say): ops/mel_unfolded.py
+// csrc/mel_rfft.cu has no plan for (482 or 2050, say): ops/mel_unfolded.py
 // routes by n_fft alone. For each frame t of a clip x, with the clip
 // center-padded by n_fft/2 zeros on each side and start = t * hop:
 //

@@ -1,25 +1,35 @@
-"""Deep trainers in PyTorch: the ``cnn`` model, inference and bundle I/O.
+"""Deep trainers in PyTorch: the ``cnn``, ``mlp`` and ``rnn`` models,
+inference and bundle I/O.
 
 Counterpart of the JAX package's ``models/deep.py``. Ported so far: the CNN
-module (``CNNModule``, NHWC at its boundary like the flax one), the ``.npz``
-bundle format, pretrained warm start, and ``CNNTrainer``: training (``fit``,
-with the semantics of ``FlaxTrainer.fit``), inference and ``save``. The
-other families, data-parallel training and checkpoint/resume are still to
-be ported.
+module (``CNNModule``, NHWC at its boundary like the flax one), the dense
+stack (``MLPModule``), the stacked bidirectional LSTM (``BiLSTMModule``),
+the ``.npz`` bundle format, pretrained warm start, and ``CNNTrainer``,
+``MLPTrainer`` and ``RNNTrainer``: training (``fit``, with the semantics of
+``FlaxTrainer.fit``), inference and ``save``. The other families,
+data-parallel training and checkpoint/resume are still to be ported.
 
 Training semantics carried over: input normalization stats over all axes
 but the last, computed in numpy; the weighted masked cross-entropy of
 wrap-around padded batches; Adam with optax's defaults, its learning rate
 set per epoch; EarlyStopping(val_loss, patience=10, restore best);
 ReduceLROnPlateau(0.5, patience=5, min_lr=1e-6); per-epoch metrics to the
-tracking run. Convolutions run in cuDNN and gradients through autograd, as
-the JAX package leaves them to XLA; no hand kernel is on this path.
+tracking run. Convolutions and LSTMs run in cuDNN and gradients through
+autograd, as the JAX package leaves them to XLA; no hand kernel is on this
+path.
 
 Bundles keep the flax key layout, so the JAX package and its C codegen read
 what the port writes and the other way round: ``p/Conv_i/{kernel,bias}``
-with HWIO kernels and ``p/Dense_i/{kernel,bias}`` with (in, out) kernels.
-``params_from_flax`` and ``params_to_flax`` convert between that layout and
-a torch ``state_dict`` (OIHW conv weights, (out, in) linear weights).
+with HWIO kernels, ``p/Dense_i/{kernel,bias}`` with (in, out) kernels, and
+``p/OptimizedLSTMCell_c/{ii,if,ig,io}/kernel`` (in, units) with
+``{hi,hf,hg,ho}/{kernel,bias}`` (units, units) for the forward (c = 2 i)
+and backward (c = 2 i + 1) cell of LSTM layer i. ``params_from_flax`` and
+``params_to_flax`` convert between that layout and a torch ``state_dict``
+(OIHW conv weights, (out, in) linear weights, one bidirectional
+``nn.LSTM`` a layer with its gates stacked i, f, g, o). flax's cell has one
+bias a gate, on the recurrent side: ``bias_hh`` carries it, and ``bias_ih``
+stays zero and out of the optimizer (two trained biases would move their sum
+twice as fast under Adam, and the bundle could not hold them).
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from __future__ import annotations
 import json
 import logging
 import math
+import re
 from pathlib import Path
 from typing import Optional
 
@@ -90,6 +101,54 @@ class CNNModule(nn.Module):
         return self.denses[1](x)
 
 
+class MLPModule(nn.Module):
+    """Dense + ReLU + dropout for each hidden width, then logits: x (B, D) ->
+    (B, n_classes), as the flax module."""
+
+    def __init__(self, hidden_units: tuple[int, ...], dropout: float, n_classes: int, in_features: int) -> None:
+        super().__init__()
+        widths = [in_features, *hidden_units, n_classes]
+        self.denses = nn.ModuleList(nn.Linear(widths[i], widths[i + 1]) for i in range(len(widths) - 1))
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for dense in self.denses[:-1]:
+            x = self.dropout(F.relu(dense(x)))
+        return self.denses[-1](x)
+
+
+class BiLSTMModule(nn.Module):
+    """Stacked bidirectional LSTM layers, each after a dropout of its input
+    (the raw input included); the last layer's forward output at the last
+    step beside its backward output at the first; Dense(64) + ReLU + dropout;
+    logits. x (B, T, F) -> (B, n_classes), as the flax module, which runs
+    ``nn.RNN(OptimizedLSTMCell)`` forward and ``reverse=True, keep_order=True``
+    backward. One bidirectional ``nn.LSTM`` a layer (cuDNN on a card); its
+    ``bias_ih`` is held at zero (see the module docstring)."""
+
+    def __init__(self, units: int, n_layers: int, dropout: float, n_classes: int, in_features: int) -> None:
+        super().__init__()
+        self.units = units
+        self.lstms = nn.ModuleList(
+            nn.LSTM(in_features if i == 0 else 2 * units, units, batch_first=True, bidirectional=True)
+            for i in range(n_layers))
+        for lstm in self.lstms:
+            for name in ("bias_ih_l0", "bias_ih_l0_reverse"):
+                bias = getattr(lstm, name)
+                bias.requires_grad_(False)
+                with torch.no_grad():
+                    bias.zero_()
+        self.denses = nn.ModuleList([nn.Linear(2 * units, 64), nn.Linear(64, n_classes)])
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for lstm in self.lstms:
+            x, _ = lstm(self.dropout(x))
+        x = torch.cat([x[:, -1, : self.units], x[:, 0, self.units :]], dim=-1)
+        x = self.dropout(F.relu(self.denses[0](x)))
+        return self.denses[1](x)
+
+
 def _cnn_from_arch(arch: dict) -> CNNModule:
     return CNNModule(
         tuple(arch["filters"]), arch["dropout"], arch["n_classes"],
@@ -98,7 +157,15 @@ def _cnn_from_arch(arch: dict) -> CNNModule:
     )
 
 
-_MODULE_FACTORY = {"cnn": _cnn_from_arch}
+def _mlp_from_arch(arch: dict) -> MLPModule:
+    return MLPModule(tuple(arch["hidden_units"]), arch["dropout"], arch["n_classes"], arch["input_shape"][-1])
+
+
+def _rnn_from_arch(arch: dict) -> BiLSTMModule:
+    return BiLSTMModule(arch["units"], arch["n_layers"], arch["dropout"], arch["n_classes"], arch["input_shape"][-1])
+
+
+_MODULE_FACTORY = {"cnn": _cnn_from_arch, "mlp": _mlp_from_arch, "rnn": _rnn_from_arch}
 
 # ---------------------------------------------------------------------------
 # Weight carry-over between the flax layout and torch state_dicts
@@ -106,34 +173,71 @@ _MODULE_FACTORY = {"cnn": _cnn_from_arch}
 
 _FLAX_TO_TORCH = {"Conv": "convs", "Dense": "denses"}
 _TORCH_TO_FLAX = {v: k for k, v in _FLAX_TO_TORCH.items()}
+_LSTM_CELL = "OptimizedLSTMCell"
+_GATES = "ifgo"   # nn.LSTM's order of the stacked gates; flax keeps one kernel each
+_LSTM_PARAM = re.compile(r"(weight|bias)_(ih|hh)_l0(_reverse)?")
+
+
+def _lstm_from_flax(cells: dict[int, dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+    """flax cells {c: {"ii/kernel": ..., "hi/bias": ...}} -> the state of
+    ``lstms.{c // 2}``, direction c % 2, with ``bias_ih`` zero."""
+    state = {}
+    for c, cell in cells.items():
+        prefix, suffix = f"lstms.{c // 2}.", "_l0_reverse" if c % 2 else "_l0"
+        state[f"{prefix}weight_ih{suffix}"] = torch.cat([cell[f"i{g}/kernel"].T for g in _GATES]).contiguous()
+        state[f"{prefix}weight_hh{suffix}"] = torch.cat([cell[f"h{g}/kernel"].T for g in _GATES]).contiguous()
+        state[f"{prefix}bias_hh{suffix}"] = torch.cat([cell[f"h{g}/bias"] for g in _GATES])
+        state[f"{prefix}bias_ih{suffix}"] = torch.zeros_like(state[f"{prefix}bias_hh{suffix}"])
+    return state
 
 
 def params_from_flax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     """Flax ``p/`` params -> torch state_dict: ``p/Conv_i/kernel`` (HWIO) ->
     ``convs.i.weight`` (OIHW), ``p/Dense_i/kernel`` (in, out) ->
-    ``denses.i.weight`` (out, in), biases as they are. Keys other than
-    ``p/`` (norm stats, ``c/`` collections) are ignored."""
+    ``denses.i.weight`` (out, in), biases as they are, and the gates of
+    ``p/OptimizedLSTMCell_c`` stacked into ``lstms.{c // 2}`` (module
+    docstring). Keys other than ``p/`` (norm stats, ``c/`` collections) are
+    ignored."""
     state = {}
+    cells: dict[int, dict[str, torch.Tensor]] = {}
     for key, arr in flat.items():
         if not key.startswith("p/"):
             continue
-        layer, kind = key[2:].split("/")
+        layer, *path = key[2:].split("/")
         family, index = layer.rsplit("_", 1)
-        if family not in _FLAX_TO_TORCH:
-            raise ValueError(f"no torch counterpart for flax layer {layer!r}")
         t = torch.tensor(np.asarray(arr, np.float32))
+        if family == _LSTM_CELL:
+            cells.setdefault(int(index), {})["/".join(path)] = t
+            continue
+        if family not in _FLAX_TO_TORCH or len(path) != 1:
+            raise ValueError(f"no torch counterpart for flax parameter {key!r}")
+        (kind,) = path
         if kind == "kernel":
             t = t.permute(3, 2, 0, 1) if t.ndim == 4 else t.T
             kind = "weight"
         state[f"{_FLAX_TO_TORCH[family]}.{index}.{kind}"] = t.contiguous()
+    state.update(_lstm_from_flax(cells))
     return state
 
 
-def params_to_flax(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    """Inverse of ``params_from_flax``: torch state_dict -> flax ``p/`` keys."""
+def params_to_flax(state: dict[str, torch.Tensor | None]) -> dict[str, np.ndarray]:
+    """Inverse of ``params_from_flax``: torch state_dict (or the gradients of
+    its parameters) -> flax ``p/`` keys. ``bias_ih`` has no flax key: it must
+    be zero (a gradient of it, None)."""
     flat = {}
     for key, t in state.items():
         family, index, kind = key.split(".")
+        if family == "lstms":
+            what, side, reverse = _LSTM_PARAM.fullmatch(kind).groups()
+            if what == "bias" and side == "ih":
+                if t is not None and bool(t.detach().ne(0).any()):
+                    raise ValueError(f"{key} is not zero: the flax layout has no input-side LSTM bias")
+                continue
+            c = 2 * int(index) + bool(reverse)
+            for g, part in zip(_GATES, t.detach().cpu().to(torch.float32).chunk(4)):
+                name = f"p/{_LSTM_CELL}_{c}/{side[0]}{g}/{'kernel' if what == 'weight' else 'bias'}"
+                flat[name] = np.ascontiguousarray((part.T if what == "weight" else part).numpy())
+            continue
         arr = t.detach().cpu().to(torch.float32)
         if kind == "weight":
             arr = arr.permute(2, 3, 1, 0) if arr.ndim == 4 else arr.T
@@ -255,7 +359,8 @@ class TorchTrainer(BaseTrainer):
 
     def _init_weights(self, generator: torch.Generator) -> None:
         """flax's default initializers from ``generator``: lecun-normal
-        kernels, zero biases."""
+        kernels, zero biases; an LSTM cell's input kernels lecun-normal and
+        its recurrent ones orthogonal, gate by gate."""
         with torch.no_grad():
             for mod in self._net.modules():
                 if isinstance(mod, (nn.Conv2d, nn.Linear)):
@@ -263,6 +368,16 @@ class TorchTrainer(BaseTrainer):
                     _lecun_normal_(w, mod.weight[0].numel(), generator)
                     mod.weight.copy_(w)
                     mod.bias.zero_()
+                elif isinstance(mod, nn.LSTM):
+                    for name, p in mod.named_parameters():
+                        w = torch.zeros(p.shape, dtype=torch.float32)
+                        if name.startswith("weight"):
+                            for gate in w.chunk(4):
+                                if name.startswith("weight_ih"):
+                                    _lecun_normal_(gate, p.shape[1], generator)
+                                else:
+                                    nn.init.orthogonal_(gate, generator=generator)
+                        p.copy_(w)
 
     def initialize(self, input_shape: tuple, n_classes: int, generator: torch.Generator) -> None:
         """Random weights from ``generator`` and identity normalization, for
@@ -350,7 +465,8 @@ class TorchTrainer(BaseTrainer):
         y_val = np.asarray(y_val).astype(np.int32)
         self.prepare_fit(X_train, len(label_names))
         net = self._net
-        optimizer = torch.optim.Adam(net.parameters(), lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8)
+        optimizer = torch.optim.Adam([p for p in net.parameters() if p.requires_grad], lr=self.learning_rate,
+                                     betas=(0.9, 0.999), eps=1e-8)
 
         n = len(X_train)
         bs = min(self.batch_size, max(n, 1))
@@ -534,4 +650,51 @@ class CNNTrainer(TorchTrainer):
             "type": "cnn", "filters": list(self.filters), "dropout": self.dropout,
             "n_classes": n_classes, "first_stride": self.first_stride,
             "second_stride": self.second_stride, "input_shape": list(input_shape),
+        }
+
+
+@register_model
+class MLPTrainer(TorchTrainer):
+    name = "mlp"
+
+    def __init__(self, hidden_units: Optional[list[int]] = None, **kwargs):
+        super().__init__(**kwargs)
+        self.hidden_units = hidden_units or [256, 128]
+
+    def _architecture_params(self) -> dict:
+        return {"hidden_units": self.hidden_units}
+
+    def _prepare_input(self, X: np.ndarray) -> np.ndarray:
+        # a dense stack takes flat vectors: ND features are flattened
+        return self.flatten(X)
+
+    def _arch(self, input_shape, n_classes):
+        return {
+            "type": "mlp", "hidden_units": list(self.hidden_units), "dropout": self.dropout,
+            "n_classes": n_classes, "input_shape": list(input_shape),
+        }
+
+
+@register_model
+class RNNTrainer(TorchTrainer):
+    name = "rnn"
+
+    def __init__(self, units: int = 128, n_layers: int = 1, **kwargs):
+        super().__init__(**kwargs)
+        self.units = units
+        self.n_layers = n_layers
+
+    def _architecture_params(self) -> dict:
+        return {"units": self.units, "n_layers": self.n_layers}
+
+    def _prepare_input(self, X: np.ndarray) -> np.ndarray:
+        # axis 1 is time, the last axis features: an (n_mfcc, T) MFCC sequence is n_mfcc steps of T values
+        if X.ndim == 2:
+            return X[:, :, np.newaxis]
+        return X
+
+    def _arch(self, input_shape, n_classes):
+        return {
+            "type": "rnn", "units": self.units, "n_layers": self.n_layers,
+            "dropout": self.dropout, "n_classes": n_classes, "input_shape": list(input_shape),
         }

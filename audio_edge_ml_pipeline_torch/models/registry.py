@@ -16,7 +16,7 @@ _REGISTRY: dict[str, Type[BaseTrainer]] = {}
 
 # trainers of the JAX package that are still to be ported
 NOT_YET_PORTED = frozenset({
-    "mlp", "ds_cnn", "rnn", "transformer", "efficientnet_teacher", "distillation_cnn",
+    "ds_cnn", "transformer", "efficientnet_teacher", "distillation_cnn",
     "svm", "lda", "pca_svm", "pca_lda", "pca_knn", "knn", "kmeans", "random_forest", "decision_tree",
 })
 

@@ -4,7 +4,8 @@
 the functions of the same names in ``audio_edge_ml_pipeline_tpu/ops/dsp.py``
 compute. Their mel power at even n_fft is ``mel_kernel.mel_power_folded``:
 on a CUDA tensor the hand-written kernel that ``mel_kernel.route`` names
-(``csrc/mel_rfft.cu`` at n_fft 1024, the MFCC default), in its float64
+(``csrc/mel_rfft.cu`` at n_fft 1024, the MFCC default, and its other
+plans; ``csrc/mel_folded.cu`` at any other even n_fft), in its float64
 instantiation (``precise=True``: in float32 the kernel put the MFCC
 sequence of fsc22-like clips 1.38e-5 from float64, over the 1e-5 gate),
 counted on ``mel_kernel.counter`` and ``counter_f64``; on a CPU tensor its

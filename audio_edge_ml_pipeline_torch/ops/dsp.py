@@ -190,8 +190,13 @@ def _folded_dft_bases64(n_fft: int, window: str = "hann"):
     half = n_fft // 2
     basis = _dft_bases64(n_fft, window)
     Wr, Wi = basis[:n_freq], basis[n_freq:]
-    if not (np.allclose(Wr[:, 1:half], Wr[:, half + 1:][:, ::-1], atol=1e-12)
-            and np.allclose(Wi[:, 1:half], -Wi[:, half + 1:][:, ::-1], atol=1e-12)):
+    # The mirrored halves differ by the rounding of angles up to pi n_fft,
+    # which grows with n_fft. The JAX package checks them at atol 1e-12 and
+    # so refuses large even n_fft (3000 and 4096 among them,
+    # tests/test_torch_mel_repairs.py); 1e-9 keeps the check for a window
+    # that is not symmetric.
+    if not (np.allclose(Wr[:, 1:half], Wr[:, half + 1:][:, ::-1], atol=1e-9)
+            and np.allclose(Wi[:, 1:half], -Wi[:, half + 1:][:, ::-1], atol=1e-9)):
         raise ValueError(f"the {window} DFT basis of n_fft={n_fft} is not symmetric")
     A = np.zeros((n_freq, half))
     A[:, 0] = Wr[:, 0]

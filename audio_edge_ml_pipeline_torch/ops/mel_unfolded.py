@@ -8,8 +8,10 @@ mel product, (B, n) waveforms -> (B, T, n_mels) mel power, time-major, with
 T = 1 + n // hop. That is the folded kernel's function, so on a CUDA tensor
 it launches one of two hand-written kernels, chosen by ``route`` from n_fft
 alone: the real FFT ``csrc/mel_rfft.cu`` (``mel_kernel.launch_rfft``) for
-n_fft in {256, 320, 400, 512, 640, 1024}, and ``csrc/mel_unfolded.cu``, the
-dense unfolded DFT, for every other even n_fft. On a CPU tensor it runs
+n_fft in {256, 320, 400, 480, 512, 640, 1024, 2048}, and
+``csrc/mel_unfolded.cu``, the dense unfolded DFT, for every other even
+n_fft; the dense one runs in float32 only and its shared memory holds n_fft
+up to 3,070 at hop 160 (2,302 at hop 512). On a CPU tensor it runs
 ``mel_power_unfolded_plain``, the same product as torch ops on frames cut
 with ``Tensor.unfold``. There is no fallback from one to another: a CUDA
 tensor the routed kernel cannot take raises.
@@ -29,7 +31,7 @@ import torch
 
 from . import _build, dsp, rfft_plan
 from .golden import librosa_ref as ref
-from .mel_kernel import F_ALIGN, SMEM_LIMIT, KernelCounter, _round_up, launch_rfft
+from .mel_kernel import F_ALIGN, SMEM_LIMIT, KernelCounter, _round_up, instantiation, launch_rfft
 
 counter = KernelCounter("mel_unfolded")              # every launch of either kernel
 counter_dense = KernelCounter("mel_unfolded_dense")  # the launches of the dense one among them
@@ -160,7 +162,7 @@ def mel_power_unfolded(
         else:
             out = launch_dense(y, constants(sr, n_fft, n_mels, y.device), n_fft, hop_length)
             counter_dense.add()
-        counter.add()
+        counter.add(instantiation("mel_unfolded" if kernel == "dense" else kernel, n_fft, False))
         return out
     if y.device.type == "cpu":
         return mel_power_unfolded_plain(y, sr, n_mels, n_fft, hop_length)

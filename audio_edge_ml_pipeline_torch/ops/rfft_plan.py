@@ -3,8 +3,9 @@
 ``csrc/mel_rfft.cu`` computes the folded kernel's function (center-padded
 Hann STFT power -> slaney mel, (B, n) -> (B, T, n_mels)) through a real FFT:
 the windowed frame xw of N = n_fft samples is packed as M = N/2 complex
-values z[m] = xw[2m] + i xw[2m+1], Z = FFT_M(z) runs as mixed-radix
-Stockham passes (``RADICES``), and the real split
+values z[m] = xw[2m] + i xw[2m+1], Z = FFT_M(z) runs as three or four
+mixed-radix Stockham passes over radices 3, 4, 5 and 8 (``RADICES``), and
+the real split
 
     E = (Z[k] + conj Z[M-k]) / 2,  O = (Z[k] - conj Z[M-k]) / 2i
     X[k] = E + W^k O,  X[M-k] = conj(E - W^k O),  W = exp(-2 pi i / N)
@@ -40,18 +41,22 @@ RADICES = {           # n_fft -> radices of the M = n_fft / 2 point complex FFT,
     256: (8, 4, 4),
     320: (8, 4, 5),
     400: (8, 5, 5),
+    480: (4, 4, 3, 5),
     512: (8, 8, 4),
     640: (8, 8, 5),
     1024: (8, 8, 8),
+    2048: (8, 8, 4, 4),
 }
 # The butterflies' constants, each rounded to float32 once, as the kernel rounds them.
 SQRT_HALF = float(np.float32(math.sqrt(0.5)))                       # radix 8
 COS1, SIN1, COS2, SIN2 = (float(np.float32(v)) for v in (           # radix 5: cos, sin of 2 pi/5 and 4 pi/5
     math.cos(0.4 * math.pi), math.sin(0.4 * math.pi), math.cos(0.8 * math.pi), math.sin(0.8 * math.pi)))
+SIN3 = float(np.float32(math.sqrt(0.75)))                           # radix 3: sin of pi/3
 # The same in float64, correctly rounded, for the kernel's float64 instantiation
-# (math.cos(0.8 * math.pi) is one ulp off: 0.8 * pi is rounded first).
+# (math.cos(0.8 * math.pi) is one ulp off: 0.8 * pi is rounded first): the
+# radix-8 constant, the four radix-5 ones, the radix-3 one.
 CONSTANTS64 = (0.70710678118654752440, 0.30901699437494742410, 0.95105651629515357212, -0.80901699437494742410,
-               0.58778525229247312917)
+               0.58778525229247312917, 0.86602540378443864676)
 
 
 def supports(n_fft: int) -> bool:
@@ -234,7 +239,7 @@ def _dft5(v, constants=None):
     cos and sin of 2 pi/5, c2, s2 of 4 pi/5): X0 = v0 + (t1 + t2),
     X1, X4 = a1 -+ i b1 and X2, X3 = a2 -+ i b2, where a1 = v0 + c1 t1 + c2 t2,
     a2 = v0 + c2 t1 + c1 t2, b1 = s1 t3 + s2 t4, b2 = s2 t3 - s1 t4."""
-    c1, s1, c2, s2 = (COS1, SIN1, COS2, SIN2) if constants is None else constants[1:]
+    c1, s1, c2, s2 = (COS1, SIN1, COS2, SIN2) if constants is None else constants[1:5]
     (a0r, a0i), (a1r, a1i), (a2r, a2i), (a3r, a3i), (a4r, a4i) = v
     t1r, t1i, t2r, t2i = a1r + a4r, a1i + a4i, a2r + a3r, a2i + a3i
     t3r, t3i, t4r, t4i = a1r - a4r, a1i - a4i, a2r - a3r, a2i - a3i
@@ -247,7 +252,17 @@ def _dft5(v, constants=None):
             (p2r - q2i, p2i + q2r), (p1r - q1i, p1i + q1r)]     # a + i b
 
 
-_DFT = {4: lambda v, constants=None: _dft4(v), 5: _dft5, 8: _dft8}
+def _dft3(v, constants=None):
+    """With t = v1 + v2, d = v1 - v2, m = v0 - t/2 and s the sin of pi/3:
+    X0 = v0 + t, X1, X2 = m -+ i s d."""
+    s = SIN3 if constants is None else constants[5]
+    (a0r, a0i), (a1r, a1i), (a2r, a2i) = v
+    tr, ti, dr, di = a1r + a2r, a1i + a2i, a1r - a2r, a1i - a2i
+    mr, mi = a0r - 0.5 * tr, a0i - 0.5 * ti
+    return [(a0r + tr, a0i + ti), (mr + s * di, mi - s * dr), (mr - s * di, mi + s * dr)]
+
+
+_DFT = {3: _dft3, 4: lambda v, constants=None: _dft4(v), 5: _dft5, 8: _dft8}
 
 
 def frame_power_emulated(frames: torch.Tensor, tab: Tables) -> torch.Tensor:

@@ -173,9 +173,12 @@ def run_one(
             )
 
         if run.features_test_dir:
+            # as the JAX CLI: any failure of the test-set evaluation is logged and the run stands. In
+            # configs/training.yaml the mlp and rnn runs inherit the CNN's mel test set (``null`` inherits),
+            # whose features their models cannot read.
             try:
                 _evaluate_test_set(run, trainer, label_names, active_run)
-            except (OSError, ValueError, KeyError, IndexError) as exc:
+            except Exception as exc:
                 logger.warning("[%s] Test-set evaluation failed: %s", run.name, exc)
 
         logger.info(

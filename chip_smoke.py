@@ -9,32 +9,43 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
   2. build every kernel (one nvcc per source, all at once);
   3. each kernel against its plain PyTorch version on the card, through
      both entries, ``mel_power_folded`` and ``mel_power_unfolded``, with the
-     launches of each route counted: the FFT mel kernel at n_fft 512 (two
-     shapes), 1024 / 512 / 128 mels at 22.05 kHz and n_fft 320, 400 and 640
-     (folded) or 400 (unfolded), and no dense launch; each entry's dense
-     kernel on its route (n_fft 480), one launch each; ``mel_rfft``'s
-     float64 instantiation (``precise=True``) at n_fft 1024, 512 and 400,
-     also per bin; the unfolded entry's refusal of odd n_fft and the folded
-     entry's of ``precise=True`` on the dense route; and the mel feature
-     against the float64 golden copy;
+     launches of each route and template instantiation counted: the FFT mel
+     kernel at n_fft 512 (two shapes), 1024 / 512 / 128 mels at 22.05 kHz
+     and n_fft 320, 400 and 640 (folded) or 400 (unfolded), and no dense
+     launch; its four-pass plans (n_fft 480 and 2048) through both entries
+     and in float64; each entry's dense kernel on its route (n_fft 482),
+     one launch each; the float64 instantiations (``precise=True``) of
+     ``mel_rfft`` at n_fft 1024, 512, 400, 480 and 2048 (also at hop 1024,
+     where its tiles shrink) and of the dense folded kernel at 482 and 2050,
+     also per bin; a sweep of even n_fft from 4 to 4096 in both precisions,
+     none of which may raise; the unfolded entry's refusal of odd n_fft; and
+     the mel feature against the float64 golden copy;
   3c. the MFCC and classical features on the card (``mfcc_seq_feature``,
      raw ``mfcc``, ``classical_feature_vector``, ``waveform_feature``) on 4
      five-second clips at 22.05 kHz against the float64 golden copy, with
-     both TF32 flags on (the DSP must pin its own precision); each MFCC
-     call must launch the FFT mel kernel once and no dense kernel;
+     both TF32 flags on (the DSP must pin its own precision), at n_fft 1024
+     and, for the MFCC sequence and the classical vector, at 2048 (the FFT
+     route) and 2050 (the dense float64 route); each MFCC call must launch
+     the mel kernel of its route once, in float64; and ``mel_spec_feature``
+     at n_fft 511 (no fold, no kernel) and 2048 against golden;
   4. the feature-extraction CLI on a 27-class x 5-clip fsc22-style WAV tree
      (5 s, 16 kHz), which must launch the FFT mel kernel and not the dense
      one, and the FFT kernel's mel power on the tree's clips against the
      float64 golden mel power; then the unfolded kernel's entry point
      (``mel_power_unfolded``, which no CLI calls, as no JAX path calls
      ``mel_power_pallas``) on the same clips, which must launch the FFT
-     kernel and not its dense one, against the same;
+     kernel and not its dense one, against the same, and at n_fft 482 its
+     dense kernel;
   4c. the shipped ``configs/feature_extraction.yaml`` through the extraction
      CLI on the same tree (its own splits, train and validation; its
      dataset and outputs moved to the temporary directory): all four
      experiments, each FeatureSet's shape and labels, 3 rows of each
      against golden (the 22.05 kHz features on the clips as ``load_audio``
      resamples them), and each experiment's kernel launches;
+  4d. the sizes this slice repaired, through the extraction CLI on the same
+     tree (a copy of the shipped config's mel and MFCC-sequence experiments
+     at n_fft 480, 2048 and 482 / 2050): each experiment must launch the
+     template instantiation of its route, and 3 rows against golden;
   5. serving: the flagship CNN [16, 64, 64] (strides 4, 2; 27 classes) from
      a seeded generator, saved as a flax-layout bundle, loaded back, and
      8 edge-simulator requests; logits on the card against the CPU;
@@ -43,6 +54,11 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      served by the edge simulator, and one training step on the card
      against the same step on the CPU at dropout 0, both from phase 5's
      seeded bundle;
+  5c. runs 1-3 of ``configs/training.yaml`` (cnn, mlp, rnn) through the train
+     CLI on the card, on phase 4c's FeatureSets, at the file's widths with
+     epochs cut to 3: the shortlist holds the three runs, each bundle is
+     served on the card against the CPU, and one train step of the mlp and
+     of the rnn on the card against the CPU from seeded bundles;
   6. timing with CUDA events at B=512 five-second clips (at n_fft 512 each
      entry's FFT route beside its dense kernel, in turns, and the plain
      versions; at n_fft 400 the FFT kernel beside both dense kernels, in
@@ -52,7 +68,10 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      FFT kernel at the MFCC front end (1024 / 512 / 128 mels) against its
      bound and its plain version, ``mfcc_seq_feature`` and
      ``classical_feature_vector`` with its MFCC block, magnitude STFT and
-     spectral groups alone;
+     spectral groups alone; the four-pass plans in both types (n_fft 480 at
+     16 kHz, 2048 at 22.05 kHz) and the dense kernels at n_fft 482 and 2050
+     beside their bounds and plain versions; an mlp and an rnn train step at
+     B=32 and B=512;
   7. one JSON line per kernel, then the result line.
 
 Matmuls and cuDNN convolutions run in full float32 throughout (TF32 off),
@@ -97,7 +116,10 @@ GRAD_TOL = 1e-4                    # train-step gradients card vs CPU, max|d| ov
                                    # float32 reductions over 32 x 40 x 501 inputs in other orders, and
                                    # cuDNN's backward may sum in a run-dependent order
 TRAIN_EPOCHS = 3
-DENSE_N_FFT = 480                  # M = 240 has no three-pass plan over radices 4, 5, 8: the dense kernels' route
+DENSE_N_FFT = 482                  # M = 241 has no FFT plan: the dense kernels' route at 16 kHz
+DENSE_N_FFT_22 = 2050              # M = 1025 = 5^2 x 41: the dense route at the 22.05 kHz front end
+NEW_PLANS = (480, 2048)            # the four-pass plans: M = 240 = 4 4 3 5, M = 1024 = 8 8 4 4
+SWEEP_N_FFT = (4, 6, 130, 256, 482, 1026, 1678, 2050, 3000, 4096)  # even n_fft tried in both precisions
 
 
 def fail(msg: str) -> None:
@@ -141,12 +163,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def ptxas_report(log: str) -> list[str]:
-    """'<kernel>[<M>]: <spill stores>, <registers>' for each kernel in nvcc's -Xptxas -v output."""
+    """'<kernel><template args>: <spill stores>, <registers>' for each kernel in nvcc's -Xptxas -v output."""
     kernels: list[list[str]] = []
     for ln in log.splitlines():
-        name = re.search(r"Compiling entry function '\w*?\d+(mel_\w+?_kernel)(?:ILi(\d+)E([fd])?)?", ln)
+        name = re.search(r"Compiling entry function '\w*?\d+(mel_\w+?_kernel)(?:I((?:Li\d+E|[fd])+)E)?", ln)
         if name:
-            args = [a for a in (name.group(2), {"f": "float", "d": "double"}.get(name.group(3) or "")) if a]
+            args = [n or {"f": "float", "d": "double"}[t] for n, t in re.findall(r"Li(\d+)E|([fd])", name.group(2) or "")]
             kernels.append([name.group(1) + (f"<{', '.join(args)}>" if args else "")])
         elif kernels and (m := re.search(r"Used (\d+ registers)|(\d+ bytes spill stores)", ln)):
             kernels[-1].append(m.group(1) or m.group(2))
@@ -220,23 +242,94 @@ def shipped_config_copy(dataset: Path, out_root: Path) -> tuple[Path, list[dict]
     return path, doc["experiments"]
 
 
-def step_and_grads(dev, X: np.ndarray, y: np.ndarray, bundle: Path) -> tuple[float, dict]:
-    """One Adam step of the flagship CNN's trainer at dropout 0, warm-started
-    from ``bundle``, on the first 32 rows of (X, y): (loss, gradients)."""
+CNN_PARAMS = {"filters": [16, 64, 64], "first_stride": 4, "second_stride": 2}
+
+
+def training_config_copy(features_root: Path, out_root: Path) -> tuple[Path, list[dict]]:
+    """Runs 1-3 of configs/training.yaml (cnn, mlp, rnn) at the file's widths
+    with epochs cut to TRAIN_EPOCHS, their FeatureSets and output moved to
+    ``features_root`` (phase 4c's outputs, by directory name) and
+    ``out_root``; written as JSON, with its runs as written."""
+    import yaml
+
+    doc = yaml.safe_load((REPO / "configs" / "training.yaml").read_text())
+
+    def moved(path):
+        return None if path is None else str(features_root / Path(path).name)
+
+    doc["features_dir"], doc["features_test_dir"] = moved(doc["features_dir"]), moved(doc["features_test_dir"])
+    doc["output_dir"] = str(out_root / "models")
+    doc["runs"] = doc["runs"][:3]
+    check([r["model"] for r in doc["runs"]] == ["cnn", "mlp", "rnn"], "configs/training.yaml's runs 1-3")
+    for run in doc["runs"]:
+        run.setdefault("name", run["model"])
+        run["params"]["epochs"] = TRAIN_EPOCHS
+        if "features_dir" in run:
+            run["features_dir"] = moved(run["features_dir"])
+    out_root.mkdir(parents=True)
+    path = out_root / "training.yaml"
+    path.write_text(json.dumps(doc, indent=1))
+    return path, [{**r, "features_dir": r.get("features_dir") or doc["features_dir"]} for r in doc["runs"]]
+
+
+def repaired_sizes_config(dataset: Path, out_root: Path) -> tuple[Path, list[dict]]:
+    """The shipped config's mel and MFCC-sequence training experiments at the
+    n_fft this slice repaired: the four-pass plans (480, 2048) and the dense
+    route (DENSE_N_FFT for the mel, DENSE_N_FFT_22 for the MFCC sequence,
+    which runs the dense kernel's float64 instantiation). Written as JSON
+    under ``out_root``; its experiments as written."""
+    import yaml
+
+    shipped = {e["extractor"]: e for e in yaml.safe_load((REPO / "configs" / "feature_extraction.yaml").read_text())
+               ["experiments"] if e["split"] == "train" and e["extractor"] != "audio_classical"}
+    experiments = []
+    for extractor, sizes in (("audio_mel_spec", (*NEW_PLANS, DENSE_N_FFT)),
+                             ("audio_mfcc_seq", (*NEW_PLANS, DENSE_N_FFT_22))):
+        for n_fft in sizes:
+            name = f"{shipped[extractor]['name']}_nfft{n_fft}"
+            experiments.append({**shipped[extractor], "name": name, "output": str(out_root / name),
+                                "extractor_params": {**shipped[extractor].get("extractor_params", {}), "n_fft": n_fft}})
+    out_root.mkdir(parents=True)
+    path = out_root / "feature_extraction.yaml"
+    path.write_text(json.dumps({"dataset": str(dataset), "loader": "fsc22", "experiments": experiments}, indent=1))
+    return path, experiments
+
+
+def step_and_grads(dev, X: np.ndarray, y: np.ndarray, bundle: Path, model: str = "cnn",
+                   params: dict | None = None) -> tuple[float, dict]:
+    """One Adam step of ``model``'s trainer (``params``: its widths; the
+    flagship CNN's by default) at dropout 0, warm-started from ``bundle``,
+    on the first 32 rows of (X, y): (loss, gradients of the trained
+    parameters)."""
     import torch
 
-    from audio_edge_ml_pipeline_torch.models.deep import CNNTrainer
+    from audio_edge_ml_pipeline_torch.models import get_model
 
-    tr = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, dropout=0.0, batch_size=32, seed=0,
-                    pretrained_model=str(bundle), device=dev)
+    tr = get_model(model)(**(CNN_PARAMS if params is None else params), dropout=0.0, batch_size=32, seed=0,
+                          pretrained_model=str(bundle), device=dev)
     Xp = tr._prepare_input(X).astype(np.float32)
     tr.prepare_fit(Xp, N_CLASSES)
     tr._net.train()
-    opt = torch.optim.Adam(tr._net.parameters(), lr=1e-3)
+    trained = {k: p for k, p in tr._net.named_parameters() if p.requires_grad}
+    opt = torch.optim.Adam(trained.values(), lr=1e-3)
     idx = torch.arange(32, device=dev)
     loss, _ = tr.train_step(opt, torch.from_numpy(Xp).to(dev), torch.from_numpy(y.astype(np.int64)).to(dev),
                             idx, torch.ones(32, device=dev))
-    return float(loss), {k: p.grad.detach().cpu() for k, p in tr._net.named_parameters()}
+    return float(loss), {k: p.grad.detach().cpu() for k, p in trained.items()}
+
+
+def grad_gap(dev, X: np.ndarray, y: np.ndarray, bundle: Path, model: str = "cnn",
+             params: dict | None = None) -> tuple[float, float, float, float, str, int]:
+    """``step_and_grads`` on the card and on the CPU: (card loss, CPU loss,
+    their relative gap, the largest max|d|/max|g| over the gradient tensors,
+    that tensor's name, the tensor count)."""
+    import torch
+
+    loss_gpu, grads_gpu = step_and_grads(dev, X, y, bundle, model, params)
+    loss_cpu, grads_cpu = step_and_grads(torch.device("cpu"), X, y, bundle, model, params)
+    grad_rel, worst = max((float((grads_gpu[k] - grads_cpu[k]).abs().max() / grads_cpu[k].abs().max()), k)
+                          for k in grads_cpu)
+    return loss_gpu, loss_cpu, abs(loss_gpu - loss_cpu) / abs(loss_cpu), grad_rel, worst, len(grads_cpu)
 
 
 def main() -> int:
@@ -255,6 +348,7 @@ def main() -> int:
     from audio_edge_ml_pipeline_torch.data.audio_io import load_audio
     from audio_edge_ml_pipeline_torch.entry import flagship
     from audio_edge_ml_pipeline_torch.features import pipeline
+    from audio_edge_ml_pipeline_torch.models import get_model
     from audio_edge_ml_pipeline_torch.models.deep import MODEL_FILENAME, CNNTrainer, load_any_model
     from audio_edge_ml_pipeline_torch.ops import _build, audio_features, dsp, golden, mel_kernel, mel_unfolded
     from audio_edge_ml_pipeline_torch.serve.edge_simulator import EdgeDeviceSimulator
@@ -288,14 +382,16 @@ def main() -> int:
         "mel_power_unfolded": (mel_unfolded, mel_unfolded.mel_power_unfolded_plain, "mel_unfolded.cu"),
     }
 
+    errs_by_instantiation: dict[str, float] = {}   # max|d| against the plain version, by template instantiation
+
     def against_plain(entry: str, label: str, batch: int, n: int, sr: int, n_fft: int, hop: int,
                       n_mels: int, precise: bool = False) -> float:
         """One call of ``entry`` on the card, which must launch its kernel once
-        on the route ``route(n_fft)`` names (``mel_rfft``'s float64
-        instantiation if ``precise``), held against its plain version at
-        KERNEL_REL_TOL of each clip's peak power, and if ``precise`` at
-        F64_ELEMENT_TOL of each bin (the plain version's products run in
-        float64, so only the float64 kernel meets that). Returns max|d|."""
+        on the route ``route(n_fft)`` names (its float64 instantiation if
+        ``precise``), held against its plain version at KERNEL_REL_TOL of
+        each clip's peak power, and if ``precise`` at F64_ELEMENT_TOL of
+        each bin (the plain version's products run in float64, so only a
+        float64 kernel meets that). Returns max|d|."""
         module, plain_fn, dense_kernel = entries[entry]
         dense = module.route(n_fft) == "dense"
         y = torch.from_numpy(synth_clips(rng, batch, n)).to(dev)
@@ -306,12 +402,15 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = (module.counter.launches, module.counter_dense.launches)
         check(mel_kernel.counter_f64.launches == int(precise), f"{entry} float64 launches")
+        kernel = mel_kernel.instantiation(dense_kernel.removesuffix(".cu") if dense else "rfft", n_fft, precise)
+        check(dict(module.counter.by_instantiation) == {kernel: 1},
+              f"{entry} at n_fft {n_fft} launched {dict(module.counter.by_instantiation)}, not {kernel}")
         ref = plain_fn(y, sr, n_mels, n_fft, hop)
         err = (out - ref).abs()
         rel = float((err / ref.abs().amax(dim=(1, 2), keepdim=True)).max())
         rel_bin = float((err / ref.abs().clamp_min(torch.finfo(torch.float32).tiny)).max())
-        kernel = "dense " + dense_kernel if dense else "mel_rfft.cu" + (" float64" if precise else "")
-        print(f"[3] {entry} n_fft {n_fft} ({kernel}) vs plain, {label}: "
+        errs_by_instantiation[kernel] = max(errs_by_instantiation.get(kernel, 0.0), float(err.max()))
+        print(f"[3] {entry} n_fft {n_fft}, hop {hop}, {n_mels} mels ({kernel}) vs plain, {label}: "
               f"launches (all, dense) {launches}, max|d| {float(err.max()):.3e}, max|d|/clip peak {rel:.3e} "
               f"(tol {KERNEL_REL_TOL:g}), max|d|/|plain| per bin {rel_bin:.3e}"
               + (f" (tol {F64_ELEMENT_TOL:g})" if precise else " (not checked)"))
@@ -333,20 +432,32 @@ def main() -> int:
     worst_abs_unfolded = max(against_plain("mel_power_unfolded", *shape) for shape in shapes + [
         ("MFCC frontend 1024/512/128 mels @ 22.05 kHz", 8, 5 * 22050, 22050, 1024, 512, 128),
         ("B=4 x 5 s", 4, CLIP, SR, 400, HOP, N_MELS)])
+    # the four-pass plans through both entries and in float64, at 16 kHz and at librosa's default front end
+    front_2048 = ("librosa front end 2048/512/128 mels @ 22.05 kHz", 2, 66150, 22050, 2048, 512, 128)
+    for n_fft in NEW_PLANS:
+        against_plain("mel_power_folded", "B=4 x 5 s", 4, CLIP, SR, n_fft, HOP, N_MELS)
+        against_plain("mel_power_folded", "B=4 x 5 s", 4, CLIP, SR, n_fft, HOP, N_MELS, precise=True)
+        against_plain("mel_power_unfolded", "B=4 x 5 s", 4, CLIP, SR, n_fft, HOP, N_MELS)
+    for entry in entries:
+        against_plain(entry, *front_2048)
+    against_plain("mel_power_folded", *front_2048, precise=True)
+    against_plain("mel_power_folded", "hop 1024: the FFT kernel's tiles shrink to fit", 2, 66150, 22050, 2048, 1024,
+                  128, precise=True)
+    # each entry's dense kernel, and the folded one's float64 instantiation
     for entry in entries:
         against_plain(entry, "B=4 x 5 s", 4, CLIP, SR, DENSE_N_FFT, HOP, N_MELS)
+    against_plain("mel_power_folded", "B=4 x 5 s", 4, CLIP, SR, DENSE_N_FFT, HOP, N_MELS, precise=True)
+    against_plain("mel_power_folded", f"MFCC front end at n_fft {DENSE_N_FFT_22}", 2, 66150, 22050, DENSE_N_FFT_22,
+                  512, 128, precise=True)
+    # no even n_fft from 4 to 4096 raises, in either precision
+    for n_fft in SWEEP_N_FFT:
+        for precise in (False, True):
+            against_plain("mel_power_folded", "sweep, B=2 x 1 s", 2, SR, SR, n_fft, HOP, N_MELS, precise=precise)
     try:
         mel_unfolded.mel_power_unfolded(torch.zeros((2, 4000), device=dev), n_fft=511)
         fail("mel_unfolded took an odd n_fft")
     except ValueError as exc:
         print(f"[3] mel_unfolded refuses odd n_fft: {exc}")
-    mel_kernel.counter.reset()
-    try:
-        mel_kernel.mel_power_folded(torch.zeros((2, 4000), device=dev), n_fft=DENSE_N_FFT, precise=True)
-        fail("mel_power_folded ran precise=True on the float32 dense kernel")
-    except ValueError as exc:
-        print(f"[3] mel_power_folded refuses precise=True at n_fft {DENSE_N_FFT} (the dense route): {exc}")
-    check(mel_kernel.counter.launches == 0, "a refused precise=True call launched a kernel")
     lengths = np.array([CLIP, 61234, 17001, 4000], np.int64)
     y_np = synth_clips(rng, len(lengths))
     for i, n in enumerate(lengths):
@@ -363,54 +474,74 @@ def main() -> int:
           f"card vs CPU plain {pad_err:.3e} (tol {FEATURE_TOL:g})")
     check(gold_err <= FEATURE_TOL and pad_err <= FEATURE_TOL, "mel_spec_feature misses the 1e-5 gate")
 
-    # 3c. the MFCC and classical features on the card, with TF32 allowed everywhere
+    # 3c. the MFCC and classical features on the card, with TF32 allowed everywhere, at the extractors'
+    # n_fft 1024, at 2048 (the FFT route) and 2050 (the dense float64 route); the mel feature at 511 and 2048
     y22_np = synth_clips(rng, 4, CLIP22, SR22)
     y22 = torch.from_numpy(y22_np).to(dev)
+    y16_np = synth_clips(rng, 4)
+    y16 = torch.from_numpy(y16_np).to(dev)
+    y22_64 = y22_np.astype(np.float64)
+    t22 = {nf: 1 + CLIP22 // MFCC_HOP for nf in (MFCC_N_FFT, 2048, DENSE_N_FFT_22)}
+    f64 = {nf: mel_kernel.instantiation(mel_kernel.route(nf).replace("dense", "mel_folded"), nf, True)
+           for nf in (MFCC_N_FFT, 2048, DENSE_N_FFT_22)}
+    cases3c = {  # label -> (feature on the card, golden, tol, shape, launches (all, dense, float64), instantiation)
+        "mfcc_seq_feature": (lambda: audio_features.mfcc_seq_feature(y22),
+                             lambda c: golden.mfcc_seq_feature(c), FEATURE_TOL, (4, 40, t22[MFCC_N_FFT]),
+                             (1, 0, 1), f64[MFCC_N_FFT]),
+        "mfcc": (lambda: audio_features.mfcc(y22, SR22, 40, MFCC_N_FFT, MFCC_HOP),
+                 lambda c: golden.mfcc(c, SR22, 40, MFCC_N_FFT, MFCC_HOP), RAW_MFCC_TOL, (4, 40, t22[MFCC_N_FFT]),
+                 (1, 0, 1), f64[MFCC_N_FFT]),
+        "classical_feature_vector": (lambda: audio_features.classical_feature_vector(y22),
+                                     lambda c: golden.classical_feature_vector(c), CLASSICAL_REL_TOL, (4, 302),
+                                     (1, 0, 1), f64[MFCC_N_FFT]),
+        "waveform_feature": (lambda: dsp.waveform_feature(y22), golden.waveform_feature, WAVEFORM_TOL,
+                             (4, CLIP22), (0, 0, 0), None),
+        **{f"{name} n_fft {nf}": (
+            (lambda nf=nf: audio_features.mfcc_seq_feature(y22, n_fft=nf)) if name == "mfcc_seq_feature" else
+            (lambda nf=nf: audio_features.classical_feature_vector(y22, n_fft=nf)),
+            (lambda c, nf=nf: golden.mfcc_seq_feature(c, n_fft=nf)) if name == "mfcc_seq_feature" else
+            (lambda c, nf=nf: golden.classical_feature_vector(c, n_fft=nf)),
+            FEATURE_TOL if name == "mfcc_seq_feature" else CLASSICAL_REL_TOL,
+            (4, 40, t22[nf]) if name == "mfcc_seq_feature" else (4, 302),
+            (1, int(nf == DENSE_N_FFT_22), 1), f64[nf])
+           for name in ("mfcc_seq_feature", "classical_feature_vector") for nf in (2048, DENSE_N_FFT_22)},
+        "mel_spec_feature n_fft 511": (lambda: mel_kernel.mel_spec_feature(y16, n_fft=511),
+                                       lambda c: golden.mel_spec_feature(c, n_fft=511), FEATURE_TOL,
+                                       (4, N_MELS, 1 + (CLIP - 1) // HOP), (0, 0, 0), None),
+        "mel_spec_feature n_fft 2048": (lambda: mel_kernel.mel_spec_feature(y16, n_fft=2048),
+                                        lambda c: golden.mel_spec_feature(c, n_fft=2048), FEATURE_TOL,
+                                        (4, N_MELS, 1 + CLIP // HOP), (1, 0, 0), "mel_rfft<1024, float>"),
+    }
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
         mfcc_launches = {}
         feats3c = {}
-        for label, fn in [
-            ("mfcc_seq_feature", lambda: audio_features.mfcc_seq_feature(y22)),
-            ("mfcc", lambda: audio_features.mfcc(y22, SR22, 40, MFCC_N_FFT, MFCC_HOP)),
-            ("classical_feature_vector", lambda: audio_features.classical_feature_vector(y22)),
-            ("waveform_feature", lambda: dsp.waveform_feature(y22)),
-        ]:
+        for label, (fn, *_) in cases3c.items():
             mel_kernel.counter.reset()
             mel_kernel.counter_dense.reset()
             mel_kernel.counter_f64.reset()
             feats3c[label] = fn().cpu().numpy()
             torch.cuda.synchronize()
-            mfcc_launches[label] = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches,
-                                    mel_kernel.counter_f64.launches)
+            mfcc_launches[label] = ((mel_kernel.counter.launches, mel_kernel.counter_dense.launches,
+                                     mel_kernel.counter_f64.launches), dict(mel_kernel.counter.by_instantiation))
         flags_after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
-    y22_64 = y22_np.astype(np.float64)
-    gold3c = {
-        "mfcc_seq_feature": np.stack([golden.mfcc_seq_feature(c) for c in y22_64]),
-        "mfcc": np.stack([golden.mfcc(c, SR22, 40, MFCC_N_FFT, MFCC_HOP) for c in y22_64]),
-        "classical_feature_vector": np.stack([golden.classical_feature_vector(c) for c in y22_64]),
-        "waveform_feature": np.stack([golden.waveform_feature(c) for c in y22_64]),
-    }
-    err3c = {k: float(np.abs(feats3c[k] - gold3c[k]).max()) for k in gold3c}
-    err3c["classical_feature_vector"] = float((np.abs(feats3c["classical_feature_vector"] - gold3c["classical_feature_vector"])
-                                               / np.maximum(np.abs(gold3c["classical_feature_vector"]), 1.0)).max())
-    tol3c = {"mfcc_seq_feature": FEATURE_TOL, "mfcc": RAW_MFCC_TOL, "classical_feature_vector": CLASSICAL_REL_TOL,
-             "waveform_feature": WAVEFORM_TOL}
-    shapes3c = {"mfcc_seq_feature": (4, 40, 1 + CLIP22 // MFCC_HOP), "mfcc": (4, 40, 1 + CLIP22 // MFCC_HOP),
-                "classical_feature_vector": (4, 302), "waveform_feature": (4, CLIP22)}
-    for k in gold3c:
-        print(f"[3c] {k} on the card, TF32 flags on: shape {feats3c[k].shape}, vs float64 golden "
-              f"{'max|d|/max(|g|, 1)' if k == 'classical_feature_vector' else 'max|d|'} {err3c[k]:.3e} "
-              f"(tol {tol3c[k]:g}); mel kernel launches (all, dense, float64) {mfcc_launches[k]}")
-        check(feats3c[k].shape == shapes3c[k] and bool(np.isfinite(feats3c[k]).all()), f"{k} shape or finiteness")
-        check(err3c[k] <= tol3c[k], f"{k} on the card misses its gate against golden: {err3c[k]:.3e}")
+    for label, (_, gold_fn, tol, shape, launches, inst) in cases3c.items():
+        clips = y16_np if label.startswith("mel_spec") else y22_64
+        gold = np.stack([gold_fn(c) for c in clips])
+        d = np.abs(feats3c[label] - gold)
+        classical = label.startswith("classical")
+        err = float((d / np.maximum(np.abs(gold), 1.0)).max() if classical else d.max())
+        print(f"[3c] {label} on the card, TF32 flags on: shape {feats3c[label].shape}, vs float64 golden "
+              f"{'max|d|/max(|g|, 1)' if classical else 'max|d|'} {err:.3e} (tol {tol:g}); mel kernel launches "
+              f"(all, dense, float64) {mfcc_launches[label][0]}, {mfcc_launches[label][1]}")
+        check(feats3c[label].shape == shape and bool(np.isfinite(feats3c[label]).all()), f"{label} shape or finiteness")
+        check(err <= tol, f"{label} on the card misses its gate against golden: {err:.3e}")
+        check(mfcc_launches[label] == (launches, {inst: 1} if inst else {}),
+              f"{label} launched {mfcc_launches[label]}, not {launches} of {inst}")
     check(flags_after == (True, True), "the DSP changed the caller's TF32 flags")
-    check(all(mfcc_launches[k] == (1, 0, 1) for k in ("mfcc_seq_feature", "mfcc", "classical_feature_vector")),
-          f"an MFCC call did not launch mel_rfft's float64 instantiation exactly once: {mfcc_launches}")
-    check(mfcc_launches["waveform_feature"] == (0, 0, 0), "waveform_feature launched a mel kernel")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -467,6 +598,20 @@ def main() -> int:
               f"mel_power_unfolded launched {unfolded_launches} kernels ({unfolded_dense} dense) for one call")
         check(mel_u.shape == (n_clips, 1 + CLIP // HOP, N_MELS), "unfolded mel shape")
         check(gold_rel <= GOLDEN_REL_TOL, "the unfolded kernel misses the golden mel power")
+        # and its dense kernel, at an n_fft with no FFT plan
+        mel_unfolded.counter.reset()
+        mel_unfolded.counter_dense.reset()
+        mel_ud = mel_unfolded.mel_power_unfolded(tree_d, n_fft=DENSE_N_FFT).cpu().numpy()
+        unfolded_dense_launches = dict(mel_unfolded.counter.by_instantiation)
+        gold_rel_d = max(float(np.abs(mel_ud[j].T - g).max() / np.abs(g).max())
+                         for j, g in ((j, golden.melspectrogram(tree[j].astype(np.float64), sr=SR, n_mels=N_MELS,
+                                                                n_fft=DENSE_N_FFT, hop_length=HOP))
+                                      for j in (0, n_clips // 2, n_clips - 1)))
+        print(f"[4] mel_power_unfolded at n_fft {DENSE_N_FFT} on the {n_clips} tree clips: launches "
+              f"{unfolded_dense_launches}; 3 clips vs float64 golden mel power max|d|/clip peak {gold_rel_d:.3e} "
+              f"(tol {GOLDEN_REL_TOL:g})")
+        check(unfolded_dense_launches == {"mel_unfolded<float>": 1}, "mel_power_unfolded's dense route")
+        check(gold_rel_d <= GOLDEN_REL_TOL, "the dense unfolded kernel misses the golden mel power")
 
         # 4c. the shipped extraction config on the same tree, through the CLI on the card
         cfg, shipped = shipped_config_copy(fsc22, tmp / "shipped")
@@ -523,6 +668,49 @@ def main() -> int:
             mfcc_exp = exp["extractor"] != "audio_mel_spec"
             check(launches_exp[0] >= 1 and launches_exp[1] == 0 and launches_exp[2] == launches_exp[0] * mfcc_exp,
                   f"{exp['name']} launched (all, dense, float64) {launches_exp}: not the FFT mel kernel it should")
+
+        # 4d. this slice's path: the repaired sizes through the extraction CLI, counted by instantiation
+        slice_cfg, slice_exps = repaired_sizes_config(fsc22, tmp / "repaired")
+        slice_launches: dict[str, dict[str, int]] = {}
+        slice_s: dict[str, float] = {}
+
+        def counted_slice(exp, *args, **kwargs):
+            mel_kernel.counter.reset()
+            t0 = time.perf_counter()
+            run_experiment(exp, *args, **kwargs)
+            torch.cuda.synchronize()
+            slice_s[exp.resolved_name()] = time.perf_counter() - t0
+            slice_launches[exp.resolved_name()] = dict(mel_kernel.counter.by_instantiation)
+
+        pipeline._run_experiment = counted_slice
+        try:
+            pipeline.main(["--config", str(slice_cfg)])
+        finally:
+            pipeline._run_experiment = run_experiment
+        check(sorted(slice_launches) == sorted(e["name"] for e in slice_exps), f"the repaired sizes ran {sorted(slice_launches)}")
+        path_launches: dict[str, int] = {}    # by instantiation, over this slice's path
+        for exp in slice_exps:
+            prm = exp["extractor_params"]
+            mfcc_exp = exp["extractor"] == "audio_mfcc_seq"
+            shape, gold_fn, sr_exp = (((40, 1 + CLIP22 // MFCC_HOP), golden.mfcc_seq_feature, SR22) if mfcc_exp else
+                                      ((N_MELS, 1 + CLIP // HOP), golden.mel_spec_feature, SR))
+            fs_exp = pipeline.FeaturePipeline.load(exp["output"])
+            rows = split_rows[exp["split"]]
+            check(fs_exp.features.shape == (rows, *shape) and bool(np.isfinite(fs_exp.features).all()),
+                  f"{exp['name']} FeatureSet shape {fs_exp.features.shape}")
+            err_exp = 0.0
+            for j in (0, rows // 2, rows - 1):
+                yj, _ = load_audio(audio_dir / fs_exp.metadata[j]["filename"], sr=sr_exp)
+                err_exp = max(err_exp, float(np.abs(fs_exp.features[j] - gold_fn(yj, n_fft=prm["n_fft"])).max()))
+            kernel = mel_kernel.instantiation(mel_kernel.route(prm["n_fft"]).replace("dense", "mel_folded"),
+                                              prm["n_fft"], mfcc_exp)
+            print(f"[4d] repaired size {exp['name']} ({exp['extractor']}, n_fft {prm['n_fft']}): {fs_exp} in "
+                  f"{slice_s[exp['name']]:.2f} s; launches {slice_launches[exp['name']]}; 3 rows vs float64 golden "
+                  f"{err_exp:.3e} (tol {FEATURE_TOL:g})")
+            check(err_exp <= FEATURE_TOL, f"{exp['name']} misses its gate against golden")
+            check(set(slice_launches[exp["name"]]) == {kernel}, f"{exp['name']} did not run {kernel}")
+            for k, v in slice_launches[exp["name"]].items():
+                path_launches[k] = path_launches.get(k, 0) + v
 
         # 5. serving
         trainer = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, device=dev)
@@ -619,16 +807,59 @@ def main() -> int:
         # From phase 5's seeded bundle, not the trained one: training on the card does not repeat from run to
         # run, and a ReLU or max-pool near-tie in one run's weights can go the other way on the CPU (once
         # 9.2e-5 of the 1e-4 limit on an H100).
-        loss_gpu, grads_gpu = step_and_grads(dev, X_step, y_step, bundle)
-        loss_cpu, grads_cpu = step_and_grads(torch.device("cpu"), X_step, y_step, bundle)
-        grad_rel, grad_worst = max((float((grads_gpu[k] - grads_cpu[k]).abs().max() / grads_cpu[k].abs().max()), k)
-                                   for k in grads_cpu)
-        loss_rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        loss_gpu, loss_cpu, loss_rel, grad_rel, grad_worst, n_grads = grad_gap(dev, X_step, y_step, bundle)
         print(f"[5b] one train step (B=32, dropout 0) card vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f} "
               f"(rel {loss_rel:.3e}, tol {STEP_LOSS_TOL:g}); gradients max|d|/max|g| {grad_rel:.3e} "
-              f"({grad_worst}, the worst of {len(grads_cpu)} tensors; tol {GRAD_TOL:g}, TF32 off)")
+              f"({grad_worst}, the worst of {n_grads} tensors; tol {GRAD_TOL:g}, TF32 off)")
         check(loss_rel <= STEP_LOSS_TOL, "train-step loss on the card disagrees with the CPU")
         check(grad_rel <= GRAD_TOL, "train-step gradients on the card disagree with the CPU")
+
+        # 5c. runs 1-3 of configs/training.yaml through the train CLI on the card, on phase 4c's FeatureSets
+        train_cfg, train_runs = training_config_copy(tmp / "shipped", tmp / "runs")
+        os.environ["MLFLOW_TRACKING_URI"] = str(tmp / "runs" / "mlruns")
+        mel_kernel.counter.reset()
+        cwd = os.getcwd()
+        os.chdir(tmp / "runs")   # the CLI archives a sweep's config under ./config/experiments
+        t0 = time.perf_counter()
+        try:
+            train.main(["--config", str(train_cfg)])
+        finally:
+            os.chdir(cwd)
+            os.environ.pop("MLFLOW_TRACKING_URI")
+        torch.cuda.synchronize()
+        runs_s = time.perf_counter() - t0
+        shortlist = json.loads((tmp / "runs" / "models" / "shortlist.json").read_text())
+        print(f"[5c] runs 1-3 of configs/training.yaml on the card, {TRAIN_EPOCHS} epochs each, in {runs_s:.2f} s; "
+              f"shortlist {[(c['rank'], c['model'], round(c['val_f1_macro'], 4)) for c in shortlist['candidates']]}; "
+              f"mel kernel launches {mel_kernel.counter.launches}")
+        check(shortlist["n_candidates"] == 3 and sorted(c["model"] for c in shortlist["candidates"]) ==
+              ["cnn", "mlp", "rnn"], f"the shortlist of runs 1-3: {shortlist}")
+        served_gap = {}
+        for run in train_runs:
+            run_bundle = Path(train_cfg.parent / "models" / run["name"] / MODEL_FILENAME)
+            card_model, cpu_model = load_any_model(run_bundle), load_any_model(run_bundle, device="cpu")
+            check(card_model.device.type == "cuda" and card_model.name == run["model"], f"{run['name']} served")
+            Xr = pipeline.FeaturePipeline.load(run["features_dir"]).features[:8]
+            served_gap[run["name"]] = float(np.abs(card_model._batched_logits(card_model._prepare_input(Xr)) -
+                                                   cpu_model._batched_logits(cpu_model._prepare_input(Xr))).max())
+            info = json.loads((run_bundle.parent / "model_info.json").read_text())
+            print(f"[5c] {run['name']} ({run['model']}, {run['params']}): val_accuracy {info['val_accuracy']:.4f}; "
+                  f"served logits card vs CPU on 8 rows max|d| {served_gap[run['name']]:.3e} (tol {LOGIT_TOL:g})")
+            check(served_gap[run["name"]] <= LOGIT_TOL, f"{run['name']} logits on the card disagree with the CPU")
+        for model, params, fs_dir in (("mlp", {"hidden_units": [256, 128]}, "fsc22_classical_train"),
+                                      ("rnn", {"units": 128}, "fsc22_mfcc_seq_train")):
+            fs_run = pipeline.FeaturePipeline.load(tmp / "shipped" / fs_dir)
+            seeded = get_model(model)(**params, device=dev)
+            seeded.initialize(seeded._prepare_input(fs_run.features[:1]).shape[1:], N_CLASSES,
+                              torch.Generator().manual_seed(0))
+            seeded.save(tmp / f"{model}_seeded.npz")
+            loss_gpu, loss_cpu, loss_rel, grad_rel, grad_worst, n_grads = grad_gap(
+                dev, fs_run.features[:32], fs_run.labels[:32], tmp / f"{model}_seeded.npz", model, params)
+            print(f"[5c] one {model} train step ({params}, B=32, dropout 0) card vs CPU: loss {loss_gpu:.6f} vs "
+                  f"{loss_cpu:.6f} (rel {loss_rel:.3e}, tol {STEP_LOSS_TOL:g}); gradients max|d|/max|g| "
+                  f"{grad_rel:.3e} ({grad_worst}, the worst of {n_grads} tensors; tol {GRAD_TOL:g}, TF32 off)")
+            check(loss_rel <= STEP_LOSS_TOL, f"the {model} train-step loss on the card disagrees with the CPU")
+            check(grad_rel <= GRAD_TOL, f"the {model} train-step gradients on the card disagree with the CPU")
 
     # 6. timing at B=512 five-second clips
     batch = 512
@@ -708,6 +939,21 @@ def main() -> int:
         step_ms[b] = cuda_ms(lambda: tr.train_step(opt, X_d, y_d, idx, w), iters=20)
         print(f"[6] train step (forward + backward + Adam, dropout 0.3) of the flagship CNN at B={b}: "
               f"{step_ms[b]:.3f} ms, {b / step_ms[b] * 1e3:.0f} clips/s on {card}")
+    for model, params, shape in (("mlp", {"hidden_units": [256, 128]}, (302,)),
+                                 ("rnn", {"units": 128}, (40, 1 + CLIP22 // MFCC_HOP))):
+        for b in (32, 512):
+            tr = get_model(model)(**params, batch_size=b, device=dev)
+            Xb = np.random.default_rng(b).standard_normal((b, *shape)).astype(np.float32)
+            tr.prepare_fit(Xb, N_CLASSES)
+            tr._net.train()
+            opt = torch.optim.Adam([p for p in tr._net.parameters() if p.requires_grad], lr=1e-3)
+            X_d = torch.from_numpy(Xb).to(dev)
+            y_d = torch.from_numpy(np.arange(b) % N_CLASSES).to(dev)
+            idx, w = torch.arange(b, device=dev), torch.ones(b, device=dev)
+            step_ms[f"{model} B={b}"] = cuda_ms(lambda: tr.train_step(opt, X_d, y_d, idx, w), iters=20)
+            print(f"[6] train step (forward + backward + Adam, dropout 0.3) of the {model} {params} on {shape} "
+                  f"inputs at B={b}: {step_ms[f'{model} B={b}']:.3f} ms, "
+                  f"{b / step_ms[f'{model} B={b}'] * 1e3:.0f} clips/s on {card}")
 
     # MFCC front end and the 22.05 kHz features at B=512 five-second clips
     waves22 = torch.from_numpy(np.tile(synth_clips(rng, 8, CLIP22, SR22), (batch // 8, 1))).to(dev)
@@ -760,9 +1006,36 @@ def main() -> int:
           f"{batch / ms_classical * 1e3:.0f} clips/s; alone: its MFCC block (mfcc) {ms_mfcc_block:.3f} ms, its "
           f"magnitude STFT {ms_mag_stft:.3f} ms, its spectral groups, zcr and rms {ms_groups:.3f} ms "
           f"({', '.join(f'{k} {v:.3f}' for k, v in ms_group.items())} ms) on {card}")
+    # the four-pass plans and the dense routes at B=512 five-second clips, beside their bounds and plain versions
+    timed = {}   # instantiation -> (ms, plain ms, bound ms, bound_by, shape)
+    with torch.inference_mode():
+        for key, entry, w, sr, n_fft, hop, n_mels, precise in (
+                ("mel_rfft<240, float>", "mel_power_folded", waves, SR, 480, HOP, N_MELS, False),
+                ("mel_rfft<240, double>", "mel_power_folded", waves, SR, 480, HOP, N_MELS, True),
+                ("mel_rfft<1024, float>", "mel_power_folded", waves22, SR22, 2048, MFCC_HOP, MFCC_MELS, False),
+                ("mel_rfft<1024, double>", "mel_power_folded", waves22, SR22, 2048, MFCC_HOP, MFCC_MELS, True),
+                ("mel_folded<float>", "mel_power_folded", waves, SR, DENSE_N_FFT, HOP, N_MELS, False),
+                ("mel_folded<double>", "mel_power_folded", waves22, SR22, DENSE_N_FFT_22, MFCC_HOP, MFCC_MELS, True),
+                ("mel_unfolded<float>", "mel_power_unfolded", waves, SR, DENSE_N_FFT, HOP, N_MELS, False)):
+            module, plain_fn, _ = entries[entry]
+            kw = {"precise": True} if precise else {}
+            dense = module.route(n_fft) == "dense"
+            ms = cuda_ms(lambda: getattr(module, entry)(w, sr, n_mels, n_fft, hop, **kw), iters=5 if dense else 20)
+            ms_p = cuda_ms(lambda: plain_fn(w, sr, n_mels, n_fft, hop), iters=3, warmup=1)
+            nonzeros = int(np.count_nonzero(golden.mel_filterbank(sr, n_fft, n_mels)))
+            bound, bound_by_k, *_ = mel_folded_bound(batch, w.shape[1], n_fft, nonzeros, hop, n_mels,
+                                                     F64_PEAK if precise else F32_PEAK)
+            shape = f"B={batch} x 5 s at {sr / 1000:g} kHz, n_fft {n_fft}, hop {hop}, {n_mels} mels"
+            timed[key] = (ms, ms_p, bound, bound_by_k, shape)
+            print(f"[6] {key} ({entry}) at {shape}: {ms:.3f} ms, {share(ms, bound)} {bound:.4f} ms ({bound_by_k}); "
+                  f"plain version {ms_p:.3f} ms on {card}")
     check(all(np.isfinite([ms_kernel, ms_dense, ms_plain, ms_unf, ms_unf_dense, ms_unf_plain, ms_400, ms_400_folded,
                             ms_400_unfolded, ms_e2e, ms_epilogue, ms_cnn, *step_ms.values(), ms_mfcc_kernel, ms_mfcc_f64,
-                            ms_mfcc_plain, ms_mfcc_seq, ms_classical, ms_mfcc_block, ms_mag_stft, ms_groups])), "timing")
+                            ms_mfcc_plain, ms_mfcc_seq, ms_classical, ms_mfcc_block, ms_mag_stft, ms_groups,
+                            *(t for v in timed.values() for t in v[:3])])), "timing")
+    path_launches["mel_unfolded<float>"] = unfolded_dense_launches.get("mel_unfolded<float>", 0)
+    check(all(path_launches.get(key, 0) >= 1 for key in timed),
+          f"a kernel of this slice's path was not launched there: {path_launches}")
 
     # 7. results
     print(json.dumps({"kernels": [{
@@ -785,7 +1058,13 @@ def main() -> int:
         "launches": unfolded_launches, "max_abs_err": worst_abs_unfolded,
         "ms": ms_unf, "plain_ms": ms_unf_plain, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "plain_products": "float32", "dense_ms": ms_unf_dense, "dense_source": "audio_edge_ml_pipeline_torch/csrc/mel_unfolded.cu",
-    }]}))
+    }, *({
+        "name": key, "route": "cuda",
+        "source": f"audio_edge_ml_pipeline_torch/csrc/{'mel_rfft' if key.startswith('mel_rfft') else key.split('<')[0]}.cu",
+        "replaces": f"audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:{35 if key.startswith('mel_unfolded') else 119}",
+        "launches": path_launches[key], "max_abs_err": errs_by_instantiation[key], "ms": ms, "plain_ms": ms_p,
+        "bound_ms": bound, "bound_by": by, "library_ms": None, "shape": shape,
+    } for key, (ms, ms_p, bound, by, shape) in timed.items())]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -14,7 +14,7 @@ same tables, in alternating turns on one card:
   pad1                one float of scratch padding every 32 values, not five
   ldg_span            the tile span loaded by __ldg and st.shared, not cp.async
   no_mel              (wrong output) the mel chunk sums cut
-  no_passes_1_2       (wrong output) the second and third FFT passes cut
+  no_later_passes     (wrong output) every FFT pass after the first cut
   span_only           (wrong output) every frame cut: tables, spans, nothing else
 
 The first four must agree with the plain version within chip_smoke's
@@ -46,10 +46,10 @@ SUBSTITUTIONS = {
     "pad1": ("return i + 5 * (i >> 5);", "return i + (i >> 5);"),
     "ldg_span": ("copy_async(xs + i, inside ? row + j : row, inside);", "xs[i] = inside ? __ldg(row + j) : 0.0f;"),
     "no_mel": ("for (int q = 0; q < n_rounds; ++q) {", "for (int q = 0; q < 0; ++q) {"),
-    "no_passes_1_2": ("p1.run(re, im, lane);\n      p2.run(re, im, lane);", ""),
-    "span_only": ("for (int f = warp; f < kTileT; f += kWarps) {", "for (int f = warp; f < 0; f += kWarps) {"),
+    "no_later_passes": ("p1.run(re, im, lane);\n      p2.run(re, im, lane);\n      p3.run(re, im, lane);", ""),
+    "span_only": ("for (int f = warp; f < tile_t; f += W) {", "for (int f = warp; f < 0; f += W) {"),
 }
-DIAGNOSTIC = {"no_mel", "no_passes_1_2", "span_only"}
+DIAGNOSTIC = {"no_mel", "no_later_passes", "span_only"}
 
 
 def one_filter_a_lane(tab: rfft_plan.Tables) -> tuple[np.ndarray, np.ndarray]:
@@ -104,9 +104,14 @@ def main(argv: list[str] | None = None) -> int:
     p, i = ctypes.c_void_p, ctypes.c_int
 
     def launcher(lib_path: Path, chunks_np: np.ndarray, slots_np: np.ndarray):
-        fn = ctypes.CDLL(str(lib_path)).mel_rfft_launch
-        fn.argtypes = [p, i, i, i, i, i, p, p, p, p, i, p, i, p, i, i, p, p]
+        lib = ctypes.CDLL(str(lib_path))
+        fn, smem_bytes = lib.mel_rfft_launch, lib.mel_rfft_smem_bytes
+        fn.argtypes = [p, i, i, i, i, i, i, p, p, p, p, i, p, i, p, i, i, p, p]
         fn.restype = i
+        smem_bytes.argtypes = [i] * 7
+        smem_bytes.restype = ctypes.c_size_t
+        tile, _ = mel_kernel.fit_tile(lambda t: smem_bytes(n_fft, HOP, N_MELS, len(tab.weights), chunks_np.shape[0],
+                                                           int(slots_np[:, 1].sum()), t), mel_kernel.RFFT_TILES)
         window, twiddles, split, weights = (torch.from_numpy(a).to(dev) for a in (tab.window, tab.twiddles,
                                                                                    tab.split, tab.weights))
         chunks, slots = torch.from_numpy(chunks_np).to(dev), torch.from_numpy(slots_np).to(dev)
@@ -114,7 +119,7 @@ def main(argv: list[str] | None = None) -> int:
         keep = (window, twiddles, split, weights, chunks, slots)
 
         def run():
-            err = fn(waves.data_ptr(), BATCH, n, T, n_fft, HOP, *(t.data_ptr() for t in keep[:4]), weights.numel(),
+            err = fn(waves.data_ptr(), BATCH, n, T, n_fft, HOP, tile, *(t.data_ptr() for t in keep[:4]), weights.numel(),
                      chunks.data_ptr(), chunks.shape[0], slots.data_ptr(), N_MELS, int(slots_np[:, 1].sum()),
                      out.data_ptr(), stream)
             if err != 0:

@@ -134,8 +134,8 @@ def test_initialize_is_seeded_and_saves_flax_layout(tmp_path):
 
 
 def test_unported_trainer_names_raise(tmp_path):
-    path = tmp_path / "mlp.npz"
-    tdeep.save_model_bundle_flat(path, {"type": "mlp"}, {}, np.zeros(1), np.ones(1))
+    path = tmp_path / "transformer.npz"
+    tdeep.save_model_bundle_flat(path, {"type": "transformer"}, {}, np.zeros(1), np.ones(1))
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tdeep.load_any_model(path, device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -27,9 +27,10 @@ def cuda_device():
     (4, 80000, 16000, 512, 160, 40), (1, 32000, 16000, 512, 160, 40), (3, 16077, 16000, 512, 160, 40),
     (2, 600, 16000, 512, 160, 40), (2, 66150, 22050, 1024, 512, 128), (2, 80000, 16000, 320, 160, 40),
     (3, 16077, 16000, 400, 160, 40), (2, 80000, 16000, 400, 160, 40), (2, 80000, 16000, 640, 160, 40),
+    (3, 16077, 16000, 480, 160, 40), (2, 66150, 22050, 2048, 512, 128), (2, 32000, 16000, 2048, 160, 40),
 ])
 def test_mel_folded_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop, n_mels):
-    """The FFT sizes go to csrc/mel_rfft.cu."""
+    """The FFT sizes go to csrc/mel_rfft.cu (four passes at n_fft 480 and 2048)."""
     rng = np.random.default_rng(batch * 100003 + n)
     y = torch.from_numpy((0.3 * rng.standard_normal((batch, n))).astype(np.float32)).to(cuda_device)
     before, dense_before = mel_kernel.counter.launches, mel_kernel.counter_dense.launches
@@ -49,15 +50,16 @@ def test_mel_folded_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop,
     (mel_kernel, "mel_power_folded", "mel_power_folded_plain"),
     (mel_unfolded, "mel_power_unfolded", "mel_power_unfolded_plain"),
 ])
-def test_dense_route_at_n_fft_480_matches_plain_version(cuda_device, module, entry, plain):
-    """M = 240 has no FFT plan: each entry launches its dense kernel."""
-    rng = np.random.default_rng(480)
+@pytest.mark.parametrize("n_fft", [6, 482, 2050])
+def test_dense_route_matches_plain_version(cuda_device, module, entry, plain, n_fft):
+    """M = 3, 241 and 1025 have no FFT plan: each entry launches its dense kernel."""
+    rng = np.random.default_rng(n_fft)
     y = torch.from_numpy((0.3 * rng.standard_normal((3, 16077))).astype(np.float32)).to(cuda_device)
     before, dense_before = module.counter.launches, module.counter_dense.launches
-    out = getattr(module, entry)(y, n_fft=480)
+    out = getattr(module, entry)(y, n_fft=n_fft)
     torch.cuda.synchronize()
     assert module.counter.launches == before + 1 and module.counter_dense.launches == dense_before + 1
-    ref = getattr(module, plain)(y, n_fft=480)
+    ref = getattr(module, plain)(y, n_fft=n_fft)
     scale = ref.abs().amax(dim=(1, 2), keepdim=True)
     assert out.shape == (3, 1 + 16077 // 160, 40)
     assert float(((out - ref).abs() / scale).max()) <= 1e-6
@@ -90,6 +92,7 @@ def test_wrapper_raises_instead_of_falling_back(cuda_device):
 @pytest.mark.parametrize("batch,n,sr,n_fft,hop,n_mels", [
     (4, 80000, 16000, 512, 160, 40), (1, 32000, 16000, 512, 160, 40),
     (3, 16077, 16000, 512, 160, 40), (2, 66150, 22050, 1024, 512, 128), (2, 80000, 16000, 400, 160, 40),
+    (3, 16077, 16000, 480, 160, 40), (2, 66150, 22050, 2048, 512, 128),
 ])
 def test_mel_unfolded_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop, n_mels):
     """The FFT sizes go to csrc/mel_rfft.cu, as for the folded entry."""
@@ -118,29 +121,39 @@ def test_mel_unfolded_raises_instead_of_falling_back(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,n,sr,n_fft,hop,n_mels", [
     (2, 66150, 22050, 1024, 512, 128), (3, 16077, 16000, 512, 160, 40), (2, 80000, 16000, 400, 160, 40),
+    (3, 16077, 16000, 480, 160, 40), (2, 66150, 22050, 2048, 512, 128), (2, 66150, 22050, 2048, 1024, 128),
+    (3, 16077, 16000, 482, 160, 40), (2, 66150, 22050, 2050, 512, 128), (2, 44100, 22050, 4096, 1024, 128),
 ])
 def test_mel_folded_float64_instantiation_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop, n_mels):
-    """precise=True launches mel_rfft.cu's float64 instantiation; the plain
-    version's products run in float64 too, so the two meet at float32
-    rounding of the result."""
+    """precise=True launches the routed kernel's float64 instantiation
+    (mel_rfft.cu's on its sizes, mel_folded.cu's elsewhere; at n_fft 2048,
+    hop 1024 the FFT kernel's tiles shrink to fit); the plain version's
+    products run in float64 too, so the two meet at float32 rounding of the
+    result."""
     rng = np.random.default_rng(batch * 7919 + n)
     y = torch.from_numpy((0.3 * rng.standard_normal((batch, n))).astype(np.float32)).to(cuda_device)
     before, f64_before = mel_kernel.counter.launches, mel_kernel.counter_f64.launches
+    dense_before = mel_kernel.counter_dense.launches
     out = mel_kernel.mel_power_folded(y, sr, n_mels, n_fft, hop, precise=True)
     torch.cuda.synchronize()
     assert mel_kernel.counter.launches == before + 1 and mel_kernel.counter_f64.launches == f64_before + 1
+    assert mel_kernel.counter_dense.launches == dense_before + (mel_kernel.route(n_fft) == "dense")
     plain = mel_kernel.mel_power_folded_plain(y, sr, n_mels, n_fft, hop)
     assert float(((out - plain).abs() / plain.abs().clamp_min(1e-30)).max()) <= 1e-6
 
 
 @pytest.mark.cuda
-def test_precise_refuses_the_float32_dense_route(cuda_device):
-    """n_fft 480 has no FFT plan, and the dense kernel has no float64
-    instantiation: precise=True raises and launches nothing."""
+@pytest.mark.parametrize("n_fft", [511, 401])
+def test_mel_feature_at_odd_n_fft_on_the_card(cuda_device, n_fft):
+    """Odd n_fft has no fold: the framed basis product (torch ops), one frame
+    fewer than n_frames_for, no kernel launch, within 1e-5 of golden."""
+    rng = np.random.default_rng(n_fft)
+    y = (0.3 * rng.standard_normal((2, 16000))).astype(np.float32)
     before = mel_kernel.counter.launches
-    with pytest.raises(ValueError, match="precise=True"):
-        mel_kernel.mel_power_folded(torch.zeros((2, 4000), device=cuda_device), n_fft=480, precise=True)
-    assert mel_kernel.counter.launches == before
+    feat = mel_kernel.mel_spec_feature(torch.from_numpy(y).to(cuda_device), n_fft=n_fft).cpu().numpy()
+    assert mel_kernel.counter.launches == before and feat.shape == (2, 40, 100)
+    for i in range(2):
+        assert np.max(np.abs(feat[i] - golden.mel_spec_feature(y[i], n_fft=n_fft))) <= 1e-5
 
 
 @pytest.mark.cuda

@@ -52,16 +52,15 @@ def test_the_kernels_plans_and_constants_are_rfft_plans():
     """csrc/mel_rfft.cu's radix plans, launch sizes and butterfly constants
     are the ones the emulation runs."""
     source = (_build.CSRC / "mel_rfft.cu").read_text()
-    plans = {2 * int(m): tuple(map(int, r)) for m, *r in
-             re.findall(r"case (\d+): return plan\(s, (\d+), (\d+), (\d+)\);", source)}
-    plans[1024] = tuple(map(int, re.search(r"default: return plan\(s, (\d+), (\d+), (\d+)\);", source).groups()))
+    plans = {2 * int(m): tuple(map(int, r.split(", "))) for m, r in
+             re.findall(r"case (\d+): return plan\(s, ([\d, ]+)\);", source)}
     assert plans == rfft_plan.RADICES
-    launches = {int(n): int(m) for n, m in re.findall(r"case (\d+):\s+return launch<(\d+)>", source)}
+    launches = {int(n): int(m) for n, m in re.findall(r"case (\d+): return launch<(\d+), T>", source)}
     assert launches == {n_fft: n_fft // 2 for n_fft in rfft_plan.RADICES}
     constants = {name: float(np.float32(float(v))) for name, v in
                  re.findall(r"constexpr float (k\w+) = (-?[\d.]+)f;", source)}
     assert constants == {"kSqrtHalf": rfft_plan.SQRT_HALF, "kCos1": rfft_plan.COS1, "kSin1": rfft_plan.SIN1,
-                         "kCos2": rfft_plan.COS2, "kSin2": rfft_plan.SIN2}
+                         "kCos2": rfft_plan.COS2, "kSin2": rfft_plan.SIN2, "kSin3": rfft_plan.SIN3}
 
 
 @pytest.mark.parametrize("R", sorted(rfft_plan._DFT))
@@ -170,6 +169,8 @@ SHAPES = {
     "T501": (2, 80000, 16000, 512, 160, 40),       # the flagship 5 s clip
     "n16077": (3, 16077, 16000, 512, 160, 40),     # a ragged clip length
     "mfcc_frontend": (1, 66150, 22050, 1024, 512, 128),
+    "n_fft480": (2, 16077, 16000, 480, 160, 40),      # radices 4 4 3 5
+    "n_fft2048": (1, 44100, 22050, 2048, 512, 128),   # radices 8 8 4 4, librosa's default front end
 }
 
 
@@ -207,7 +208,7 @@ def test_zero_frames_and_zero_padded_tails_give_exact_zeros(rng):
 
 @pytest.mark.parametrize("n_fft,kernel", [
     (256, "rfft"), (320, "rfft"), (400, "rfft"), (512, "rfft"), (640, "rfft"), (1024, "rfft"),
-    (480, "dense"), (2048, "dense"),
+    (480, "rfft"), (2048, "rfft"), (482, "dense"), (2050, "dense"),
 ])
 def test_route_sends_fft_sizes_to_the_fft_kernel(n_fft, kernel):
     assert mel_kernel.route(n_fft) == kernel
@@ -256,3 +257,43 @@ def test_mel_schedule_at_the_flagship_shape():
     assert lane_bins.max() == 17 and tab.chunks.shape == (2, 32, 4)
     assert max(int(tab.bands[lane::32, 1].sum()) for lane in range(32)) == 41
     assert len(tab.weights) / 32 == pytest.approx(15.3, abs=0.05)
+
+
+def test_fit_tile_takes_the_first_tile_that_fits():
+    """The kernels' frames a tile: the first of the preferred sizes whose
+    shared memory fits in a Hopper block, else a clear refusal."""
+    per_frame = mel_kernel.SMEM_LIMIT // 20
+    assert mel_kernel.fit_tile(lambda t: t * per_frame, mel_kernel.RFFT_TILES) == (16, 16 * per_frame)
+    assert mel_kernel.fit_tile(lambda t: 1000 * t, mel_kernel.DENSE_TILES) == (32, 32000)
+    with pytest.raises(ValueError, match="shared memory"):
+        mel_kernel.fit_tile(lambda t: mel_kernel.SMEM_LIMIT + t, mel_kernel.DENSE_TILES)
+
+
+def _dense_smem(n_fft, tile, t_bytes, hop=None):
+    """csrc/mel_folded.cu's smem_bytes (hop None) or csrc/mel_unfolded.cu's
+    mel_unfolded_smem_bytes (32 frames a block, float32)."""
+    f_pad = -(-(1 + n_fft // 2) // mel_kernel.F_ALIGN) * mel_kernel.F_ALIGN
+    if hop is None:
+        return t_bytes * ((n_fft // 2) * tile * 2 + tile + tile * (f_pad + 1))
+    return 4 * (31 * hop + n_fft + 32 * (f_pad + 1))
+
+
+def test_dense_kernels_hold_the_n_fft_the_docs_state():
+    """The largest even n_fft each dense kernel's shared memory holds, as
+    ROADMAP §3 b and the wrappers state them; the folded one at every even
+    n_fft up to 4096 in both types."""
+    def largest(fits):
+        n = 4
+        while fits(n + 2):
+            n += 2
+        return n
+
+    def folded_fits(t_bytes):
+        return lambda n: any(_dense_smem(n, t, t_bytes) <= mel_kernel.SMEM_LIMIT for t in mel_kernel.DENSE_TILES)
+
+    assert largest(folded_fits(4)) == 9630 and largest(folded_fits(8)) == 4798
+    assert all(folded_fits(8)(n) for n in range(4, 4098, 2))
+    assert [largest(lambda n, h=h: _dense_smem(n, 32, 4, h) <= mel_kernel.SMEM_LIMIT) for h in (160, 256, 512)] == \
+        [3070, 2878, 2302]
+    source = (_build.CSRC / "mel_folded.cu").read_text()
+    assert "static_cast<size_t>(n_fft / 2) * tile_t * 2 + tile_t +" in source

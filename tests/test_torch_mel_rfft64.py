@@ -21,14 +21,15 @@ def _one_thread():
 
 def test_the_source_dispatches_every_fft_size_to_a_float64_instantiation():
     source = (_build.CSRC / "mel_rfft.cu").read_text()
-    launches = {int(n): int(m) for n, m in re.findall(r"case (\d+): return launch<(\d+), double>", source)}
+    launches = {int(n): int(m) for n, m in re.findall(r"case (\d+): return launch<(\d+), T>", source)}
     assert launches == {n_fft: n_fft // 2 for n_fft in rfft_plan.RADICES}
+    assert re.search(r"int mel_rfft_launch_f64\([^{]*\{\s*return dispatch<double>\(", source)
     constants = dict(re.findall(r"constexpr double (k\w+) = (-?[\d.]+);", source))
-    assert tuple(float(constants[k]) for k in ("kSqrtHalf64", "kCos1_64", "kSin1_64", "kCos2_64", "kSin2_64")) == \
-        rfft_plan.CONSTANTS64
-    exact = (math.sqrt(0.5), *(f(a * math.pi) for a in (0.4, 0.8) for f in (math.cos, math.sin)))
+    names = ("kSqrtHalf64", "kCos1_64", "kSin1_64", "kCos2_64", "kSin2_64", "kSin3_64")
+    assert tuple(float(constants[k]) for k in names) == rfft_plan.CONSTANTS64
+    exact = (math.sqrt(0.5), *(f(a * math.pi) for a in (0.4, 0.8) for f in (math.cos, math.sin)), math.sqrt(0.75))
     assert rfft_plan.CONSTANTS64 == pytest.approx(exact, abs=2e-16)
-    assert "int mel_rfft_launch_f64(" in source and "size_t mel_rfft_smem_bytes_f64(" in source
+    assert "size_t mel_rfft_smem_bytes_f64(" in source
 
 
 @pytest.mark.parametrize("n_fft", sorted(rfft_plan.RADICES))

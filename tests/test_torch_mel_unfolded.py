@@ -85,7 +85,7 @@ def test_wrapper_takes_plain_version_for_cpu_tensors(rng):
 
 @pytest.mark.parametrize("n_fft,kernel", [
     (256, "rfft"), (320, "rfft"), (400, "rfft"), (512, "rfft"), (640, "rfft"), (1024, "rfft"),
-    (480, "dense"), (2048, "dense"), (2, "dense"),
+    (480, "rfft"), (2048, "rfft"), (482, "dense"), (2050, "dense"), (2, "dense"),
 ])
 def test_route_sends_fft_sizes_to_the_fft_kernel(n_fft, kernel):
     """The same rule as the folded entry's route, by n_fft alone."""

@@ -81,13 +81,13 @@ runs:
   - model: cnn
     name: cnn_wide
     params: {{filters: [8, 8], first_stride: 2, epochs: 2, batch_size: 8}}
-  - model: mlp
+  - model: transformer
 """
     )
     ttrain.main(["--config", str(cfg), "--device", "cpu"])
     log = capsys.readouterr().err
     assert "CV fold 2/2" in log
-    assert "Run 'mlp' failed" in log  # not yet ported: logged, the sweep goes on
+    assert "Run 'transformer' failed" in log  # not yet ported: logged, the sweep goes on
     shortlist = json.loads((workdir / "models" / "shortlist.json").read_text())
     assert shortlist["experiment"] == "port-sweep" and shortlist["n_candidates"] == 2
     assert {c["run_name"].rsplit("_", 2)[0] for c in shortlist["candidates"]} == {"cnn_small", "cnn_wide"}
@@ -113,3 +113,84 @@ def test_parse_param_coerces_like_the_jax_cli():
 
     for text in ("filters=[16,64,64]", "epochs=3", "learning_rate=1e-3", "augment=yes", "name=x"):
         assert ttrain.parse_param(text) == jtrain.parse_param(text)
+
+
+def test_yaml_runs_cnn_mlp_rnn_and_writes_the_shortlist_the_jax_cli_writes(tmp_path, monkeypatch, capsys):
+    """Runs 1-3 of configs/training.yaml's schema (the cnn on mel features,
+    the mlp on classical vectors, the rnn on MFCC sequences, each run naming
+    its own features_dir and inheriting the mel test set through
+    ``features_test_dir: null``, whose evaluation the mlp and rnn fail and
+    log) through both CLIs, each run warm-started from one flax-initialised
+    bundle at dropout 0: the same three candidates with the same
+    hyperparameters, bundle sizes and metrics."""
+    import jax
+    import jax.numpy as jnp
+
+    from audio_edge_ml_pipeline_tpu.models import get_model as jget_model
+    from audio_edge_ml_pipeline_tpu.train import train as jtrain
+
+    r = np.random.default_rng(7)
+    y = np.repeat(np.arange(len(NAMES)), 10).astype(np.int32)
+    params = {"cnn": dict(filters=[4, 8], first_stride=2, batch_size=8), "mlp": dict(hidden_units=[16, 8]),
+              "rnn": dict(units=8)}
+    for model, name, shape in (("cnn", "mel", (16, 32)), ("mlp", "classical", (30,)), ("rnn", "mfcc_seq", (8, 12))):
+        X = r.uniform(0, 0.2, size=(len(y), *shape)).astype(np.float32)
+        for c in range(len(NAMES)):
+            X[y == c, ..., c * 2 : c * 2 + 2] += 1.0
+        for split, rows in (("train", slice(None)), ("val", slice(0, None, 5))):
+            FeaturePipeline.save(FeatureSet(features=X[rows], feature_type=name, modality="audio",
+                                            metadata=[{} for _ in y[rows]], labels=y[rows], label_names=NAMES),
+                                 tmp_path / f"{name}_{split}")
+        jt = jget_model(model)(dropout=0.0, **params[model])
+        arch = jt._arch(jt._prepare_input(X).shape[1:], len(NAMES))
+        jt._arch_dict = arch
+        init = jt._module().init(jax.random.PRNGKey(1), jnp.zeros((1, *arch["input_shape"])), train=False)["params"]
+        jdeep.save_model_bundle(tmp_path / f"{model}.npz", arch, init, np.zeros(1), np.ones(1))
+        params[model].update(epochs=3, learning_rate=0.01, dropout=0.0, pretrained_model=str(tmp_path / f"{model}.npz"))
+    shortlists = {}
+    for side, main in (("port", lambda a: ttrain.main([*a, "--device", "cpu"])), ("jax", jtrain.main)):
+        (tmp_path / side).mkdir()
+        monkeypatch.chdir(tmp_path / side)
+        cfg = tmp_path / side / "training.yaml"
+        cfg.write_text(f"""
+features_dir: {tmp_path / 'mel_train'}
+features_test_dir: {tmp_path / 'mel_val'}
+output_dir: {tmp_path / side / 'models'}
+experiment: runs-1-3
+val_split: 0.2
+auto_select_top_n: 5
+runs:
+  - model: cnn
+    name: cnn_small
+    params: {json.dumps(params['cnn'])}
+  - model: mlp
+    features_dir: {tmp_path / 'classical_train'}
+    features_test_dir: null
+    params: {json.dumps(params['mlp'])}
+  - model: rnn
+    features_dir: {tmp_path / 'mfcc_seq_train'}
+    features_test_dir: null
+    params: {json.dumps(params['rnn'])}
+""")
+        main(["--config", str(cfg)])
+        log = capsys.readouterr().err      # both CLIs log to stderr
+        assert log.count("Test-set evaluation failed") == 2 and "Run 'mlp' failed" not in log
+        shortlists[side] = json.loads((tmp_path / side / "models" / "shortlist.json").read_text())
+        ttracking.set_tracking_uri(None)
+    port, jax_ = shortlists["port"], shortlists["jax"]
+    assert port["n_candidates"] == jax_["n_candidates"] == 3 and port["metric"] == jax_["metric"]
+
+    def by_model(doc):
+        return {c["model"]: c for c in doc["candidates"]}
+
+    assert set(by_model(port)) == set(by_model(jax_)) == {"cnn", "mlp", "rnn"}
+    for model, ours in by_model(port).items():
+        theirs = by_model(jax_)[model]
+        assert ours["run_name"].rsplit("_", 2)[0] == theirs["run_name"].rsplit("_", 2)[0]
+        assert ours["params"] == theirs["params"] and ours["features_dir"] == theirs["features_dir"]
+        assert ours["model_size_kb"] == theirs["model_size_kb"]
+        assert (ours["val_accuracy"], ours["val_f1_macro"]) == (theirs["val_accuracy"], theirs["val_f1_macro"])
+    for doc in (port, jax_):
+        assert [c["rank"] for c in doc["candidates"]] == [1, 2, 3]
+        f1 = [c["val_f1_macro"] for c in doc["candidates"]]
+        assert f1 == sorted(f1, reverse=True)
