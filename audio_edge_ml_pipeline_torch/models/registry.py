@@ -14,11 +14,8 @@ logger = logging.getLogger(__name__)
 
 _REGISTRY: dict[str, Type[BaseTrainer]] = {}
 
-# trainers of the JAX package that are still to be ported
-NOT_YET_PORTED = frozenset({
-    "ds_cnn", "transformer", "efficientnet_teacher", "distillation_cnn",
-    "svm", "lda", "pca_svm", "pca_lda", "pca_knn", "knn", "kmeans", "random_forest", "decision_tree",
-})
+# trainers of the JAX package that are still to be ported: the other deep families
+NOT_YET_PORTED = frozenset({"ds_cnn", "transformer", "efficientnet_teacher", "distillation_cnn"})
 
 
 def register_model(cls: Type[BaseTrainer]) -> Type[BaseTrainer]:

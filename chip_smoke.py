@@ -54,11 +54,22 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      served by the edge simulator, and one training step on the card
      against the same step on the CPU at dropout 0, both from phase 5's
      seeded bundle;
-  5c. runs 1-3 of ``configs/training.yaml`` (cnn, mlp, rnn) through the train
-     CLI on the card, on phase 4c's FeatureSets, at the file's widths with
-     epochs cut to 3: the shortlist holds the three runs, each bundle is
-     served on the card against the CPU, and one train step of the mlp and
-     of the rnn on the card against the CPU from seeded bundles;
+  5c. all five runs of ``configs/training.yaml`` (cnn, mlp, rnn, svm, knn)
+     through the train CLI on the card, on phase 4c's FeatureSets, at the
+     file's params with the deep runs' epochs cut to 3: the shortlist holds
+     the five runs, each bundle is served on the card against the CPU (the
+     classical ones through their trainers' ``load``: equal predictions, svm
+     decision values within 1e-5 of their largest, equal kNN counts), the
+     svm run's CV folds are read back from the tracking store (the 4 train
+     rows a class lower the file's 5), and one train step of the mlp and of
+     the rnn on the card against the CPU from seeded bundles;
+  5d. the classical core (``models/classical_core.py``, kNN and k-means) on
+     the card against the CPU at fsc22 scale (27 classes x 75 clips of 302
+     seeded dims, the shipped 70 % train split, then the CLI's 20 %
+     validation: 1133 fit rows, 284 query rows), with both TF32 flags on:
+     svm (C 10, gamma scale, 800 iterations) alpha, b and decision values,
+     Platt A and B, LDA coefficients, the PCA (50 components) projector,
+     kNN counts (k 5), k-means (k 27, 10 restarts) centres and inertia;
   6. timing with CUDA events at B=512 five-second clips (at n_fft 512 each
      entry's FFT route beside its dense kernel, in turns, and the plain
      versions; at n_fft 400 the FFT kernel beside both dense kernels, in
@@ -71,12 +82,16 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      spectral groups alone; the four-pass plans in both types (n_fft 480 at
      16 kHz, 2048 at 22.05 kHz) and the dense kernels at n_fft 482 and 2050
      beside their bounds and plain versions; an mlp and an rnn train step at
-     B=32 and B=512;
+     B=32 and B=512; at 5d's fsc22 scale an svm fit eager and captured in a
+     CUDA graph (which must give what eager gives, bit for bit), the
+     kernels an APG step launches, svm predict and predict_proba on the 284
+     rows, a kNN predict, an LDA fit, a pca_svm fit and a k-means fit;
   7. one JSON line per kernel, then the result line.
 
 Matmuls and cuDNN convolutions run in full float32 throughout (TF32 off),
-but for phase 3c, which turns TF32 on: the features must stay within 1e-5
-of the float64 oracle.
+but for phases 3c and 5d, which turn TF32 on: the features must stay within
+1e-5 of the float64 oracle, and the classical core must pin full float32
+itself.
 
 Usage: python3 chip_smoke.py
 """
@@ -120,6 +135,15 @@ DENSE_N_FFT = 482                  # M = 241 has no FFT plan: the dense kernels'
 DENSE_N_FFT_22 = 2050              # M = 1025 = 5^2 x 41: the dense route at the 22.05 kHz front end
 NEW_PLANS = (480, 2048)            # the four-pass plans: M = 240 = 4 4 3 5, M = 1024 = 8 8 4 4
 SWEEP_N_FFT = (4, 6, 130, 256, 482, 1026, 1678, 2050, 3000, 4096)  # even n_fft tried in both precisions
+FSC22_CLIPS, CLASSICAL_DIM = 75, 302   # fsc22: 75 clips a class; the classical vector's width
+SVM_C, SVM_ITERS, KNN_K, PCA_COMPONENTS = 10.0, 800, 5, 50   # configs/training.yaml's svm and knn, the pca_svm default
+SVM_TOL = 1e-4                     # card vs CPU: alpha over max(u), b and decision values over their largest
+                                   # (float32 sums in other orders, carried through 800 projected-gradient steps)
+PLATT_TOL = 1e-3                   # Platt A and B card vs CPU, relative (a Newton fit on those decisions)
+LDA_TOL = 1e-4                     # LDA coefficients card vs CPU, relative to the largest
+PCA_TOL = 1e-4                     # PCA projector (components times their transpose) card vs CPU, relative
+KMEANS_TOL, INERTIA_TOL = 1e-4, 1e-5   # k-means centres over their largest, inertia relative
+DECISION_TOL = 1e-5                # a served classical bundle's decision values card vs CPU, over their largest
 
 
 def fail(msg: str) -> None:
@@ -246,10 +270,11 @@ CNN_PARAMS = {"filters": [16, 64, 64], "first_stride": 4, "second_stride": 2}
 
 
 def training_config_copy(features_root: Path, out_root: Path) -> tuple[Path, list[dict]]:
-    """Runs 1-3 of configs/training.yaml (cnn, mlp, rnn) at the file's widths
-    with epochs cut to TRAIN_EPOCHS, their FeatureSets and output moved to
-    ``features_root`` (phase 4c's outputs, by directory name) and
-    ``out_root``; written as JSON, with its runs as written."""
+    """The five runs of configs/training.yaml (cnn, mlp, rnn, svm, knn) at the
+    file's params with the deep runs' epochs cut to TRAIN_EPOCHS, their
+    FeatureSets and output moved to ``features_root`` (phase 4c's outputs, by
+    directory name) and ``out_root``; written as JSON, with its runs as
+    written."""
     import yaml
 
     doc = yaml.safe_load((REPO / "configs" / "training.yaml").read_text())
@@ -259,11 +284,11 @@ def training_config_copy(features_root: Path, out_root: Path) -> tuple[Path, lis
 
     doc["features_dir"], doc["features_test_dir"] = moved(doc["features_dir"]), moved(doc["features_test_dir"])
     doc["output_dir"] = str(out_root / "models")
-    doc["runs"] = doc["runs"][:3]
-    check([r["model"] for r in doc["runs"]] == ["cnn", "mlp", "rnn"], "configs/training.yaml's runs 1-3")
+    check([r["model"] for r in doc["runs"]] == ["cnn", "mlp", "rnn", "svm", "knn"], "configs/training.yaml's runs")
     for run in doc["runs"]:
         run.setdefault("name", run["model"])
-        run["params"]["epochs"] = TRAIN_EPOCHS
+        if "epochs" in run["params"]:
+            run["params"]["epochs"] = TRAIN_EPOCHS
         if "features_dir" in run:
             run["features_dir"] = moved(run["features_dir"])
     out_root.mkdir(parents=True)
@@ -293,6 +318,69 @@ def repaired_sizes_config(dataset: Path, out_root: Path) -> tuple[Path, list[dic
     path = out_root / "feature_extraction.yaml"
     path.write_text(json.dumps({"dataset": str(dataset), "loader": "fsc22", "experiments": experiments}, indent=1))
     return path, experiments
+
+
+def fsc22_classical(rng: np.random.Generator):
+    """Seeded classical vectors at fsc22 scale: 27 classes x 75 clips of 302
+    dims (class means plus unit noise, each column on its own scale within
+    half a decade, so that the LDA's within-class scatter keeps a condition
+    number near 30 and its smallest eigenvalue far above the rank cutoff:
+    a float32 solve near that cutoff differs from itself in float64 by more
+    than the tolerance), the shipped 70 % train split, then the train CLI's
+    20 % validation split of it: (X_fit, y_fit, X_val, y_val)."""
+    from audio_edge_ml_pipeline_torch.train.train import stratified_train_val_split
+
+    y = np.repeat(np.arange(N_CLASSES), FSC22_CLIPS).astype(np.int32)
+    means = 0.5 * rng.standard_normal((N_CLASSES, CLASSICAL_DIM))
+    X = ((means[y] + rng.standard_normal((len(y), CLASSICAL_DIM))) * 10.0 ** rng.uniform(-0.25, 0.25, CLASSICAL_DIM))
+    X_train, _, y_train, _ = stratified_train_val_split(X.astype(np.float32), y, 0.3)
+    X_fit, X_val, y_fit, y_val = stratified_train_val_split(X_train, y_train, 0.2)
+    return X_fit, y_fit, X_val, y_val
+
+
+def classical_core_run(dev, X, y, Xq) -> dict:
+    """5d's fits of the classical core on ``dev``, as numpy: the svm solver's
+    (alpha, b, f) and box bounds u, its state's Platt sigmoids and decision
+    values on ``Xq``, LDA coefficients, the PCA projector, kNN counts of
+    ``Xq`` and k-means centres and inertia."""
+    from audio_edge_ml_pipeline_torch.models import classical as tcl
+    from audio_edge_ml_pipeline_torch.models import classical_core as cc
+
+    solved = {}
+    solver = cc.svm_fit
+
+    def seen(*args, **kwargs):
+        out = solver(*args, **kwargs)
+        solved.update(zip(("alpha", "b", "f"), (t.cpu().numpy() for t in out)), u=args[3].cpu().numpy())
+        return out
+
+    cc.svm_fit = seen
+    try:
+        state = cc.fit_svm_np(X, y, N_CLASSES, C=SVM_C, gamma="scale", iters=SVM_ITERS, device=dev)
+    finally:
+        cc.svm_fit = solver
+    pca = cc.fit_scaler_pca_np(X, PCA_COMPONENTS, dev)["pca_components"]
+    centres, inertia = tcl.KMeansTrainer(n_clusters=N_CLASSES, device=dev)._lloyd(X, N_CLASSES)
+    return {**solved, "platt_a": state["svm_platt_a"], "platt_b": state["svm_platt_b"],
+            "dec": cc.svm_decision_np(Xq, state, dev), "pred": cc.predict_svm_np(Xq, state, dev),
+            "lda": cc.fit_lda_np(X, y, N_CLASSES, dev)["lda_coef"], "pca": pca @ pca.T,
+            "knn": tcl._knn_counts(Xq, X, y, KNN_K, N_CLASSES, "minkowski", dev),
+            "centres": centres, "inertia": inertia}
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of ``fn`` (which returns host data, or is
+    synchronised here), after one warm-up call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
 
 
 def step_and_grads(dev, X: np.ndarray, y: np.ndarray, bundle: Path, model: str = "cnn",
@@ -348,11 +436,12 @@ def main() -> int:
     from audio_edge_ml_pipeline_torch.data.audio_io import load_audio
     from audio_edge_ml_pipeline_torch.entry import flagship
     from audio_edge_ml_pipeline_torch.features import pipeline
-    from audio_edge_ml_pipeline_torch.models import get_model
+    from audio_edge_ml_pipeline_torch.models import classical_core, get_model
     from audio_edge_ml_pipeline_torch.models.deep import MODEL_FILENAME, CNNTrainer, load_any_model
     from audio_edge_ml_pipeline_torch.ops import _build, audio_features, dsp, golden, mel_kernel, mel_unfolded
     from audio_edge_ml_pipeline_torch.serve.edge_simulator import EdgeDeviceSimulator
     from audio_edge_ml_pipeline_torch.train import train
+    from audio_edge_ml_pipeline_torch.utils import tracking
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -814,8 +903,9 @@ def main() -> int:
         check(loss_rel <= STEP_LOSS_TOL, "train-step loss on the card disagrees with the CPU")
         check(grad_rel <= GRAD_TOL, "train-step gradients on the card disagree with the CPU")
 
-        # 5c. runs 1-3 of configs/training.yaml through the train CLI on the card, on phase 4c's FeatureSets
+        # 5c. the five runs of configs/training.yaml through the train CLI on the card, on phase 4c's FeatureSets
         train_cfg, train_runs = training_config_copy(tmp / "shipped", tmp / "runs")
+        experiment = json.loads(train_cfg.read_text())["experiment"]
         os.environ["MLFLOW_TRACKING_URI"] = str(tmp / "runs" / "mlruns")
         mel_kernel.counter.reset()
         cwd = os.getcwd()
@@ -823,26 +913,55 @@ def main() -> int:
         t0 = time.perf_counter()
         try:
             train.main(["--config", str(train_cfg)])
+            torch.cuda.synchronize()
+            runs_s = time.perf_counter() - t0
+            (svm_rec,) = (r for r in tracking.search_runs(experiment) if r.params["model"] == "svm")
         finally:
             os.chdir(cwd)
             os.environ.pop("MLFLOW_TRACKING_URI")
-        torch.cuda.synchronize()
-        runs_s = time.perf_counter() - t0
         shortlist = json.loads((tmp / "runs" / "models" / "shortlist.json").read_text())
-        print(f"[5c] runs 1-3 of configs/training.yaml on the card, {TRAIN_EPOCHS} epochs each, in {runs_s:.2f} s; "
-              f"shortlist {[(c['rank'], c['model'], round(c['val_f1_macro'], 4)) for c in shortlist['candidates']]}; "
+        print(f"[5c] the five runs of configs/training.yaml on the card, deep runs {TRAIN_EPOCHS} epochs each, in "
+              f"{runs_s:.2f} s; shortlist {[(c['rank'], c['model'], round(c['val_f1_macro'], 4)) for c in shortlist['candidates']]}; "
               f"mel kernel launches {mel_kernel.counter.launches}")
-        check(shortlist["n_candidates"] == 3 and sorted(c["model"] for c in shortlist["candidates"]) ==
-              ["cnn", "mlp", "rnn"], f"the shortlist of runs 1-3: {shortlist}")
+        check(shortlist["n_candidates"] == 5 and sorted(c["model"] for c in shortlist["candidates"]) ==
+              ["cnn", "knn", "mlp", "rnn", "svm"], f"the shortlist of the five runs: {shortlist}")
+        svm_run = next(r for r in train_runs if r["model"] == "svm")
+        cv_metrics = {k: round(v, 4) for k, v in svm_rec.metrics.items() if k.startswith("cv_val_")}
+        print(f"[5c] svm run: cv_folds {svm_run['cv_folds']} in the file, {svm_rec.params.get('cv_folds')} used "
+              f"(the smallest class has {PER_CLASS - 1} train rows); {cv_metrics}")
+        check(svm_rec.params.get("cv_folds") == str(PER_CLASS - 1) and "cv_val_accuracy_mean" in svm_rec.metrics,
+              f"the svm run's CV: {svm_rec.params}")
         served_gap = {}
         for run in train_runs:
-            run_bundle = Path(train_cfg.parent / "models" / run["name"] / MODEL_FILENAME)
+            Xr = pipeline.FeaturePipeline.load(run["features_dir"]).features
+            run_dir = Path(train_cfg.parent / "models" / run["name"])
+            info = json.loads((run_dir / "model_info.json").read_text())
+            if run["model"] in ("svm", "knn"):
+                bundle_path = run_dir / f"{run['model']}.npz"
+                card_model = get_model(run["model"]).load(bundle_path)
+                cpu_model = get_model(run["model"]).load(bundle_path, device="cpu")
+                check(card_model.device.type == "cuda" and card_model.name == run["model"], f"{run['name']} served")
+                same = bool((card_model.predict(Xr) == cpu_model.predict(Xr)).all())
+                if run["model"] == "svm":
+                    dec_card, dec_cpu = (classical_core.svm_decision_np(Xr, m._state, m.device)
+                                         for m in (card_model, cpu_model))
+                    served_gap[run["name"]] = float(np.abs(dec_card - dec_cpu).max() / np.abs(dec_cpu).max())
+                    what = f"decision values max|d|/max|dec| {served_gap[run['name']]:.3e} (tol {DECISION_TOL:g})"
+                else:
+                    served_gap[run["name"]] = float(np.abs(card_model._predict_counts(Xr) -
+                                                           cpu_model._predict_counts(Xr)).max())
+                    what = f"neighbour counts max|d| {served_gap[run['name']]:g} (must be 0)"
+                print(f"[5c] {run['name']} ({run['model']}, {run['params']}): val_accuracy {info['val_accuracy']:.4f}; "
+                      f"served card vs CPU on all {len(Xr)} rows: predictions equal {same}, {what}")
+                check(same and served_gap[run["name"]] <= (DECISION_TOL if run["model"] == "svm" else 0.0),
+                      f"{run['name']} on the card disagrees with the CPU")
+                continue
+            run_bundle = run_dir / MODEL_FILENAME
             card_model, cpu_model = load_any_model(run_bundle), load_any_model(run_bundle, device="cpu")
             check(card_model.device.type == "cuda" and card_model.name == run["model"], f"{run['name']} served")
-            Xr = pipeline.FeaturePipeline.load(run["features_dir"]).features[:8]
+            Xr = Xr[:8]
             served_gap[run["name"]] = float(np.abs(card_model._batched_logits(card_model._prepare_input(Xr)) -
                                                    cpu_model._batched_logits(cpu_model._prepare_input(Xr))).max())
-            info = json.loads((run_bundle.parent / "model_info.json").read_text())
             print(f"[5c] {run['name']} ({run['model']}, {run['params']}): val_accuracy {info['val_accuracy']:.4f}; "
                   f"served logits card vs CPU on 8 rows max|d| {served_gap[run['name']]:.3e} (tol {LOGIT_TOL:g})")
             check(served_gap[run["name"]] <= LOGIT_TOL, f"{run['name']} logits on the card disagree with the CPU")
@@ -861,16 +980,65 @@ def main() -> int:
             check(loss_rel <= STEP_LOSS_TOL, f"the {model} train-step loss on the card disagrees with the CPU")
             check(grad_rel <= GRAD_TOL, f"the {model} train-step gradients on the card disagree with the CPU")
 
+    # 5d. the classical core on the card against the CPU at fsc22 scale, with TF32 allowed everywhere
+    X_fit, y_fit, X_q, y_q = fsc22_classical(np.random.default_rng(22))
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        on_card = classical_core_run(dev, X_fit, y_fit, X_q)
+        card_s = time.perf_counter() - t0
+        flags_after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    t0 = time.perf_counter()
+    on_cpu = classical_core_run(torch.device("cpu"), X_fit, y_fit, X_q)
+    cpu_s = time.perf_counter() - t0
+    check(flags_after == (True, True), "the classical core changed the caller's TF32 flags")
+
+    def gap(key: str, scale=None) -> float:
+        return float(np.abs(on_card[key] - on_cpu[key]).max() / (np.abs(on_cpu[key]).max() if scale is None else scale))
+
+    dec_train = np.abs(on_cpu["f"] + on_cpu["b"][:, None]).max()
+    within = X_fit - np.stack([X_fit[y_fit == k].mean(0) for k in range(N_CLASSES)])[y_fit]
+    sw_ev = np.linalg.eigvalsh(within.T.astype(np.float64) @ within / (len(X_fit) - N_CLASSES))
+    sw_edge = sw_ev[0] / (CLASSICAL_DIM * np.finfo(np.float32).eps * sw_ev[-1])   # smallest over the rank cutoff
+    gaps5d = {   # label -> (gap, tol)
+        "svm alpha / max(u)": (gap("alpha", on_cpu["u"].max()), SVM_TOL),
+        "svm b / max|f + b|": (gap("b", dec_train), SVM_TOL),
+        "svm training decisions f + b / max|f + b|": (
+            float(np.abs((on_card["f"] + on_card["b"][:, None]) - (on_cpu["f"] + on_cpu["b"][:, None])).max() / dec_train),
+            SVM_TOL),
+        "svm decision values on the query rows / max|dec|": (gap("dec"), SVM_TOL),
+        "Platt A, relative": (gap("platt_a"), PLATT_TOL),
+        "Platt B, relative": (gap("platt_b"), PLATT_TOL),
+        "LDA coef / max|coef|": (gap("lda"), LDA_TOL),
+        f"PCA projector ({PCA_COMPONENTS} components) / max": (gap("pca"), PCA_TOL),
+        f"kNN counts (k {KNN_K}), max|d|": (gap("knn", 1.0), 0.0),
+        f"k-means centres (k {N_CLASSES}, 10 restarts) / max|centre|": (gap("centres"), KMEANS_TOL),
+        "k-means inertia, relative": (gap("inertia"), INERTIA_TOL),
+    }
+    print(f"[5d] classical core at fsc22 scale ({len(X_fit)} fit rows x {CLASSICAL_DIM}, {N_CLASSES} classes, "
+          f"{len(X_q)} query rows; svm C {SVM_C:g}, gamma scale, {SVM_ITERS} iterations, P {on_cpu['alpha'].shape[0]}, "
+          f"M {on_cpu['alpha'].shape[1]}), card with both TF32 flags on ({card_s:.2f} s) vs CPU ({cpu_s:.2f} s): "
+          + "; ".join(f"{k} {g:.3e} (tol {t:g})" for k, (g, t) in gaps5d.items())
+          + f"; svm predictions on the query rows equal {bool((on_card['pred'] == on_cpu['pred']).all())}, "
+          f"accuracy {float((on_card['pred'] == y_q).mean()):.4f}; the LDA's within-class scatter: condition number "
+          f"{sw_ev[-1] / sw_ev[0]:.1f}, smallest eigenvalue {sw_edge:.1f}x the rank cutoff")
+    for label, (g, tol) in gaps5d.items():
+        check(g <= tol, f"5d: {label} on the card disagrees with the CPU: {g:.3e}")
+    check(bool((on_card["pred"] == on_cpu["pred"]).all()), "5d: svm predictions on the card disagree with the CPU")
+
     # 6. timing at B=512 five-second clips
     batch = 512
     waves = torch.from_numpy(np.tile(synth_clips(rng, 8), (batch // 8, 1))).to(dev)
 
-    def in_turns(*fns) -> tuple[list[float], list[list[float]]]:
-        """Each fn's ms, timed in turns forth and back (a, b, c, c, b, a):
-        (the mean of each fn's two turns, the turns)."""
+    def in_turns(*fns, timer=cuda_ms) -> tuple[list[float], list[list[float]]]:
+        """Each fn's ms by ``timer``, timed in turns forth and back (a, b, c,
+        c, b, a): (the mean of each fn's two turns, the turns)."""
         turns: list[list[float]] = [[] for _ in fns]
         for i in [*range(len(fns)), *reversed(range(len(fns)))]:
-            turns[i].append(cuda_ms(fns[i]))
+            turns[i].append(timer(fns[i]))
         return [sum(t) / len(t) for t in turns], turns
 
     def dense_folded(n_fft):
@@ -1029,6 +1197,56 @@ def main() -> int:
             timed[key] = (ms, ms_p, bound, bound_by_k, shape)
             print(f"[6] {key} ({entry}) at {shape}: {ms:.3f} ms, {share(ms, bound)} {bound:.4f} ms ({bound_by_k}); "
                   f"plain version {ms_p:.3f} ms on {card}")
+    # the classical core at 5d's fsc22 scale: host clock around calls that end on the host or synchronise
+    gamma_v, _, idx, ypm, u = classical_core.svm_problem(X_fit, y_fit, N_CLASSES, SVM_C)
+    solver_args = [torch.from_numpy(a).to(dev) for a in (X_fit, idx.astype(np.int64), ypm, u)]
+
+    def solve(capture: bool, iters: int = SVM_ITERS):
+        out = classical_core.svm_fit(*solver_args, gamma_v, "rbf", iters, capture=capture)
+        torch.cuda.synchronize()
+        return out
+
+    eager_out = [t.cpu() for t in solve(False)]
+    captured_out = [t.cpu() for t in solve(True)]
+    check(all(torch.equal(a, b) for a, b in zip(eager_out, captured_out)),
+          "the captured APG loop does not give what the eager loop gives, bit for bit")
+    (ms_svm_eager, ms_svm_captured), svm_turns = in_turns(lambda: solve(False), lambda: solve(True),
+                                                          timer=lambda fn: host_ms(fn, reps=1))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof1:
+        solve(False, 1)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof2:
+        solve(False, 2)
+
+    def n_kernels(prof) -> int:
+        return sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    per_step = n_kernels(prof2) - n_kernels(prof1)
+    svm_trainer = get_model("svm")(C=SVM_C, iters=SVM_ITERS, device=dev)
+    svm_trainer._fit_body(X_fit, y_fit, N_CLASSES)
+    knn_trainer = get_model("knn")(n_neighbors=KNN_K, device=dev)
+    knn_trainer._fit_body(X_fit, y_fit, N_CLASSES)
+    classical_ms = {
+        "svm fit (fit_svm_np: layout, captured solve, Platt, support vectors)":
+            host_ms(lambda: classical_core.fit_svm_np(X_fit, y_fit, N_CLASSES, C=SVM_C, iters=SVM_ITERS, device=dev)),
+        f"svm predict on {len(X_q)} rows": host_ms(lambda: svm_trainer.predict(X_q), reps=10),
+        f"svm predict_proba on {len(X_q)} rows": host_ms(lambda: svm_trainer.predict_proba(X_q), reps=10),
+        f"kNN predict (k {KNN_K}) on {len(X_q)} rows": host_ms(lambda: knn_trainer.predict(X_q), reps=10),
+        "LDA fit": host_ms(lambda: classical_core.fit_lda_np(X_fit, y_fit, N_CLASSES, dev)),
+        f"pca_svm fit ({PCA_COMPONENTS} components, {SVM_ITERS} iterations)":
+            host_ms(lambda: get_model("pca_svm")(n_components=PCA_COMPONENTS, C=SVM_C, iters=SVM_ITERS,
+                                                 device=dev)._fit_body(X_fit, y_fit, N_CLASSES)),
+        f"k-means fit (k {N_CLASSES}, 10 restarts, 100 steps)":
+            host_ms(lambda: get_model("kmeans")(device=dev)._lloyd(X_fit, N_CLASSES)),
+    }
+    print(f"[6] svm solve (svm_fit) at fsc22 scale ({len(X_fit)} x {CLASSICAL_DIM}, P {idx.shape[0]}, M {idx.shape[1]}, "
+          f"C {SVM_C:g}, {SVM_ITERS} iterations): eager {ms_svm_eager:.1f} ms ({ms_turns(svm_turns[0])}), captured in a "
+          f"CUDA graph {ms_svm_captured:.1f} ms ({ms_turns(svm_turns[1])}), {ms_svm_eager / ms_svm_captured:.2f}x; "
+          f"the two equal bit for bit; an APG step launches "
+          f"{per_step if per_step > 0 else 'not measured (the profiler saw no kernels)'} kernels eager and one "
+          f"graph captured on {card}")
+    print(f"[6] classical at fsc22 scale on {card}: " + "; ".join(f"{k} {v:.2f} ms" for k, v in classical_ms.items()))
+    check(all(np.isfinite([ms_svm_eager, ms_svm_captured, *classical_ms.values()])), "classical timing")
+
     check(all(np.isfinite([ms_kernel, ms_dense, ms_plain, ms_unf, ms_unf_dense, ms_unf_plain, ms_400, ms_400_folded,
                             ms_400_unfolded, ms_e2e, ms_epilogue, ms_cnn, *step_ms.values(), ms_mfcc_kernel, ms_mfcc_f64,
                             ms_mfcc_plain, ms_mfcc_seq, ms_classical, ms_mfcc_block, ms_mag_stft, ms_groups,

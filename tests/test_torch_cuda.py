@@ -179,3 +179,79 @@ def test_mfcc_and_classical_features_on_the_card_with_tf32_allowed(cuda_device):
         assert np.max(np.abs(seq[i] - golden.mfcc_seq_feature(y[i].astype(np.float64)))) <= 1e-5
         gold = golden.classical_feature_vector(y[i].astype(np.float64))
         assert np.max(np.abs(vec[i] - gold) / np.maximum(np.abs(gold), 1.0)) <= 1e-4
+
+
+def _blobs(n_classes=6, per_class=40, dim=32, seed=3):
+    rng = np.random.default_rng(seed)
+    means = rng.standard_normal((n_classes, dim)) * 1.2
+    y = np.repeat(np.arange(n_classes), per_class).astype(np.int32)
+    X = (means[y] + rng.standard_normal((len(y), dim))).astype(np.float32)
+    return X, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["rbf", "linear"])
+def test_svm_solve_captured_equals_eager_on_the_card(cuda_device, kernel):
+    """The APG loop replayed from a CUDA graph launches the eager loop's
+    kernels: the same result bit for bit; and after 400 steps (as the CPU
+    tests hold the port to JAX) within 1e-4 of max(u) of the CPU's (float32
+    sums in other orders)."""
+    from audio_edge_ml_pipeline_torch.models import classical_core as cc
+
+    X, y = _blobs()
+    gamma, _, idx, ypm, u = cc.svm_problem(X, y, 6, 1.0)
+    args = [torch.from_numpy(a) for a in (X, idx.astype(np.int64), ypm, u)]
+    card = [a.to(cuda_device) for a in args]
+    eager = [t.cpu() for t in cc.svm_fit(*card, gamma, kernel, 400, capture=False)]
+    captured = [t.cpu() for t in cc.svm_fit(*card, gamma, kernel, 400)]   # captured by default on a card
+    assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+    on_cpu = cc.svm_fit(*args, gamma, kernel, 400)
+    assert float((captured[0] - on_cpu[0]).abs().max()) <= 1e-4 * float(u.max())
+
+
+@pytest.mark.cuda
+def test_classical_core_on_the_card_matches_the_cpu_with_tf32_allowed(cuda_device):
+    """svm, LDA, PCA, kNN and k-means fits on the card against the CPU with
+    both TF32 flags on: the core pins full float32 itself and leaves the
+    flags as they were."""
+    from audio_edge_ml_pipeline_torch.models import classical as tcl
+    from audio_edge_ml_pipeline_torch.models import classical_core as cc
+
+    X, y = _blobs(27, 30, 64, seed=11)
+    Xq = X[::3] + np.float32(0.1)
+
+    def fits(dev):
+        svm = cc.fit_svm_np(X, y, 27, C=10.0, iters=400, device=dev)
+        pca = cc.fit_scaler_pca_np(X, 12, dev)
+        centres, inertia = tcl.KMeansTrainer(n_init=4, device=dev)._lloyd(X, 27)
+        return {"dec": cc.svm_decision_np(Xq, svm, dev), "pred": cc.predict_svm_np(Xq, svm, dev),
+                "lda": cc.fit_lda_np(X, y, 27, dev)["lda_coef"], "Z": cc.transform_scaler_pca_np(Xq, pca, dev),
+                "knn": tcl._knn_counts(Xq, X, y, 5, 27, "minkowski", torch.device(dev)),
+                "centres": centres, "inertia": np.float32(inertia)}
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        card = fits(cuda_device)
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (True, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    cpu = fits("cpu")
+    for key, tol in (("dec", 1e-4), ("lda", 1e-4), ("Z", 1e-4), ("centres", 1e-4), ("inertia", 1e-5)):
+        assert np.abs(card[key] - cpu[key]).max() <= tol * np.abs(cpu[key]).max(), key
+    np.testing.assert_array_equal(card["pred"], cpu["pred"])
+    np.testing.assert_array_equal(card["knn"], cpu["knn"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["svm", "lda", "knn", "kmeans", "pca_svm", "pca_lda", "pca_knn"])
+def test_classical_bundle_fitted_on_the_card_serves_on_the_cpu(cuda_device, tmp_path, name):
+    from audio_edge_ml_pipeline_torch.models import get_model
+
+    X, y = _blobs()
+    kw = {"svm": {"iters": 200}, "pca_svm": {"n_components": 8, "iters": 200}, "pca_lda": {"n_components": 8},
+          "pca_knn": {"n_components": 8}, "kmeans": {"n_init": 3}}.get(name, {})
+    trainer = get_model(name)(**kw, device=cuda_device)
+    trainer.fit(X, y, X[::4], y[::4], list("abcdef"), name, tmp_path, None)
+    on_cpu = get_model(name).load(tmp_path / f"{name}.npz", device="cpu")
+    np.testing.assert_array_equal(on_cpu.predict(X), trainer.predict(X))

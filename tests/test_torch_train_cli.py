@@ -116,13 +116,16 @@ def test_parse_param_coerces_like_the_jax_cli():
 
 
 def test_yaml_runs_cnn_mlp_rnn_and_writes_the_shortlist_the_jax_cli_writes(tmp_path, monkeypatch, capsys):
-    """Runs 1-3 of configs/training.yaml's schema (the cnn on mel features,
-    the mlp on classical vectors, the rnn on MFCC sequences, each run naming
-    its own features_dir and inheriting the mel test set through
-    ``features_test_dir: null``, whose evaluation the mlp and rnn fail and
-    log) through both CLIs, each run warm-started from one flax-initialised
-    bundle at dropout 0: the same three candidates with the same
-    hyperparameters, bundle sizes and metrics."""
+    """All five runs of configs/training.yaml's schema through both CLIs: the
+    cnn on mel features, the mlp on classical vectors, the rnn on MFCC
+    sequences (each deep run warm-started from one flax-initialised bundle at
+    dropout 0), then the svm (C 10, 5-fold CV) and the knn (k 5) on the
+    classical vectors at the file's params. Each run names its own
+    features_dir and inherits the mel test set through ``features_test_dir:
+    null``, whose evaluation the four runs off mel features fail and log. Both CLIs write
+    the same five candidates with the same hyperparameters (but the
+    classical runs' ``backend``), bundle sizes and metrics, and the svm's
+    CV scores agree."""
     import jax
     import jax.numpy as jnp
 
@@ -147,7 +150,7 @@ def test_yaml_runs_cnn_mlp_rnn_and_writes_the_shortlist_the_jax_cli_writes(tmp_p
         init = jt._module().init(jax.random.PRNGKey(1), jnp.zeros((1, *arch["input_shape"])), train=False)["params"]
         jdeep.save_model_bundle(tmp_path / f"{model}.npz", arch, init, np.zeros(1), np.ones(1))
         params[model].update(epochs=3, learning_rate=0.01, dropout=0.0, pretrained_model=str(tmp_path / f"{model}.npz"))
-    shortlists = {}
+    shortlists, svm_cv = {}, {}
     for side, main in (("port", lambda a: ttrain.main([*a, "--device", "cpu"])), ("jax", jtrain.main)):
         (tmp_path / side).mkdir()
         monkeypatch.chdir(tmp_path / side)
@@ -156,7 +159,7 @@ def test_yaml_runs_cnn_mlp_rnn_and_writes_the_shortlist_the_jax_cli_writes(tmp_p
 features_dir: {tmp_path / 'mel_train'}
 features_test_dir: {tmp_path / 'mel_val'}
 output_dir: {tmp_path / side / 'models'}
-experiment: runs-1-3
+experiment: runs-1-5
 val_split: 0.2
 auto_select_top_n: 5
 runs:
@@ -171,26 +174,43 @@ runs:
     features_dir: {tmp_path / 'mfcc_seq_train'}
     features_test_dir: null
     params: {json.dumps(params['rnn'])}
+  - model: svm
+    features_dir: {tmp_path / 'classical_train'}
+    features_test_dir: null
+    cv_folds: 5
+    params: {{C: 10.0}}
+  - model: knn
+    features_dir: {tmp_path / 'classical_train'}
+    features_test_dir: null
+    params: {{n_neighbors: 5}}
 """)
         main(["--config", str(cfg)])
         log = capsys.readouterr().err      # both CLIs log to stderr
-        assert log.count("Test-set evaluation failed") == 2 and "Run 'mlp' failed" not in log
+        assert log.count("Test-set evaluation failed") == 4 and "Run 'mlp' failed" not in log
+        assert "Run 'svm' failed" not in log and "Run 'knn' failed" not in log
         shortlists[side] = json.loads((tmp_path / side / "models" / "shortlist.json").read_text())
+        store = ttracking if side == "port" else jtracking
+        (svm_run,) = (r for r in store.search_runs("runs-1-5") if r.params["model"] == "svm")
+        svm_cv[side] = (svm_run.params["cv_folds"], {k: v for k, v in svm_run.metrics.items() if k.startswith("cv_")})
         ttracking.set_tracking_uri(None)
     port, jax_ = shortlists["port"], shortlists["jax"]
-    assert port["n_candidates"] == jax_["n_candidates"] == 3 and port["metric"] == jax_["metric"]
+    assert port["n_candidates"] == jax_["n_candidates"] == 5 and port["metric"] == jax_["metric"]
 
     def by_model(doc):
         return {c["model"]: c for c in doc["candidates"]}
 
-    assert set(by_model(port)) == set(by_model(jax_)) == {"cnn", "mlp", "rnn"}
+    assert set(by_model(port)) == set(by_model(jax_)) == {"cnn", "mlp", "rnn", "svm", "knn"}
     for model, ours in by_model(port).items():
         theirs = by_model(jax_)[model]
         assert ours["run_name"].rsplit("_", 2)[0] == theirs["run_name"].rsplit("_", 2)[0]
+        if model in ("svm", "knn"):
+            assert (ours["params"].pop("backend"), theirs["params"].pop("backend")) == ("torch", "jax")
         assert ours["params"] == theirs["params"] and ours["features_dir"] == theirs["features_dir"]
         assert ours["model_size_kb"] == theirs["model_size_kb"]
         assert (ours["val_accuracy"], ours["val_f1_macro"]) == (theirs["val_accuracy"], theirs["val_f1_macro"])
+    assert svm_cv["port"][0] == svm_cv["jax"][0] == "5" and svm_cv["port"][1]
+    assert svm_cv["port"][1] == pytest.approx(svm_cv["jax"][1], abs=1e-6)
     for doc in (port, jax_):
-        assert [c["rank"] for c in doc["candidates"]] == [1, 2, 3]
+        assert [c["rank"] for c in doc["candidates"]] == [1, 2, 3, 4, 5]
         f1 = [c["val_f1_macro"] for c in doc["candidates"]]
         assert f1 == sorted(f1, reverse=True)
