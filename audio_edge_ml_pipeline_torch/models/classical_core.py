@@ -32,9 +32,13 @@ A TF32 Gram matrix would move the SVM's dual coefficients far beyond the
 1e-4 the tests hold them to; float64 would change the result compared with
 JAX. No hand kernel: all of this is work the JAX package leaves to XLA.
 
-The fold-batched cross-validation programs of ``classical_jax.py``
-(``svm_cv``, ``pca_cv``, ``lda_cv``, ``knn_cv``) belong to the tuning
-stage and are not ported yet.
+- **Cross-validation** (the tuning stage, ``train/search_cv.py``): the
+  fold-batched programs ``svm_cv``, ``pca_cv``, ``lda_cv`` and ``knn_cv``
+  take the folds as weight vectors ``w (F, N)`` over one resident ``X`` and
+  return every row's scores for every fold. JAX's ``vmap`` over folds is a
+  leading fold axis here: the SVM flattens F folds x P pairs into one batch
+  of F * P QPs for ``_solve_qps`` (one captured CUDA graph a solve, not F),
+  and the PCA runs one batched ``torch.linalg.eigh`` over (F, N, N).
 """
 
 from __future__ import annotations
@@ -139,11 +143,11 @@ def _sw_pinv_solve(Sw: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve Sw @ coef = B by eigendecomposition with the relative rank
     cutoff dim * eps(dtype) * ev_max: directions below it are dropped, not
     ridge-inflated (``classical_jax._sw_pinv_solve`` gives the reason)."""
-    ev, V = torch.linalg.eigh(Sw)   # ascending
-    rcond = Sw.shape[0] * torch.finfo(Sw.dtype).eps
-    keep = ev > rcond * ev[-1].clamp_min(1e-30)
+    ev, V = torch.linalg.eigh(Sw)   # ascending; Sw (..., r, r), B (..., r, K)
+    rcond = Sw.shape[-1] * torch.finfo(Sw.dtype).eps
+    keep = ev > rcond * ev[..., -1:].clamp_min(1e-30)
     inv = torch.where(keep, 1.0 / ev.clamp_min(1e-30), 0.0)
-    return V @ (inv[:, None] * (V.T @ B))
+    return V @ (inv[..., None] * (V.mT @ B))
 
 
 @full_float32()
@@ -155,14 +159,18 @@ def linear_decision(X, coef, intercept) -> torch.Tensor:
 
 
 def _pair_dist_sq(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    sq = (A * A).sum(1)[:, None] - 2.0 * (A @ B.T) + (B * B).sum(1)[None, :]
+    """Squared distances (..., NA, NB) of the rows of A (..., NA, D) to
+    those of B (..., NB, D), as |a|^2 - 2 a.b + |b|^2, clipped at 0."""
+    sq = (A * A).sum(-1)[..., :, None] - 2.0 * (A @ B.mT) + (B * B).sum(-1)[..., None, :]
     return sq.clamp_min(0.0)
 
 
-def _kernel_matrix(A: torch.Tensor, B: torch.Tensor, gamma: float, kind: str) -> torch.Tensor:
+def _kernel_matrix(A: torch.Tensor, B: torch.Tensor, gamma, kind: str) -> torch.Tensor:
+    """rbf or linear kernel matrix, batched over any leading axes (``gamma``
+    a float, or a tensor that broadcasts against (..., NA, NB))."""
     if kind == "rbf":
         return torch.exp(-gamma * _pair_dist_sq(A, B))
-    return A @ B.T
+    return A @ B.mT
 
 
 def _clip(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -281,6 +289,114 @@ def svm_decision(Xq, Xsv, Asv, b, gamma: float, kernel: str) -> torch.Tensor:
     """OvO decision values (B, P): one kernel matrix against the union of
     support vectors, then a dense (Nsv, P) contraction."""
     return _kernel_matrix(Xq, Xsv, gamma, kernel) @ Asv.T + b[None, :]
+
+
+# -- batched cross-validation programs (tuning stage) --------------------------
+
+
+def _per_fold(X: torch.Tensor, n_folds: int) -> torch.Tensor:
+    """One X (N, D) shared by every fold as a (F, N, D) view, or X as it is
+    when it already has a fold axis (the pca_* feature spaces)."""
+    return X.expand(n_folds, *X.shape) if X.dim() == 2 else X
+
+
+def _weighted_gamma_scale(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sklearn gamma='scale' on each fold's weighted (train) rows:
+    1 / (D * var(X_fold)) with the variance over all matrix entries. X (F,
+    N, D), w (F, N) -> (F,)."""
+    D = X.shape[-1]
+    tot = (w.sum(-1) * D).clamp_min(1.0)
+    mean = (X * w[..., None]).sum((-2, -1)) / tot
+    var = (((X - mean[:, None, None]) ** 2) * w[..., None]).sum((-2, -1)) / tot
+    return 1.0 / (D * var).clamp_min(1e-12)
+
+
+@full_float32()
+def svm_cv(X, w, idx, ypm, u, gamma: float, kernel: str, gamma_mode: str, iters: int,
+           capture: bool | None = None) -> torch.Tensor:
+    """Every fold's OvO SVM at once: solve the F x P pair QPs on each fold's
+    train rows (encoded by idx / ypm / u, (F, P, M)) as one batch of F * P
+    and return the decision values of ALL N rows for every fold, (F, N, P);
+    the caller scores each fold's validation rows. X is (N, D), shared by
+    the folds, or (F, N, D); w (F, N) the train-row weights, which enter
+    only through gamma 'scale'. ``capture`` as in ``_solve_qps``."""
+    n_folds, P, M = idx.shape
+    Xf = _per_fold(X, n_folds)
+    N, D = Xf.shape[1:]
+    if gamma_mode == "scale":
+        g = _weighted_gamma_scale(Xf, w)
+    elif gamma_mode == "auto":
+        g = torch.full((n_folds,), 1.0 / D, dtype=Xf.dtype, device=Xf.device)
+    else:
+        g = torch.full((n_folds,), float(gamma), dtype=Xf.dtype, device=Xf.device)
+    Kfull = _kernel_matrix(Xf, Xf, g[:, None, None], kernel)   # (F, N, N)
+    fold = torch.arange(n_folds, device=Xf.device)[:, None, None, None]
+    Kp = Kfull[fold, idx[:, :, :, None], idx[:, :, None, :]]   # (F, P, M, M)
+    alpha, b, _ = _solve_qps(Kp.reshape(n_folds * P, M, M), ypm.reshape(n_folds * P, M),
+                             u.reshape(n_folds * P, M), iters, capture)
+    # dual coefficients over all N rows; padding (index 0, ypm 0) adds 0
+    A = torch.zeros((n_folds, P, N), dtype=Xf.dtype, device=Xf.device).scatter_add_(
+        2, idx, (alpha * ypm.reshape(n_folds * P, M)).reshape(n_folds, P, M))
+    return Kfull @ A.mT + b.reshape(n_folds, 1, P)
+
+
+@full_float32()
+def pca_cv(X: torch.Tensor, w: torch.Tensor, n_components: int) -> torch.Tensor:
+    """Each fold's scaler + PCA fitted on its weighted rows (w = 0 rows
+    ignored), through the sqrt(w)-scaled Gram eigendecomposition, then ALL
+    rows transformed: X (N, D), w (F, N) -> Z (F, N, k). Component signs are
+    left as ``eigh`` gives them, as in JAX: the kernels, distances and LDA
+    downstream do not depend on them."""
+    tot = w.sum(-1).clamp_min(1.0)[:, None]   # (F, 1)
+    mean = (w @ X) / tot   # (F, D)
+    diff = X[None] - mean[:, None, :]
+    var = ((diff * diff) * w[..., None]).sum(1) / tot
+    scale = var.sqrt()
+    scale = torch.where(scale == 0.0, 1.0, scale)
+    Xs = diff / scale[:, None, :]
+    pmean = (Xs * w[..., None]).sum(1) / tot
+    Xc = Xs - pmean[:, None, :]
+    Xw = Xc * w.sqrt()[..., None]
+    ev, U = torch.linalg.eigh(Xw @ Xw.mT)   # ascending, (F, N), (F, N, N)
+    ev = ev.flip(-1)[:, :n_components].clamp_min(0.0)
+    U = U.flip(-1)[:, :, :n_components]
+    comp = (Xw.mT @ U) / ev.sqrt().clamp_min(1e-12)[:, None, :]
+    return Xc @ comp
+
+
+@full_float32()
+def lda_cv(X: torch.Tensor, y_onehot: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Each fold's closed-form LDA on its weighted rows, with the rank-cutoff
+    solve and the 1e-12 prior floor of ``fit_lda`` (a fold's scores see the
+    covariance treatment the refit model gets); decision values of ALL
+    rows, (F, N, K). X (N, r) shared or (F, N, r)."""
+    Xf = _per_fold(X, w.shape[0])
+    wcounts = w @ y_onehot   # (F, K)
+    means = ((y_onehot[None] * w[..., None]).mT @ Xf) / wcounts.clamp_min(1.0)[..., None]   # (F, K, r)
+    Xc = (Xf - y_onehot @ means) * w.sqrt()[..., None]
+    denom = (w.sum(-1) - y_onehot.shape[1]).clamp_min(1.0)
+    Sw = (Xc.mT @ Xc) / denom[:, None, None]
+    coef = _sw_pinv_solve(Sw, means.mT)   # (F, r, K)
+    priors = wcounts / w.sum(-1, keepdim=True).clamp_min(1.0)
+    intercept = -0.5 * (means.mT * coef).sum(1) + torch.log(priors.clamp_min(1e-12))
+    return Xf @ coef + intercept[:, None, :]
+
+
+@full_float32()
+def knn_cv(X: torch.Tensor, w: torch.Tensor, yr_onehot: torch.Tensor, k: int, metric: str) -> torch.Tensor:
+    """Each fold's kNN class counts of ALL rows against its train rows (w = 0
+    rows at distance +inf), (F, N, K). The k nearest by a stable sort, so
+    that equal distances go to the lower row index first, as
+    ``jax.lax.top_k`` orders them. X (N, D) shared or (F, N, D)."""
+    if metric == "cosine":
+        Xn = X / X.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        d = 1.0 - Xn @ Xn.mT
+    else:
+        sq = (X * X).sum(-1)
+        d = sq[..., :, None] - 2.0 * (X @ X.mT) + sq[..., None, :]
+    d = torch.where(w[:, None, :] > 0, d, torch.inf)   # (F, N, N)
+    nidx = torch.sort(d, dim=-1, stable=True).indices[..., :k]
+    return yr_onehot[nidx].sum(-2)
 
 
 # ===========================================================================

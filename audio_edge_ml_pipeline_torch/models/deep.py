@@ -64,6 +64,18 @@ logger = logging.getLogger(__name__)
 # ---------------------------------------------------------------------------
 
 
+def runtime_dropout(x: torch.Tensor, rate, training: bool) -> torch.Tensor:
+    """Inverted dropout at a rate given at run time (a float or a tensor; one
+    per trial under ``torch.func.vmap``), as the JAX package's ``_dropout``:
+    ``nn.Dropout``'s rate is fixed module state, and the batched trial
+    trainer (``train/tune_batched.py``) trains trials of different rates as
+    one program."""
+    if not training:
+        return x
+    keep = 1.0 - rate if torch.is_tensor(rate) else torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(torch.rand_like(x) < keep, x / keep.clamp_min(1e-6), 0.0)
+
+
 def same_padding(size: int, stride: int, kernel: int = 3) -> tuple[int, int]:
     """(before, after) padding of flax/TF ``padding="SAME"``: the output has
     ceil(size / stride) positions and any odd padding goes after, so a
@@ -73,7 +85,15 @@ def same_padding(size: int, stride: int, kernel: int = 3) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-class CNNModule(nn.Module):
+class _RuntimeDropoutModule(nn.Module):
+    """``_drop``: the module's own ``nn.Dropout``, or ``runtime_dropout`` at
+    the rate a forward call gives."""
+
+    def _drop(self, x: torch.Tensor, rate) -> torch.Tensor:
+        return self.dropout(x) if rate is None else runtime_dropout(x, rate, self.training)
+
+
+class CNNModule(_RuntimeDropoutModule):
     """Conv 3x3-SAME blocks (+ 2x2 max pool unless the block strides),
     global average pool, Dense(128), logits. Input and output as the flax
     module: x (B, H, W, C) -> (B, n_classes)."""
@@ -87,7 +107,8 @@ class CNNModule(nn.Module):
         self.denses = nn.ModuleList([nn.Linear(filters[-1], 128), nn.Linear(128, n_classes)])
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_rate=None) -> torch.Tensor:
+        """``dropout_rate`` (optional) replaces the module's own rate."""
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
         for conv, stride in zip(self.convs, self.strides):
             top, bottom = same_padding(x.shape[2], stride)
@@ -95,13 +116,13 @@ class CNNModule(nn.Module):
             x = F.relu(conv(F.pad(x, (left, right, top, bottom))))
             if stride == 1:
                 x = F.max_pool2d(x, 2, 2)
-            x = self.dropout(x)
+            x = self._drop(x, dropout_rate)
         x = x.mean(dim=(2, 3))  # GAP2D
-        x = self.dropout(F.relu(self.denses[0](x)))
+        x = self._drop(F.relu(self.denses[0](x)), dropout_rate)
         return self.denses[1](x)
 
 
-class MLPModule(nn.Module):
+class MLPModule(_RuntimeDropoutModule):
     """Dense + ReLU + dropout for each hidden width, then logits: x (B, D) ->
     (B, n_classes), as the flax module."""
 
@@ -111,13 +132,14 @@ class MLPModule(nn.Module):
         self.denses = nn.ModuleList(nn.Linear(widths[i], widths[i + 1]) for i in range(len(widths) - 1))
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_rate=None) -> torch.Tensor:
+        """``dropout_rate`` (optional) replaces the module's own rate."""
         for dense in self.denses[:-1]:
-            x = self.dropout(F.relu(dense(x)))
+            x = self._drop(F.relu(dense(x)), dropout_rate)
         return self.denses[-1](x)
 
 
-class BiLSTMModule(nn.Module):
+class BiLSTMModule(_RuntimeDropoutModule):
     """Stacked bidirectional LSTM layers, each after a dropout of its input
     (the raw input included); the last layer's forward output at the last
     step beside its backward output at the first; Dense(64) + ReLU + dropout;
@@ -141,11 +163,12 @@ class BiLSTMModule(nn.Module):
         self.denses = nn.ModuleList([nn.Linear(2 * units, 64), nn.Linear(64, n_classes)])
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_rate=None) -> torch.Tensor:
+        """``dropout_rate`` (optional) replaces the module's own rate."""
         for lstm in self.lstms:
-            x, _ = lstm(self.dropout(x))
+            x, _ = lstm(self._drop(x, dropout_rate))
         x = torch.cat([x[:, -1, : self.units], x[:, 0, self.units :]], dim=-1)
-        x = self.dropout(F.relu(self.denses[0](x)))
+        x = self._drop(F.relu(self.denses[0](x)), dropout_rate)
         return self.denses[1](x)
 
 
@@ -301,6 +324,29 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
     nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
 
 
+def init_weights_(net: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initializers from ``generator``, in place: lecun-normal
+    kernels, zero biases; an LSTM cell's input kernels lecun-normal and its
+    recurrent ones orthogonal, gate by gate."""
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+                w = torch.empty(mod.weight.shape, dtype=torch.float32)
+                _lecun_normal_(w, mod.weight[0].numel(), generator)
+                mod.weight.copy_(w)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.LSTM):
+                for name, p in mod.named_parameters():
+                    w = torch.zeros(p.shape, dtype=torch.float32)
+                    if name.startswith("weight"):
+                        for gate in w.chunk(4):
+                            if name.startswith("weight_ih"):
+                                _lecun_normal_(gate, p.shape[1], generator)
+                            else:
+                                nn.init.orthogonal_(gate, generator=generator)
+                    p.copy_(w)
+
+
 class TorchTrainer(BaseTrainer):
     """Shared training loop and state of the deep trainers: architecture
     dict, module, normalization stats, device.
@@ -357,34 +403,12 @@ class TorchTrainer(BaseTrainer):
                 outs.append(self._net(self._normalize(xb)).cpu().numpy())
         return np.concatenate(outs)
 
-    def _init_weights(self, generator: torch.Generator) -> None:
-        """flax's default initializers from ``generator``: lecun-normal
-        kernels, zero biases; an LSTM cell's input kernels lecun-normal and
-        its recurrent ones orthogonal, gate by gate."""
-        with torch.no_grad():
-            for mod in self._net.modules():
-                if isinstance(mod, (nn.Conv2d, nn.Linear)):
-                    w = torch.empty(mod.weight.shape, dtype=torch.float32)
-                    _lecun_normal_(w, mod.weight[0].numel(), generator)
-                    mod.weight.copy_(w)
-                    mod.bias.zero_()
-                elif isinstance(mod, nn.LSTM):
-                    for name, p in mod.named_parameters():
-                        w = torch.zeros(p.shape, dtype=torch.float32)
-                        if name.startswith("weight"):
-                            for gate in w.chunk(4):
-                                if name.startswith("weight_ih"):
-                                    _lecun_normal_(gate, p.shape[1], generator)
-                                else:
-                                    nn.init.orthogonal_(gate, generator=generator)
-                        p.copy_(w)
-
     def initialize(self, input_shape: tuple, n_classes: int, generator: torch.Generator) -> None:
         """Random weights from ``generator`` and identity normalization, for
         an untrained model of the architecture ``fit`` would build."""
         self._build(self._arch(tuple(input_shape), n_classes),
                     np.zeros(input_shape[-1], np.float32), np.ones(input_shape[-1], np.float32))
-        self._init_weights(generator)
+        init_weights_(self._net, generator)
 
     def prepare_fit(self, X_train: np.ndarray, n_classes: int) -> None:
         """What ``fit`` does before its first step, on prepared float32 input:
@@ -395,7 +419,7 @@ class TorchTrainer(BaseTrainer):
         axes = tuple(range(X_train.ndim - 1))
         self._build(self._arch(X_train.shape[1:], n_classes),
                     X_train.mean(axis=axes).astype(np.float32), X_train.var(axis=axes).astype(np.float32))
-        self._init_weights(torch.Generator().manual_seed(self.seed))
+        init_weights_(self._net, torch.Generator().manual_seed(self.seed))
 
         # pretrained warm-start: copy matching name+shape tensors, keep the
         # norm stats. Consumed once (pop): a refit trains from its own state.

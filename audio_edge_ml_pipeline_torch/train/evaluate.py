@@ -44,6 +44,16 @@ def _prf_per_class(cm: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return precision, recall, f1
 
 
+def f1_macro(y_true: np.ndarray, y_pred: np.ndarray) -> float:
+    """sklearn's ``f1_score(average="macro", zero_division=0)``: the mean F1
+    over the classes present in y_true or y_pred."""
+    y_true = np.asarray(y_true).astype(int)
+    y_pred = np.asarray(y_pred).astype(int)
+    present = np.union1d(np.unique(y_true), np.unique(y_pred))
+    _, _, f1 = _prf_per_class(confusion_matrix(y_true, y_pred))
+    return float(f1[present].mean())
+
+
 def roc_auc_ovr_macro(y_true: np.ndarray, y_proba: np.ndarray) -> float:
     """Macro-average one-vs-rest ROC-AUC via the rank statistic
     (Mann-Whitney U), matching sklearn's roc_auc_score(multi_class='ovr')."""

@@ -70,6 +70,21 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      svm (C 10, gamma scale, 800 iterations) alpha, b and decision values,
      Platt A and B, LDA coefficients, the PCA (50 components) projector,
      kNN counts (k 5), k-means (k 27, 10 restarts) centres and inertia;
+  5e. the tuning stage: fsc22-sized FeatureSets (27 classes x 75 synthetic
+     5 s clips made on the card, their mel features extracted there by
+     ``mel_spec_feature``, the shipped 70 % train and 15 % validation
+     splits; 5d's seeded 302-d vectors, 70 % train) through the tune CLI on
+     the card: ``configs/tuning.yaml`` with its cnn study cut to 6 trials of
+     3 epochs (its pca_svm grid whole: 8 cells, cv 5, 400 CV iterations,
+     the 800-iteration refit), and a batched study (8 trials in rounds of
+     tune_parallel 4, the cnn fixed at its published widths). Checks: both
+     runs in the shortlist, no failed trial (completed + pruned = trials),
+     no failure logged but the pca_svm run's test-set evaluation (its
+     ``features_test: null`` inherits the mel set), the bundles served; one
+     pca_svm cell's fold-batched decision values card (TF32 on) vs CPU
+     within 1e-4 of their largest; one cnn trial group's first epoch (4
+     trials, dropout 0, float64) card vs CPU, losses 1e-5 and parameters
+     1e-4 relative;
   6. timing with CUDA events at B=512 five-second clips (at n_fft 512 each
      entry's FFT route beside its dense kernel, in turns, and the plain
      versions; at n_fft 400 the FFT kernel beside both dense kernels, in
@@ -85,7 +100,10 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      B=32 and B=512; at 5d's fsc22 scale an svm fit eager and captured in a
      CUDA graph (which must give what eager gives, bit for bit), the
      kernels an APG step launches, svm predict and predict_proba on the 284
-     rows, a kNN predict, an LDA fit, a pca_svm fit and a k-means fit;
+     rows, a kNN predict, an LDA fit, a pca_svm fit and a k-means fit; at
+     5e's sizes one svm CV cell fold-batched and fold by fold, each pca_cv,
+     the grid's total in the CLI, and a group of 4 cnn trials for one epoch
+     against the 4 trials one at a time;
   7. one JSON line per kernel, then the result line.
 
 Matmuls and cuDNN convolutions run in full float32 throughout (TF32 off),
@@ -144,6 +162,10 @@ LDA_TOL = 1e-4                     # LDA coefficients card vs CPU, relative to t
 PCA_TOL = 1e-4                     # PCA projector (components times their transpose) card vs CPU, relative
 KMEANS_TOL, INERTIA_TOL = 1e-4, 1e-5   # k-means centres over their largest, inertia relative
 DECISION_TOL = 1e-5                # a served classical bundle's decision values card vs CPU, over their largest
+TUNE_TRIALS, TUNE_EPOCHS = 6, 3    # configs/tuning.yaml's cnn study cut from 30 trials of 40 epochs
+BATCHED_TRIALS, BATCHED_K = 8, 4   # the batched study: 8 trials in rounds of tune_parallel 4
+CV_TOL = 1e-4                      # a pca_svm cell's fold-batched decision values card vs CPU, over their largest
+GROUP_LOSS_TOL, GROUP_PARAM_TOL = 1e-5, 1e-4   # a cnn trial group's first epoch card vs CPU, relative
 
 
 def fail(msg: str) -> None:
@@ -170,6 +192,21 @@ def synth_clips(rng: np.random.Generator, batch: int, n: int = CLIP, sr: int = S
             y[s : s + sr // 10] += 0.6 * rng.standard_normal(sr // 10)
         out[i] = 0.8 * y / np.abs(y).max()
     return out
+
+
+def class_clips_on_card(gen, dev, c: int, n: int):
+    """n five-second 16 kHz clips of class c on the card, from the torch
+    generator ``gen``: three harmonics of a class pitch (110 Hz up a
+    semitone a class, +-3 % a clip), slow amplitude modulation, noise."""
+    import torch
+
+    t = torch.arange(CLIP, device=dev, dtype=torch.float32) / SR
+    f0 = 110.0 * 2.0 ** (c / 12) * (1 + 0.06 * (torch.rand(n, 1, device=dev, generator=gen) - 0.5))
+    y = sum((0.5 / h) * torch.sin(2 * np.pi * h * f0 * t + 2 * np.pi * torch.rand(n, 1, device=dev, generator=gen))
+            for h in range(1, 4))
+    y = y * (0.5 + 0.5 * torch.sin(2 * np.pi * (0.3 + 2.7 * torch.rand(n, 1, device=dev, generator=gen)) * t) ** 2)
+    y = y + 0.05 * torch.randn(n, CLIP, device=dev, generator=gen)
+    return 0.8 * y / y.abs().amax(1, keepdim=True)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -320,22 +357,56 @@ def repaired_sizes_config(dataset: Path, out_root: Path) -> tuple[Path, list[dic
     return path, experiments
 
 
-def fsc22_classical(rng: np.random.Generator):
+def fsc22_classical_train(rng: np.random.Generator):
     """Seeded classical vectors at fsc22 scale: 27 classes x 75 clips of 302
     dims (class means plus unit noise, each column on its own scale within
     half a decade, so that the LDA's within-class scatter keeps a condition
     number near 30 and its smallest eigenvalue far above the rank cutoff:
     a float32 solve near that cutoff differs from itself in float64 by more
-    than the tolerance), the shipped 70 % train split, then the train CLI's
-    20 % validation split of it: (X_fit, y_fit, X_val, y_val)."""
+    than the tolerance), the shipped 70 % train split: (X_train, y_train)."""
     from audio_edge_ml_pipeline_torch.train.train import stratified_train_val_split
 
     y = np.repeat(np.arange(N_CLASSES), FSC22_CLIPS).astype(np.int32)
     means = 0.5 * rng.standard_normal((N_CLASSES, CLASSICAL_DIM))
     X = ((means[y] + rng.standard_normal((len(y), CLASSICAL_DIM))) * 10.0 ** rng.uniform(-0.25, 0.25, CLASSICAL_DIM))
     X_train, _, y_train, _ = stratified_train_val_split(X.astype(np.float32), y, 0.3)
-    X_fit, X_val, y_fit, y_val = stratified_train_val_split(X_train, y_train, 0.2)
+    return X_train, y_train
+
+
+def fsc22_classical(rng: np.random.Generator):
+    """``fsc22_classical_train``, then the train CLI's 20 % validation split
+    of it: (X_fit, y_fit, X_val, y_val)."""
+    from audio_edge_ml_pipeline_torch.train.train import stratified_train_val_split
+
+    X_fit, X_val, y_fit, y_val = stratified_train_val_split(*fsc22_classical_train(rng), 0.2)
     return X_fit, y_fit, X_val, y_val
+
+
+def tuning_config_copies(mel_train: Path, mel_val: Path, classical_train: Path, out_root: Path):
+    """configs/tuning.yaml with its FeatureSets moved to phase 5e's and its
+    cnn budget cut to TUNE_TRIALS trials of TUNE_EPOCHS epochs (every other
+    knob as shipped: the median pruner, the search space, the pca_svm grid,
+    cv 5), and a batched study beside it: the cnn search space with the
+    architecture fixed at the published widths, BATCHED_TRIALS trials in
+    rounds of tune_parallel BATCHED_K. Written as JSON under ``out_root``,
+    their outputs to ``out_root``/tuned and /tuned_batched: (shipped path,
+    batched path, the shipped document)."""
+    import yaml
+
+    doc = yaml.safe_load((REPO / "configs" / "tuning.yaml").read_text())
+    check([r["model"] for r in doc["runs"]] == ["cnn", "pca_svm"], "configs/tuning.yaml's runs")
+    doc.update(output_dir=str(out_root / "tuned"), features_dir=str(mel_train), features_test=str(mel_val),
+               n_trials=TUNE_TRIALS, sweep_epochs=TUNE_EPOCHS)
+    doc["runs"][1]["features_dir"] = str(classical_train)
+    cnn_run = doc["runs"][0]
+    batched = {**doc, "experiment": doc["experiment"] + "-batched", "output_dir": str(out_root / "tuned_batched"),
+               "n_trials": BATCHED_TRIALS, "tune_parallel": BATCHED_K,
+               "runs": [{**cnn_run, "search_space": {**cnn_run["search_space"], **{k: [v] for k, v in CNN_PARAMS.items()}}}]}
+    out_root.mkdir(parents=True)
+    paths = out_root / "tuning.yaml", out_root / "tuning_batched.yaml"
+    for path, d in zip(paths, (doc, batched)):
+        path.write_text(json.dumps(d, indent=1))
+    return paths[0], paths[1], doc
 
 
 def classical_core_run(dev, X, y, Xq) -> dict:
@@ -366,6 +437,260 @@ def classical_core_run(dev, X, y, Xq) -> dict:
             "lda": cc.fit_lda_np(X, y, N_CLASSES, dev)["lda_coef"], "pca": pca @ pca.T,
             "knn": tcl._knn_counts(Xq, X, y, KNN_K, N_CLASSES, "minkowski", dev),
             "centres": centres, "inertia": inertia}
+
+
+def phase_5e(dev) -> dict:
+    """Phase 5e: configs/tuning.yaml (cut) and a batched study through the
+    tune CLI on the card, on fsc22-sized FeatureSets made here (the mel set
+    extracted on the card by ``mel_spec_feature``), with its checks; then one
+    pca_svm cell's fold-batched decision values and one cnn trial group's
+    first epoch, card against CPU. Returns what phase 6 times."""
+    import logging
+
+    import torch
+
+    from audio_edge_ml_pipeline_torch.data.loaders import stratified_split_indices
+    from audio_edge_ml_pipeline_torch.features import pipeline
+    from audio_edge_ml_pipeline_torch.features.base import FeatureSet
+    from audio_edge_ml_pipeline_torch.models import get_model
+    from audio_edge_ml_pipeline_torch.models.deep import MODEL_FILENAME, CNNTrainer, load_any_model
+    from audio_edge_ml_pipeline_torch.ops import mel_kernel
+    from audio_edge_ml_pipeline_torch.train import search_cv, tune, tune_batched
+
+    print(f"[5e] cuts: configs/tuning.yaml's cnn study {TUNE_TRIALS} trials of {TUNE_EPOCHS} epochs (30 of 40 in "
+          f"the file); its pca_svm grid whole (8 cells, cv 5, {search_cv._DEFAULT_ITERS} CV iterations, the "
+          f"800-iteration refit); a batched study beside it ({BATCHED_TRIALS} trials of {TUNE_EPOCHS} epochs in "
+          f"rounds of tune_parallel {BATCHED_K}, the cnn's architecture fixed at {CNN_PARAMS}); synthetic clips "
+          f"(27 classes x {FSC22_CLIPS}, 5 s, 16 kHz, made on the card) for the mel FeatureSets and 5d's seeded "
+          "302-d vectors for the classical one")
+    names5e = [f"class{c:02d}" for c in range(N_CLASSES)]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    mel_kernel.counter.reset()
+    mel_kernel.counter_dense.reset()
+    t0 = time.perf_counter()
+    X_mel = np.concatenate([mel_kernel.mel_spec_feature(class_clips_on_card(gen, dev, c, FSC22_CLIPS)).cpu().numpy()
+                            for c in range(N_CLASSES)])
+    mel5e_s = time.perf_counter() - t0
+    mel5e_launches = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches)
+    y_mel = np.repeat(np.arange(N_CLASSES), FSC22_CLIPS).astype(np.int32)
+    split = np.array(stratified_split_indices([names5e[c] for c in y_mel], 0.70, 0.15, 42))
+    X_ct, y_ct = fsc22_classical_train(np.random.default_rng(22))
+    check(X_mel.shape == (N_CLASSES * FSC22_CLIPS, N_MELS, 1 + CLIP // HOP) and bool(np.isfinite(X_mel).all()),
+          f"5e mel features {X_mel.shape}")
+    check(mel5e_launches == (N_CLASSES, 0), f"5e's extraction launched (all, dense) {mel5e_launches}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp5e:
+        tmp5e = Path(tmp5e)
+        sets = {"fsc22_mel_train": (X_mel[split == "train"], y_mel[split == "train"], "audio_mel_spec"),
+                "fsc22_mel_val": (X_mel[split == "validation"], y_mel[split == "validation"], "audio_mel_spec"),
+                "fsc22_classical_train": (X_ct, y_ct, "classical")}
+        for set_name, (Xs, ys, ftype) in sets.items():
+            pipeline.FeaturePipeline.save(FeatureSet(features=Xs, feature_type=ftype, modality="audio",
+                                                     metadata=[{} for _ in ys], labels=ys, label_names=names5e),
+                                          tmp5e / set_name)
+        cfg5e, cfg5e_batched, doc5e = tuning_config_copies(tmp5e / "fsc22_mel_train", tmp5e / "fsc22_mel_val",
+                                                           tmp5e / "fsc22_classical_train", tmp5e / "tuning")
+        messages5e: list[str] = []
+        handler = logging.Handler(logging.INFO)
+        handler.emit = lambda record: messages5e.append(record.getMessage())
+        cell_s: list[float] = []
+        grid_s: dict[str, float] = {}
+        eval_cell, grid_fn = search_cv._CVEngine.eval_cell, search_cv.grid_search_cv_device
+
+        def timed_cell(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = eval_cell(self, *args, **kwargs)   # ends on the host
+            cell_s.append(time.perf_counter() - t0)
+            return out
+
+        def timed_grid(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = grid_fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            grid_s["grid"] = time.perf_counter() - t0
+            return out
+
+        logging.getLogger("audio_edge_ml_pipeline_torch").addHandler(handler)
+        search_cv._CVEngine.eval_cell, search_cv.grid_search_cv_device = timed_cell, timed_grid
+        os.environ["MLFLOW_TRACKING_URI"] = str(tmp5e / "mlruns")
+        cwd = os.getcwd()
+        os.chdir(tmp5e)   # the CLI archives its config under ./config/experiments
+        tune_s = {}
+        try:
+            for label, cfg_path in (("shipped", cfg5e), ("batched", cfg5e_batched)):
+                t0 = time.perf_counter()
+                tune.main(["--config", str(cfg_path)])
+                torch.cuda.synchronize()
+                tune_s[label] = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+            os.environ.pop("MLFLOW_TRACKING_URI")
+            search_cv._CVEngine.eval_cell, search_cv.grid_search_cv_device = eval_cell, grid_fn
+            logging.getLogger("audio_edge_ml_pipeline_torch").removeHandler(handler)
+        tuned = tmp5e / "tuning" / "tuned"
+        shortlist5e = json.loads((tuned / "shortlist.json").read_text())
+        summaries = {label: json.loads((tuned.parent / out / "cnn" / "trial_summary.json").read_text())
+                     for label, out in (("shipped", "tuned"), ("batched", "tuned_batched"))}
+        failures = [m for m in messages5e if "failed" in m and "Test-set evaluation failed" not in m]
+        inherited = [m for m in messages5e if "Test-set evaluation failed" in m]
+        print(f"[5e] mel FeatureSets on the card: {len(X_mel)} clips in {mel5e_s:.2f} s, mel_rfft launches "
+              f"{mel5e_launches[0] - mel5e_launches[1]}, dense {mel5e_launches[1]}; train {int((split == 'train').sum())}, "
+              f"validation {int((split == 'validation').sum())} rows; classical train {len(X_ct)} x {CLASSICAL_DIM}")
+        print(f"[5e] tune CLI on the card: configs/tuning.yaml (cut) in {tune_s['shipped']:.2f} s, the pca_svm grid "
+              f"{grid_s['grid']:.2f} s (cells {', '.join(f'{t:.3f}' for t in cell_s)} s, then the refit); the batched "
+              f"study in {tune_s['batched']:.2f} s; shortlist "
+              f"{[(c['rank'], c['model'], round(c['val_f1_macro'], 4), c['best_params']) for c in shortlist5e['candidates']]}")
+        for label, sm in summaries.items():
+            print(f"[5e] {label} cnn study: n_trials {sm['n_trials']}, completed {sm['n_completed']}, pruned "
+                  f"{sm['n_pruned']}, best trial {sm['best_trial']} (val_f1_macro {sm['best_val_f1_macro']:.4f}, "
+                  f"{sm['best_params']})")
+        print(f"[5e] logged failures: {failures or 'none'}; the pca_svm run's test set (`features_test: null` inherits "
+              f"the mel validation set, which its model cannot read): {inherited}")
+        check(sorted(c["model"] for c in shortlist5e["candidates"]) == ["cnn", "pca_svm"],
+              f"5e: the shortlist holds {[c['model'] for c in shortlist5e['candidates']]}")
+        for label, sm in summaries.items():
+            want = TUNE_TRIALS if label == "shipped" else BATCHED_TRIALS
+            check(sm["n_trials"] == want and sm["n_completed"] + sm["n_pruned"] == want,
+                  f"5e: the {label} study has failed trials: {sm['n_completed']} completed, {sm['n_pruned']} pruned of {want}")
+        check(not failures, f"5e: the tune CLI logged failures: {failures}")
+        check(len(cell_s) == 8, f"5e: the pca_svm grid ran {len(cell_s)} cells")
+        check(any(f"batched rounds of {BATCHED_K}" in m for m in messages5e), "5e: the batched study did not batch")
+        # the bundles load on the card and predict
+        Xc_fit, Xc_val, yc_fit, yc_val = tune._split(X_ct, y_ct, 0.2)
+        cand = {c["model"]: c for c in shortlist5e["candidates"]}
+        svm_tuned = get_model("pca_svm").load(tuned / "pca_svm" / "pca_svm.npz")
+        svm_acc = float((svm_tuned.predict(Xc_val) == yc_val).mean())
+        X_mv, y_mv = sets["fsc22_mel_val"][:2]
+        bundle_acc = {}
+        for label, out in (("shipped", "tuned"), ("batched", "tuned_batched")):
+            best_dir = tuned.parent / out / "cnn" / f"trial_{summaries[label]['best_trial']:02d}"
+            cnn_tuned = load_any_model(best_dir / MODEL_FILENAME)
+            check(cnn_tuned.device.type == "cuda", "5e: the tuned cnn is not on the card")
+            proba = cnn_tuned.predict_proba(X_mv)
+            check(proba.shape == (len(X_mv), N_CLASSES) and bool(np.isfinite(proba).all()), f"5e: {label} cnn predictions")
+            bundle_acc[label] = float((proba.argmax(1) == y_mv).mean())
+        print(f"[5e] bundles served on the card: pca_svm {svm_tuned.n_components} components, C {svm_tuned.C:g}, "
+              f"{svm_tuned.kernel}, validation accuracy {svm_acc:.4f} (shortlist {cand['pca_svm']['val_accuracy']:.4f}); "
+              f"the winning cnn trials on the {len(X_mv)} mel validation rows: accuracy "
+              + ", ".join(f"{k} {v:.4f}" for k, v in bundle_acc.items()))
+        check(svm_acc == cand["pca_svm"]["val_accuracy"], "5e: the pca_svm bundle does not predict what the CLI scored")
+
+    # 5e. one pca_svm cell's fold-batched decision values card vs CPU (TF32 allowed), and one cnn trial group's
+    # first epoch card vs CPU at dropout 0
+    fold_of = search_cv.stratified_fold_ids(yc_fit.astype(np.int64), doc5e["cv"], 42)
+    cell5e = {"n_components": 50, "C": 1.0, "kernel": "rbf"}
+    engines5e, dec5e = {}, {}
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            eng = search_cv._CVEngine(Xc_fit, yc_fit, fold_of, N_CLASSES, device=where)
+            t0 = time.perf_counter()
+            dec5e[side] = eng.svm_decisions(cell5e, eng.pca_features(cell5e))
+            engines5e[side] = (eng, time.perf_counter() - t0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    cv_gap = float(np.abs(dec5e["card"] - dec5e["cpu"]).max() / np.abs(dec5e["cpu"]).max())
+    eng_card = engines5e["card"][0]
+    print(f"[5e] pca_svm cell {cell5e} fold-batched on {len(Xc_fit)} rows, {doc5e['cv']} folds x "
+          f"{eng_card._ovo_cached()[1].shape[1]} pairs (M {eng_card._ovo_cached()[1].shape[2]}), "
+          f"{search_cv._DEFAULT_ITERS} iterations: card with both TF32 flags on ({engines5e['card'][1]:.2f} s) vs CPU "
+          f"({engines5e['cpu'][1]:.2f} s), decision values of all rows and folds max|d|/max|dec| {cv_gap:.3e} "
+          f"(tol {CV_TOL:g})")
+    check(cv_gap <= CV_TOL, f"5e: the fold-batched svm CV on the card disagrees with the CPU: {cv_gap:.3e}")
+
+    Xm_fit, _, ym_fit, _ = tune._split(sets["fsc22_mel_train"][0], sets["fsc22_mel_train"][1], 0.2, 42)
+    proto = CNNTrainer(**CNN_PARAMS, device=dev)
+    Xg = proto._prepare_input(Xm_fit).astype(np.float32)
+    g_mean, g_std = tune_batched._group_norm_stats(Xg)
+    Xg = (Xg - g_mean) / g_std
+    arch5e = {**proto._arch(Xg.shape[1:], N_CLASSES), "dropout": 0.0}
+    states5e = tune_batched.init_states(arch5e, BATCHED_K, 42)
+    lrs5e = [3e-4, 1e-3, 3e-3, 9e-3]   # inside the shipped search space's [2e-4, 1e-2]
+    steps5e = len(Xg) // 32
+    idx5e = np.random.default_rng(42).permutation(len(Xg))[: steps5e * 32].reshape(steps5e, 32)
+    Xg_d, yg_d = torch.from_numpy(Xg).to(dev), torch.from_numpy(ym_fit.astype(np.int64)).to(dev)
+    # in float64: in float32 Adam lifts roundoff on near-zero gradients to whole steps, and one epoch on
+    # the CPU moves a tensor's parameters by up to 0.21 of its largest when the input moves 1e-7; in float64
+    # by 6e-12 when it moves 1e-14 (scripts/torch_tune_sensitivity.py), so the two devices are held to each other
+    groups5e, losses5e = {}, {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        g5 = tune_batched.TrialGroup(arch5e, states5e, lrs5e, [0.0] * BATCHED_K, where, torch.float64)
+        losses5e[side] = g5.epoch(Xg_d.to(where, torch.float64), yg_d.to(where), idx5e).cpu()
+        groups5e[side] = g5
+    group_loss_gap = float(((losses5e["card"] - losses5e["cpu"]).abs() / losses5e["cpu"].abs()).max())
+    group_param_gap, group_worst = max(
+        (float((groups5e["card"].params[k].detach().cpu() - p.detach()).abs().max() / p.detach().abs().max()), k)
+        for k, p in groups5e["cpu"].params.items())
+    print(f"[5e] cnn trial group ({BATCHED_K} trials, {CNN_PARAMS}, lr {lrs5e}, dropout 0, batch 32) first epoch "
+          f"({steps5e} steps on {len(Xg)} rows) card vs CPU: losses {losses5e['card'].numpy()} vs "
+          f"{losses5e['cpu'].numpy()} (max rel {group_loss_gap:.3e}, tol {GROUP_LOSS_TOL:g}); parameters "
+          f"max|d|/max|p| {group_param_gap:.3e} ({group_worst}; tol {GROUP_PARAM_TOL:g}), in float64")
+    check(group_loss_gap <= GROUP_LOSS_TOL, "5e: the cnn trial group's losses on the card disagree with the CPU")
+    check(group_param_gap <= GROUP_PARAM_TOL, "5e: the cnn trial group's parameters on the card disagree with the CPU")
+    return {"mel_launches": mel5e_launches[0], "engine": eng_card, "cell": cell5e, "grid_s": grid_s["grid"],
+            "n_components": sorted(set(doc5e["runs"][1]["grid"]["n_components"])), "rows": len(Xc_fit),
+            "arch": arch5e, "states": states5e, "lrs": lrs5e, "X": Xg_d, "y": yg_d, "idx": idx5e}
+
+
+def tuning_times(t5e: dict, card: str, in_turns) -> None:
+    """Phase 6's tuning times at 5e's sizes: one svm CV cell fold-batched and
+    fold by fold, each pca_cv, the grid's total (from 5e's CLI run), and a
+    trial group of BATCHED_K cnn trials for one epoch against as many
+    trials one at a time; with the card's name and power limit."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.models import classical_core
+    from audio_edge_ml_pipeline_torch.train import search_cv, tune_batched
+
+    eng_card, cell5e, arch5e, states5e, lrs5e = (t5e[k] for k in ("engine", "cell", "arch", "states", "lrs"))
+    Xg_d, yg_d, idx5e = t5e["X"], t5e["y"], t5e["idx"]
+    dev = Xg_d.device
+    Z5e = eng_card.pca_features(cell5e)
+    _, idx5, ypm5, cw5 = eng_card._ovo_cached()
+    u5 = torch.from_numpy((cell5e["C"] * cw5).astype(np.float32)).to(dev)
+    W5 = eng_card._W_dev
+    n_folds5 = W5.shape[0]
+
+    def cv_cell():
+        return classical_core.svm_cv(Z5e, W5, idx5, ypm5, u5, 0.0, "rbf", "scale", search_cv._DEFAULT_ITERS)
+
+    def cv_by_fold():
+        return torch.cat([classical_core.svm_cv(Z5e[f : f + 1], W5[f : f + 1], idx5[f : f + 1], ypm5[f : f + 1],
+                                                u5[f : f + 1], 0.0, "rbf", "scale", search_cv._DEFAULT_ITERS)
+                          for f in range(n_folds5)])
+
+    by_fold_gap = float((cv_by_fold() - cv_cell()).abs().max() / cv_cell().abs().max())
+    (ms_cv_cell, ms_cv_by_fold), cv_turns = in_turns(cv_cell, cv_by_fold, timer=lambda fn: host_ms(fn, reps=1))
+    ms_pca_cv = {k: host_ms(lambda k=k: classical_core.pca_cv(eng_card._X_dev, W5, k), reps=3)
+                 for k in t5e["n_components"]}
+
+    def group_epoch(members):
+        def run():
+            g = tune_batched.TrialGroup(arch5e, [states5e[i] for i in members], [lrs5e[i] for i in members],
+                                        [0.3] * len(members), dev)
+            return g.epoch(Xg_d, yg_d, idx5e)
+        return run
+
+    (ms_group, ms_group_seq), group_turns = in_turns(
+        group_epoch(range(BATCHED_K)), lambda: [group_epoch([i])() for i in range(BATCHED_K)],
+        timer=lambda fn: host_ms(fn, reps=1))
+    print(f"[6] svm CV cell {cell5e} at 5e's size ({t5e["rows"]} rows, {n_folds5} folds x {idx5.shape[1]} pairs, M "
+          f"{idx5.shape[2]}, {search_cv._DEFAULT_ITERS} iterations, captured): fold-batched {ms_cv_cell:.1f} ms "
+          f"({ms_turns(cv_turns[0])}), fold by fold {ms_cv_by_fold:.1f} ms ({ms_turns(cv_turns[1])}), "
+          f"{ms_cv_by_fold / ms_cv_cell:.2f}x; the two agree to {by_fold_gap:.3e} of the largest decision; pca_cv "
+          + ", ".join(f"{k} components {v:.1f} ms" for k, v in ms_pca_cv.items())
+          + f"; the whole pca_svm grid in the CLI {1e3 * t5e["grid_s"]:.1f} ms (8 cells and the refit) on {card}")
+    print(f"[6] cnn trial group at 5e's size ({len(Xg_d)} rows, batch 32, {len(idx5e)} steps, dropout 0.3): "
+          f"{BATCHED_K} trials batched {ms_group:.1f} ms an epoch ({ms_turns(group_turns[0])}), {ms_group / BATCHED_K:.1f} "
+          f"ms a trial; one at a time {ms_group_seq:.1f} ms ({ms_turns(group_turns[1])}), {ms_group_seq / BATCHED_K:.1f} "
+          f"ms a trial; batched {ms_group_seq / ms_group:.2f}x on {card}")
+    check(by_fold_gap <= CV_TOL, f"the svm CV cell fold by fold disagrees with the fold-batched one: {by_fold_gap:.3e}")
+    check(all(np.isfinite([ms_cv_cell, ms_cv_by_fold, ms_group, ms_group_seq, *ms_pca_cv.values()])), "tuning timing")
+
+
+def ms_turns(ts: list[float]) -> str:
+    return f"turns {', '.join(f'{t:.3f}' for t in ts)}"
 
 
 def host_ms(fn, reps: int = 3) -> float:
@@ -1029,6 +1354,8 @@ def main() -> int:
         check(g <= tol, f"5d: {label} on the card disagrees with the CPU: {g:.3e}")
     check(bool((on_card["pred"] == on_cpu["pred"]).all()), "5d: svm predictions on the card disagree with the CPU")
 
+    t5e = phase_5e(dev)
+
     # 6. timing at B=512 five-second clips
     batch = 512
     waves = torch.from_numpy(np.tile(synth_clips(rng, 8), (batch // 8, 1))).to(dev)
@@ -1071,9 +1398,6 @@ def main() -> int:
 
     def share(ms: float, bound: float) -> str:
         return f"{100 * bound / ms:.2f} % of the bound"
-
-    def ms_turns(ts: list[float]) -> str:
-        return f"turns {', '.join(f'{t:.3f}' for t in ts)}"
 
     print(f"[6] bound at B={batch} x 5 s, hop {HOP}, {N_MELS} mels: n_fft {N_FFT} {bound_ms:.4f} ms ({bound_by}; "
           f"least operations at the float32 peak: FFT {fft_ms:.4f} ms with {mel_nonzeros} mel nonzeros, dense "
@@ -1247,6 +1571,8 @@ def main() -> int:
     print(f"[6] classical at fsc22 scale on {card}: " + "; ".join(f"{k} {v:.2f} ms" for k, v in classical_ms.items()))
     check(all(np.isfinite([ms_svm_eager, ms_svm_captured, *classical_ms.values()])), "classical timing")
 
+    tuning_times(t5e, card, in_turns)
+
     check(all(np.isfinite([ms_kernel, ms_dense, ms_plain, ms_unf, ms_unf_dense, ms_unf_plain, ms_400, ms_400_folded,
                             ms_400_unfolded, ms_e2e, ms_epilogue, ms_cnn, *step_ms.values(), ms_mfcc_kernel, ms_mfcc_f64,
                             ms_mfcc_plain, ms_mfcc_seq, ms_classical, ms_mfcc_block, ms_mag_stft, ms_groups,
@@ -1259,7 +1585,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "mel_folded", "route": "cuda", "source": "audio_edge_ml_pipeline_torch/csrc/mel_rfft.cu",
         "replaces": "audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:119",
-        "launches": extract_launches + shipped_f32 + serve_launches + trained_launches, "max_abs_err": worst_abs,
+        "launches": extract_launches + shipped_f32 + serve_launches + trained_launches + t5e["mel_launches"],
+        "max_abs_err": worst_abs,
         "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "plain_products": "float64", "dense_ms": ms_dense,
         "dense_source": "audio_edge_ml_pipeline_torch/csrc/mel_folded.cu",

@@ -255,3 +255,97 @@ def test_classical_bundle_fitted_on_the_card_serves_on_the_cpu(cuda_device, tmp_
     trainer.fit(X, y, X[::4], y[::4], list("abcdef"), name, tmp_path, None)
     on_cpu = get_model(name).load(tmp_path / f"{name}.npz", device="cpu")
     np.testing.assert_array_equal(on_cpu.predict(X), trainer.predict(X))
+
+
+def _cv_problem(cuda_device, X, y, n_folds=4):
+    """The fold-batched svm CV inputs of a C = 1 cell, on the CPU and on the card."""
+    from audio_edge_ml_pipeline_torch.train import search_cv as sc
+
+    fold_of = sc.stratified_fold_ids(y, n_folds, seed=0)
+    _, idx, ypm, cw = sc._fold_ovo_arrays(y, fold_of, int(y.max()) + 1)
+    W = np.stack([fold_of != f for f in range(n_folds)]).astype(np.float32)
+    cpu = [torch.from_numpy(a) for a in (X, W, idx.astype(np.int64), ypm, cw)]
+    return cpu, [a.to(cuda_device) for a in cpu]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,iters", [("rbf", 400), ("linear", 2000)])
+def test_fold_batched_svm_cv_on_the_card(cuda_device, kernel, iters):
+    """svm_cv (F folds x P pairs as one batch of QPs) on the card: captured
+    equals eager bit for bit, and the decision values of all rows and folds
+    are within 1e-4 of their largest of the CPU's, with both TF32 flags on.
+    The linear kernel runs 2000 steps: after 400 its dual is far from
+    converged, and a 1e-7 relative change of the input moves the CPU's own
+    decisions by up to 4.1e-5 of their largest on these rows (1.4e-4 on
+    tests/test_search_jax.py's; 2.8e-6 after 2000; the rbf kernel's 2.3e-6
+    after 400: scripts/torch_tune_sensitivity.py)."""
+    from audio_edge_ml_pipeline_torch.models import classical_core as cc
+
+    X, y = _blobs()
+    cpu, card = _cv_problem(cuda_device, X, y)
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        eager = cc.svm_cv(*card, 0.0, kernel, "scale", iters, capture=False).cpu()
+        captured = cc.svm_cv(*card, 0.0, kernel, "scale", iters).cpu()   # captured by default on a card
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    assert torch.equal(eager, captured)
+    on_cpu = cc.svm_cv(*cpu, 0.0, kernel, "scale", iters)
+    assert captured.shape == on_cpu.shape == (4, len(X), 15)
+    assert float((captured - on_cpu).abs().max()) <= 1e-4 * float(on_cpu.abs().max())
+
+
+@pytest.mark.cuda
+def test_pca_lda_knn_cv_on_the_card(cuda_device):
+    from audio_edge_ml_pipeline_torch.models import classical_core as cc
+
+    X, y = _blobs(27, 30, 64, seed=11)
+    cpu, card = _cv_problem(cuda_device, X, y, n_folds=5)
+    onehot = torch.eye(27)[torch.from_numpy(y).long()]
+    out = {}
+    for name, (Xd, W) in (("cpu", cpu[:2]), ("card", card[:2])):
+        Z = cc.pca_cv(Xd, W, 12)
+        oh = onehot.to(Z.device)
+        out[name] = [t.cpu() for t in (cc.lda_cv(Z, oh, W), cc.knn_cv(Z, W, oh, 5, "minkowski"), Z)]
+    (lda_cpu, knn_cpu, Z_cpu), (lda_card, knn_card, Z_card) = out["cpu"], out["card"]
+    assert float((lda_card - lda_cpu).abs().max()) <= 1e-4 * float(lda_cpu.abs().max())
+    sign = torch.sign((Z_card * Z_cpu).sum(1, keepdim=True))
+    assert float((Z_card * sign - Z_cpu).abs().max()) <= 1e-4 * float(Z_cpu.abs().max())
+    assert torch.equal(knn_card, knn_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cnn", "mlp", "rnn"])
+def test_batched_trial_group_on_the_card_matches_the_cpu(cuda_device, name):
+    """One epoch of a group of 3 trials (three learning rates, dropout 0,
+    the same seeded init and batches) on the card and on the CPU, in
+    float64: epoch losses within 1e-5 and parameters within 1e-4 of each
+    tensor's largest, relative. (In float32 Adam lifts roundoff on
+    near-zero gradients to whole steps: an epoch then differs from itself
+    by more than that under a 1e-7 change of its input.)"""
+    from audio_edge_ml_pipeline_torch.train import tune_batched as tb
+
+    archs = {"cnn": {"type": "cnn", "filters": [16, 64, 64], "dropout": 0.0, "n_classes": 27, "first_stride": 4,
+                     "second_stride": 2, "input_shape": [40, 501, 1]},
+             "mlp": {"type": "mlp", "hidden_units": [256, 128], "dropout": 0.0, "n_classes": 27, "input_shape": [302]},
+             "rnn": {"type": "rnn", "units": 32, "n_layers": 1, "dropout": 0.0, "n_classes": 27,
+                     "input_shape": [40, 216]}}
+    arch = archs[name]
+    rng = np.random.default_rng(0)
+    X = rng.standard_normal((128, *arch["input_shape"]))
+    y = rng.integers(0, 27, 128)
+    idx_mat = rng.permutation(128).reshape(4, 32)
+    states = tb.init_states(arch, 3, seed=0)
+    lrs = [1e-3, 3e-3, 1e-2]
+    groups, losses = {}, {}
+    for dev in ("cpu", cuda_device):
+        g = tb.TrialGroup(arch, states, lrs, [0.0] * 3, dev, torch.float64)
+        losses[str(dev)] = g.epoch(torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev), idx_mat).cpu()
+        groups[str(dev)] = g
+    card, cpu = groups[str(cuda_device)], groups["cpu"]
+    assert float(((losses[str(cuda_device)] - losses["cpu"]).abs() / losses["cpu"].abs()).max()) <= 1e-5
+    for key, p in cpu.params.items():
+        ref = p.detach()
+        scale = max(float(ref.abs().max()), 1e-30)
+        assert float((card.params[key].detach().cpu() - ref).abs().max()) <= 1e-4 * scale, key
