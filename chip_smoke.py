@@ -85,6 +85,26 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      within 1e-4 of their largest; one cnn trial group's first epoch (4
      trials, dropout 0, float64) card vs CPU, losses 1e-5 and parameters
      1e-4 relative;
+  5f. the post-training stages on 5c's five trained runs, through the
+     port's CLIs on the card: the select CLI (pre-opt) on 5c's experiment
+     writes the five-candidate shortlist; the optimize CLI over it (the
+     cnn evaluated on its run's mel validation set, the others on their
+     calibration FeatureSet, as the shortlist's features_eval_dir says)
+     writes five reports with the JAX package's schema keys, every deep
+     one with all five modes and every classical one with dynamic_int8 and
+     float16, each accuracy drop within 0.05; each deep int8 artifact's
+     tensors and scales equal a plain numpy per-tensor rounding of the fp32
+     bundle and each bfloat16 artifact's bits a plain round-to-nearest-even,
+     bit for bit; each report's fp32 accuracy equals the card's predict on
+     the same rows; select --post-opt writes best_model.json and
+     --max-size-kb 0.001 writes none; the deploy CLI generates the cnn's
+     project from its report (the chosen mode) and from its fp32,
+     dynamic_int8 and static_int8 artifacts, each compiled with gcc -O2
+     -std=c99: the host harness's scores on 2 validation features within
+     1e-4 of the evaluated view's predict_proba on the card (same argmax),
+     and its C mel on a tree clip within 5e-5 of the card's
+     mel_spec_feature (one mel_rfft<256, float> launch a project) and of
+     the float64 oracle;
   6. timing with CUDA events at B=512 five-second clips (at n_fft 512 each
      entry's FFT route beside its dense kernel, in turns, and the plain
      versions; at n_fft 400 the FFT kernel beside both dense kernels, in
@@ -103,7 +123,10 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      rows, a kNN predict, an LDA fit, a pca_svm fit and a k-means fit; at
      5e's sizes one svm CV cell fold-batched and fold by fold, each pca_cv,
      the grid's total in the CLI, and a group of 4 cnn trials for one epoch
-     against the 4 trials one at a time;
+     against the 4 trials one at a time; from 5f, each optimize mode's
+     latency_ms on the card (the CLI's timed call and a second full call),
+     the optimize CLI's wall time a candidate, and codegen and gcc a
+     project;
   7. one JSON line per kernel, then the result line.
 
 Matmuls and cuDNN convolutions run in full float32 throughout (TF32 off),
@@ -166,6 +189,8 @@ TUNE_TRIALS, TUNE_EPOCHS = 6, 3    # configs/tuning.yaml's cnn study cut from 30
 BATCHED_TRIALS, BATCHED_K = 8, 4   # the batched study: 8 trials in rounds of tune_parallel 4
 CV_TOL = 1e-4                      # a pca_svm cell's fold-batched decision values card vs CPU, over their largest
 GROUP_LOSS_TOL, GROUP_PARAM_TOL = 1e-5, 1e-4   # a cnn trial group's first epoch card vs CPU, relative
+C_SCORE_TOL = 1e-4                 # generated C scores vs predict_proba (tests/test_codegen_ext.py)
+C_MEL_TOL = 5e-5                   # the generated C mel frontend, float32, vs the float64 oracle (tests/test_codegen.py)
 
 
 def fail(msg: str) -> None:
@@ -687,6 +712,261 @@ def tuning_times(t5e: dict, card: str, in_turns) -> None:
           f"ms a trial; batched {ms_group_seq / ms_group:.2f}x on {card}")
     check(by_fold_gap <= CV_TOL, f"the svm CV cell fold by fold disagrees with the fold-batched one: {by_fold_gap:.3e}")
     check(all(np.isfinite([ms_cv_cell, ms_cv_by_fold, ms_group, ms_group_seq, *ms_pca_cv.values()])), "tuning timing")
+
+
+REPORT_KEYS = ("run_id", "run_name", "model_name", "original_model_path", "optimized_model_path", "original_size_kb",
+               "optimized_size_kb", "compression_ratio", "quantization_method", "target_device",
+               "val_accuracy_original", "val_accuracy_optimized", "accuracy_drop", "latency_ms", "timestamp",
+               "benchmark_results")   # the JAX package's schema (tests/test_optimize.py)
+
+
+def int8_plain(arr: np.ndarray) -> tuple[np.ndarray, np.float32]:
+    """Per-tensor symmetric int8 rounding in float64: (int8 tensor, float32 scale)."""
+    a = np.asarray(arr, np.float64)
+    scale = np.abs(a).max() / 127.0 if a.size else 0.0
+    if scale == 0.0:
+        return np.zeros(a.shape, np.int8), np.float32(0.0)
+    return np.clip(np.rint(a / scale), -127, 127).astype(np.int8), np.float32(scale)
+
+
+def bf16_plain(arr: np.ndarray) -> np.ndarray:
+    """bfloat16 bits (uint16) of finite float32 values, rounded to nearest,
+    ties to even, on the integer bits."""
+    u = np.asarray(arr, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def captured_stdout(fn, *args) -> str:
+    """Run ``fn(*args)``, print what it printed, and return it."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(*args)
+    print(buf.getvalue(), end="")
+    return buf.getvalue()
+
+
+def phase_5f(dev, runs: Path, experiment: str, clip: np.ndarray) -> dict:
+    """5f: the post-training stages on 5c's trained runs (``runs``: the train
+    CLI's output root, its tracking store under mlruns/) through the port's
+    CLIs: pre-opt select, optimize on the card, the artifacts against plain
+    numpy, post-opt select, deploy of the cnn (its report's mode, fp32,
+    dynamic_int8, static_int8) with each host harness compiled by gcc and
+    held against the card: scores on validation features, the C mel on
+    ``clip`` against the card's mel feature. Returns what phase 6 prints."""
+    import shutil
+
+    import torch
+
+    from audio_edge_ml_pipeline_torch.deploy import deploy
+    from audio_edge_ml_pipeline_torch.features.pipeline import FeaturePipeline
+    from audio_edge_ml_pipeline_torch.models.deep import load_model_bundle
+    from audio_edge_ml_pipeline_torch.ops import golden, mel_kernel
+    from audio_edge_ml_pipeline_torch.optimize import optimize
+    from audio_edge_ml_pipeline_torch.optimize import quantize as qz
+    from audio_edge_ml_pipeline_torch.train import select
+    from audio_edge_ml_pipeline_torch.utils import profiling, tracking
+
+    t_start = time.perf_counter()
+    gcc = shutil.which("gcc")
+    check(gcc is not None, "5f: gcc is not on PATH; the generated C cannot be compiled")
+    gcc_version = subprocess.run([gcc, "--version"], capture_output=True, text=True, timeout=60).stdout.splitlines()[0]
+    print(f"[5f] host compiler: {gcc_version}")
+    out = runs / "post"
+    shortlist_path, opt_dir = out / "shortlist.json", out / "optimized"
+    t5f: dict = {"gcc": gcc_version}
+    try:
+        # 1. pre-opt select on 5c's experiment
+        printed = captured_stdout(select.main, ["--experiment", experiment, "--mlflow-uri", str(runs / "mlruns"),
+                                                "--output", str(shortlist_path)])
+        shortlist = json.loads(shortlist_path.read_text())
+        cands = shortlist["candidates"]
+        check(shortlist["n_candidates"] == 5 and sorted(c["model"] for c in cands) == ["cnn", "knn", "mlp", "rnn", "svm"]
+              and "Shortlist #1" in printed, f"5f: the pre-opt shortlist {[c['model'] for c in cands]}")
+        print(f"[5f] select (pre-opt) on {experiment}: {[(c['rank'], c['run_name'], c['model']) for c in cands]}; "
+              f"features_eval_dir {[c['features_eval_dir'] and Path(c['features_eval_dir']).name for c in cands]}")
+        # The runs of configs/training.yaml after the cnn set `features_test_dir: null`, which inherits the
+        # top-level mel validation set: both packages' train CLIs log it as their features_eval_dir, its rows
+        # fit none of those models, and both optimize CLIs then fail those candidates (ROADMAP §3 f). As a user
+        # would, clear it where the shapes differ: the CLI then evaluates on the calibration FeatureSet.
+        def shape(fs_dir):
+            return json.loads((Path(fs_dir) / "info.json").read_text())["feature_shape"]
+
+        cleared = [c["run_name"] for c in cands
+                   if c["features_eval_dir"] and shape(c["features_eval_dir"]) != shape(c["features_dir"])]
+        for c in cands:
+            if c["run_name"] in cleared:
+                c["features_eval_dir"] = None
+        shortlist_path.write_text(json.dumps(shortlist, indent=2))
+        print(f"[5f] features_eval_dir cleared where its rows do not fit the model: {cleared}")
+        check(sorted(c["model"] for c in cands if c["run_name"] in cleared) == ["knn", "mlp", "rnn", "svm"],
+              f"5f: the inherited mel validation set should misfit the mlp, rnn, svm and knn, not {cleared}")
+
+        # 2. optimize on the card, each candidate timed by its stage timer
+        profiling.reset()
+        t0 = time.perf_counter()
+        optimize.main(["--shortlist", str(shortlist_path), "--output", str(opt_dir), "--max-accuracy-drop", "0.05",
+                       "--mlflow-uri", str(out / "mlruns"), "--experiment", "chip-smoke-optimization"])
+        torch.cuda.synchronize()
+        t5f["optimize_s"] = time.perf_counter() - t0
+        t5f["optimize_by_candidate_s"] = {k.split(":", 1)[1]: v["total_s"] for k, v in profiling.timing_report().items()}
+        reports = {c["run_name"]: json.loads((opt_dir / c["run_name"] / "optimization_report.json").read_text())
+                   for c in cands}
+        for c in cands:
+            rep = reports[c["run_name"]]
+            deep = c["model"] in ("cnn", "mlp", "rnn")
+            modes = sorted(("fp32", *(qz.DEEP_MODES if deep else qz.CLASSICAL_MODES)))
+            print(f"[5f] optimize {c['run_name']} ({c['model']}) on the card: best {rep['quantization_method']}, "
+                  f"{rep['optimized_size_kb']:.2f} KB of {rep['original_size_kb']:.2f}, accuracy "
+                  f"{rep['val_accuracy_original']:.4f} -> {rep['val_accuracy_optimized']:.4f} (drop "
+                  f"{rep['accuracy_drop']:g}); modes " + ", ".join(
+                      f"{m} {b['size_kb']:.2f} KB acc {b['accuracy']:.4f}" for m, b in rep["benchmark_results"].items()))
+            check(all(k in rep for k in REPORT_KEYS), f"5f: {c['run_name']}'s report misses {set(REPORT_KEYS) - set(rep)}")
+            check(sorted(rep["benchmark_results"]) == modes, f"5f: {c['run_name']}'s modes {sorted(rep['benchmark_results'])}")
+            check(rep["accuracy_drop"] <= 0.05 + 1e-9, f"5f: {c['run_name']}'s accuracy drop {rep['accuracy_drop']}")
+
+        # 3. the artifacts against their plain versions, and the fp32 accuracy against the card's predict
+        latencies = {}
+        for c in cands:
+            rep, mdir = reports[c["run_name"]], opt_dir / c["run_name"]
+            fs = FeaturePipeline.load(c["features_dir"])
+            X_cal, y_cal, names = fs.features, fs.labels, fs.label_names
+            X_ev, y_ev = (optimize._load_eval_set(c["features_eval_dir"], names, None, c["run_name"])
+                          if c["features_eval_dir"] else (X_cal, y_cal))
+            bundle = Path(rep["original_model_path"])
+            trainer = qz.load_trainer_any(bundle, c["model"], device=dev)
+            check(getattr(trainer, "device", None) is not None and trainer.device.type == "cuda",
+                  f"5f: {c['run_name']} did not load onto the card")
+            acc = float((trainer.predict(X_ev) == y_ev).mean())
+            check(acc == rep["val_accuracy_original"],
+                  f"5f: {c['run_name']}'s fp32 accuracy {rep['val_accuracy_original']} is not the card's {acc}")
+            checked = []
+            if c["model"] in ("cnn", "mlp", "rnn"):
+                _, flat, _, _ = load_model_bundle(bundle)
+                for mode in ("dynamic_int8", "static_int8"):
+                    art = np.load(mdir / f"model_{mode}.npz")
+                    for k, arr in flat.items():
+                        q, s = int8_plain(arr)
+                        check(art[k].dtype == np.int8 and np.array_equal(art[k], q) and art[k + ".scale"] == s,
+                              f"5f: {c['run_name']} {mode} {k} is not the plain int8 rounding")
+                    checked.append(f"{mode} {len(flat)} tensors")
+                art = np.load(mdir / "model_bfloat16.npz")
+                for k, arr in flat.items():
+                    check(art[k].dtype == np.uint16 and np.array_equal(art[k], bf16_plain(arr)),
+                          f"5f: {c['run_name']} bfloat16 {k} is not the plain round-to-nearest-even")
+                checked.append(f"bfloat16 {len(flat)} tensors")
+            # each mode's view on the card: the CLI's evaluation (first timed call), then a second full call
+            (out / "views" / c["run_name"]).mkdir(parents=True, exist_ok=True)
+            for mode, bench in rep["benchmark_results"].items():
+                view, _, _ = qz.build_mode(trainer, bundle, mode, out / "views" / c["run_name"], X_cal)
+                m = qz.evaluate_model(view, X_ev, y_ev, names)
+                t0 = time.perf_counter()
+                view.predict(X_ev)
+                second = (time.perf_counter() - t0) * 1000.0 / len(X_ev)
+                latencies[c["run_name"], mode] = (m["latency_ms"], second, bench["latency_ms"], len(X_ev),
+                                                  m["accuracy"] == bench["accuracy"])
+            print(f"[5f] {c['run_name']}: fp32 accuracy {acc:.4f} from the card's predict on {len(X_ev)} rows equals "
+                  f"the report's; artifacts equal their plain numpy versions bit for bit: "
+                  f"{', '.join(checked) or 'no int8 or bfloat16 artifact (classical)'}")
+        t5f["latency"] = latencies
+
+        # 4. post-opt select
+        printed = captured_stdout(select.main, ["--post-opt", "--shortlist", str(shortlist_path),
+                                                "--opt-dir", str(opt_dir)])
+        best = json.loads((opt_dir / "best_model.json").read_text())
+        check("Best post-optimisation model" in printed and best["model"] in ("cnn", "mlp", "rnn", "svm", "knn"),
+              f"5f: post-opt select {best}")
+        printed = captured_stdout(select.main, ["--post-opt", "--shortlist", str(shortlist_path), "--opt-dir",
+                                                str(opt_dir), "--max-size-kb", "0.001", "--output",
+                                                str(out / "gated.json")])
+        check("No model qualified" in printed and not (out / "gated.json").exists(), "5f: the --max-size-kb gate")
+        print(f"[5f] select --post-opt: best {best['run_name']} ({best['model']}, {best['quantization_method']}, "
+              f"{best['optimized_size_kb']:.2f} KB, accuracy {best['val_accuracy_optimized']:.4f}); "
+              "--max-size-kb 0.001 qualifies none and writes no file")
+    finally:
+        tracking.set_tracking_uri(None)
+
+    # 5. deploy the cnn: its report's mode, and fp32 / dynamic_int8 / static_int8, each compiled and run on the host
+    (cnn,) = (c for c in cands if c["model"] == "cnn")
+    cnn_dir, cnn_report = opt_dir / cnn["run_name"], opt_dir / cnn["run_name"] / "optimization_report.json"
+    chosen = reports[cnn["run_name"]]["quantization_method"]
+    val = FeaturePipeline.load(cnn["features_eval_dir"])
+    train_fs = FeaturePipeline.load(cnn["features_dir"])
+    cnn_bundle = Path(reports[cnn["run_name"]]["original_model_path"])
+    cnn_trainer = qz.load_trainer_any(cnn_bundle, "cnn", device=dev)
+    (out / "clip.f32").write_bytes(np.asarray(clip, np.float32).tobytes())
+    gold = golden.mel_spec_feature(clip)
+    deployed = {}
+    mel_kernel.counter.reset()
+    for label, mode, args in (("--report", chosen, ["--report", str(cnn_report)]),
+                              *((mode, mode, ["--model", str(cnn_dir / f"model_{mode}.npz")])
+                                for mode in ("fp32", "dynamic_int8", "static_int8"))):
+        proj = out / "deploy" / label.strip("-")
+        t0 = time.perf_counter()
+        captured_stdout(deploy.main, [*args, "--features-dir", cnn["features_dir"], "--output", str(proj)])
+        gen_s = time.perf_counter() - t0
+        cg = json.loads((proj / "codegen_report.json").read_text())
+        check(cg["quantization"] == mode and Path(cg["bundle"]).name == f"model_{mode}.npz",
+              f"5f: deploy {label} shipped {cg['bundle']} ({cg['quantization']}), not model_{mode}.npz")
+        exe = proj / "host_runner"
+        t0 = time.perf_counter()
+        cc_run = subprocess.run([gcc, "-O2", "-std=c99", f"-I{proj / 'src'}", "-o", str(exe), str(proj / "host_main.c"),
+                                 *map(str, sorted((proj / "src").glob("*.c"))), "-lm"],
+                                capture_output=True, text=True, timeout=600)
+        cc_s = time.perf_counter() - t0
+        check(cc_run.returncode == 0, f"5f: gcc failed on the {label} project: {cc_run.stderr[-2000:]}")
+        view_dir = out / "views" / f"deploy_{label.strip('-')}"
+        view_dir.mkdir(parents=True, exist_ok=True)
+        view, _, _ = qz.build_mode(cnn_trainer, cnn_bundle, mode, view_dir, train_fs.features)
+        score_err, same_argmax = 0.0, True
+        for j in (0, len(val.features) // 2):
+            (proj / "feat.f32").write_bytes(val.features[j].astype(np.float32).tobytes())
+            run = subprocess.run([str(exe), "--predict-feat", str(proj / "feat.f32")], capture_output=True, text=True,
+                                 timeout=120)
+            check(run.returncode == 0, f"5f: the {label} harness failed: {run.stderr[-2000:]}")
+            c_scores = np.array([float(v) for v in run.stdout.split()])
+            card_scores = view.predict_proba(val.features[j : j + 1])[0]
+            check(c_scores.shape == card_scores.shape, f"5f: {label} C scores shape {c_scores.shape}")
+            score_err = max(score_err, float(np.abs(c_scores - card_scores).max()))
+            same_argmax &= int(c_scores.argmax()) == int(card_scores.argmax())
+        run = subprocess.run([str(exe), "--features", str(out / "clip.f32")], capture_output=True, text=True, timeout=120)
+        check(run.returncode == 0, f"5f: the {label} harness failed on --features: {run.stderr[-2000:]}")
+        c_mel = np.array([float(v) for v in run.stdout.split()]).reshape(gold.shape)
+        card_mel = mel_kernel.mel_spec_feature(torch.from_numpy(clip[None]).to(dev))[0].cpu().numpy()
+        mel_err, mel_gold = float(np.abs(c_mel - card_mel).max()), float(np.abs(c_mel - gold).max())
+        deployed[label] = (mode, gen_s, cc_s)
+        print(f"[5f] deploy {label} ({mode}, arena peak {cg['arena_peak_kb']:.1f} KB): C scores on 2 validation "
+              f"features vs the view's predict_proba on the card max|d| {score_err:.3e} (tol {C_SCORE_TOL:g}), "
+              f"argmax equal {same_argmax}; C mel on a tree clip vs the card's mel_spec_feature max|d| {mel_err:.3e}, "
+              f"vs float64 golden {mel_gold:.3e} (tol {C_MEL_TOL:g})")
+        check(score_err <= C_SCORE_TOL and same_argmax, f"5f: the {label} C forward disagrees with the card")
+        check(mel_err <= C_MEL_TOL and mel_gold <= C_MEL_TOL, f"5f: the {label} C mel disagrees with the card")
+    torch.cuda.synchronize()
+    t5f["mel_launches"] = mel_kernel.counter.launches
+    launched = dict(mel_kernel.counter.by_instantiation)
+    check(launched == {"mel_rfft<256, float>": len(deployed)},
+          f"5f: the card's mel feature launched {launched}, not mel_rfft<256, float> once a project")
+    t5f["deployed"] = deployed
+    print(f"[5f] phase 5f in {time.perf_counter() - t_start:.2f} s")
+    return t5f
+
+
+def deploy_times(t5f: dict, card: str) -> None:
+    """Phase 6's post-training times from 5f: each mode's latency_ms (the
+    CLI's timed call and a second full call), the optimize CLI's wall time
+    a candidate, codegen and gcc a project; with the card's name and power
+    limit."""
+    for (run, mode), (first, second, in_report, rows, same_acc) in t5f["latency"].items():
+        print(f"[6] latency_ms of {run} {mode} on {rows} rows: first full call {first:.4f} ms a row (the report's "
+              f"run {in_report:.4f}), second {second:.4f}; accuracy as in the report {same_acc} on {card}")
+    print(f"[6] optimize CLI over 5 candidates: {1e3 * t5f['optimize_s']:.1f} ms; a candidate "
+          + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in t5f["optimize_by_candidate_s"].items()) + f" on {card}")
+    print("[6] deploy (codegen) and gcc -O2 a cnn project: " + "; ".join(
+        f"{label} ({mode}) {1e3 * g:.1f} ms + gcc {1e3 * c:.1f} ms" for label, (mode, g, c) in t5f["deployed"].items())
+          + f" ({t5f['gcc']}) on the host of {card}")
+    check(all(np.isfinite([v for lat in t5f["latency"].values() for v in lat[:3]])), "5f timing")
 
 
 def ms_turns(ts: list[float]) -> str:
@@ -1305,6 +1585,9 @@ def main() -> int:
             check(loss_rel <= STEP_LOSS_TOL, f"the {model} train-step loss on the card disagrees with the CPU")
             check(grad_rel <= GRAD_TOL, f"the {model} train-step gradients on the card disagree with the CPU")
 
+        # 5f. the post-training stages on 5c's runs: select, optimize, select --post-opt, deploy
+        t5f = phase_5f(dev, tmp / "runs", experiment, tree[0])
+
     # 5d. the classical core on the card against the CPU at fsc22 scale, with TF32 allowed everywhere
     X_fit, y_fit, X_q, y_q = fsc22_classical(np.random.default_rng(22))
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -1572,6 +1855,7 @@ def main() -> int:
     check(all(np.isfinite([ms_svm_eager, ms_svm_captured, *classical_ms.values()])), "classical timing")
 
     tuning_times(t5e, card, in_turns)
+    deploy_times(t5f, card)
 
     check(all(np.isfinite([ms_kernel, ms_dense, ms_plain, ms_unf, ms_unf_dense, ms_unf_plain, ms_400, ms_400_folded,
                             ms_400_unfolded, ms_e2e, ms_epilogue, ms_cnn, *step_ms.values(), ms_mfcc_kernel, ms_mfcc_f64,
@@ -1585,7 +1869,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "mel_folded", "route": "cuda", "source": "audio_edge_ml_pipeline_torch/csrc/mel_rfft.cu",
         "replaces": "audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:119",
-        "launches": extract_launches + shipped_f32 + serve_launches + trained_launches + t5e["mel_launches"],
+        "launches": (extract_launches + shipped_f32 + serve_launches + trained_launches + t5e["mel_launches"]
+                     + t5f["mel_launches"]),
         "max_abs_err": worst_abs,
         "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "plain_products": "float64", "dense_ms": ms_dense,

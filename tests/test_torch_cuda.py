@@ -349,3 +349,41 @@ def test_batched_trial_group_on_the_card_matches_the_cpu(cuda_device, name):
         ref = p.detach()
         scale = max(float(ref.abs().max()), 1e-30)
         assert float((card.params[key].detach().cpu() - ref).abs().max()) <= 1e-4 * scale, key
+
+
+@pytest.mark.cuda
+def test_optimize_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """Every mode of a small cnn bundle built with its view on the card and
+    on the CPU: the same artifacts (the arithmetic is numpy on the host) and
+    view probabilities within 1e-4 (float32 convolutions in other orders)."""
+    from audio_edge_ml_pipeline_torch.models.deep import CNNTrainer
+    from audio_edge_ml_pipeline_torch.optimize import quantize as tq
+
+    seeded = CNNTrainer(filters=[8, 16], first_stride=2, device="cpu")
+    seeded.initialize((16, 51, 1), 3, torch.Generator().manual_seed(0))
+    bundle = tmp_path / "model.flax.npz"
+    seeded.save(bundle)
+    X = np.random.default_rng(0).random((24, 16, 51), dtype=np.float32)
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for mode in ("fp32", *tq.DEEP_MODES):
+            built = {}
+            for dev in ("cpu", cuda_device):
+                out_dir = tmp_path / dev.type if isinstance(dev, torch.device) else tmp_path / dev
+                out_dir.mkdir(exist_ok=True)
+                trainer = tq.load_trainer_any(bundle, "cnn", device=dev)
+                view, art, size_kb = tq.build_mode(trainer, bundle, mode, out_dir, X)
+                built[str(dev)] = (view.predict_proba(X), art, size_kb, view)
+            (p_cpu, a_cpu, s_cpu, _), (p_card, a_card, s_card, v_card) = built["cpu"], built[str(cuda_device)]
+            inner = getattr(v_card, "_inner", v_card)
+            assert inner.device.type == "cuda", mode
+            assert s_cpu == s_card
+            d_cpu, d_card = np.load(a_cpu), np.load(a_card)
+            assert sorted(d_cpu.files) == sorted(d_card.files)
+            for k in d_cpu.files:
+                assert d_cpu[k].dtype == d_card[k].dtype
+                np.testing.assert_array_equal(d_cpu[k], d_card[k], err_msg=f"{mode} {k}")
+            assert float(np.abs(p_card - p_cpu).max()) <= 1e-4, mode
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags

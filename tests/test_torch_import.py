@@ -49,6 +49,28 @@ def test_importing_every_port_module_leaves_jax_out():
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
 
 
+def test_post_training_clis_load_no_jax_ml_dtypes_sklearn_or_joblib():
+    """The H100 machine has none of them: optimize, select and deploy import
+    them at no point of their import."""
+    mods = ["audio_edge_ml_pipeline_torch.optimize.optimize", "audio_edge_ml_pipeline_torch.train.select",
+            "audio_edge_ml_pipeline_torch.deploy.deploy", "audio_edge_ml_pipeline_torch.deploy.export_svm",
+            "audio_edge_ml_pipeline_torch.compilation.generate_c_header"]
+    absent = (*FORBIDDEN, "ml_dtypes", "sklearn", "joblib")
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {absent!r})\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO), env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+
+
 def _imported_roots(path: Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
@@ -76,6 +98,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda, tmp_path
     from audio_edge_ml_pipeline_torch.features import pipeline
     from audio_edge_ml_pipeline_torch.features.audio import AudioMelSpectrogram
     from audio_edge_ml_pipeline_torch.models import deep
+    from audio_edge_ml_pipeline_torch.optimize import optimize, quantize
     from audio_edge_ml_pipeline_torch.serve.edge_simulator import EdgeDeviceSimulator
     from audio_edge_ml_pipeline_torch.train import train
 
@@ -96,6 +119,9 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda, tmp_path
         lambda: EdgeDeviceSimulator(bundle, ["a", "b", "c"], tmp_path / "data"),
         lambda: pipeline._run_experiment(pipeline_exp(tmp_path)),
         lambda: train.main(["--features", str(tmp_path), "--model", "cnn"]),
+        lambda: quantize.load_trainer_any(bundle, "cnn"),
+        lambda: optimize.main(["--model-path", str(bundle), "--model-name", "cnn", "--no-tracking",
+                               "--output", str(tmp_path / "opt")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

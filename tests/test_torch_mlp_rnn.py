@@ -263,7 +263,7 @@ def test_port_trained_mlp_compiles_to_c_with_the_same_forward(tmp_path):
     C forward within 1e-4 of the port's probabilities."""
     import subprocess
 
-    from audio_edge_ml_pipeline_tpu.deploy.codegen import ModelToC
+    from audio_edge_ml_pipeline_torch.deploy.codegen import ModelToC
 
     X, y = _dataset(4, (4, 3), per_class=20)     # 4 mels x 3 frames, flattened to 12
     trainer = tdeep.MLPTrainer(hidden_units=[16, 8], epochs=5, batch_size=16, learning_rate=5e-3, device="cpu")

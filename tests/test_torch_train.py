@@ -335,13 +335,13 @@ def test_stage_timer_counts_and_refuses_the_unported_trace(monkeypatch, caplog):
     tprofiling.reset()
 
 
-# -- the port-trained bundle through the JAX C codegen ----------------------
+# -- the port-trained bundle through the port's C codegen -------------------
 
 
 def test_port_trained_bundle_compiles_to_c_with_the_same_forward(tmp_path):
     """tests/test_codegen.py's recipe on a bundle the port trained: C
     forward within that test's 1e-4 of the port's probabilities."""
-    from audio_edge_ml_pipeline_tpu.deploy.codegen import ModelToC
+    from audio_edge_ml_pipeline_torch.deploy.codegen import ModelToC
 
     r = np.random.default_rng(5)
     X = r.uniform(0, 0.3, size=(90, 16, 51)).astype(np.float32)
