@@ -1,7 +1,5 @@
-"""Trainer registry (contract of the JAX package's ``models/registry.py``).
-
-A trainer name the JAX package registers but the port does not yet have
-raises NotImplementedError."""
+"""Trainer registry (contract of the JAX package's ``models/registry.py``):
+the port registers every trainer name the JAX package does."""
 
 from __future__ import annotations
 
@@ -13,9 +11,6 @@ from .base import BaseTrainer
 logger = logging.getLogger(__name__)
 
 _REGISTRY: dict[str, Type[BaseTrainer]] = {}
-
-# trainers of the JAX package that are still to be ported: the other deep families
-NOT_YET_PORTED = frozenset({"ds_cnn", "transformer", "efficientnet_teacher", "distillation_cnn"})
 
 
 def register_model(cls: Type[BaseTrainer]) -> Type[BaseTrainer]:
@@ -34,11 +29,6 @@ def register_model(cls: Type[BaseTrainer]) -> Type[BaseTrainer]:
 
 def get_model(name: str) -> Type[BaseTrainer]:
     if name not in _REGISTRY:
-        if name in NOT_YET_PORTED:
-            raise NotImplementedError(
-                f"trainer {name!r} is not yet ported to audio_edge_ml_pipeline_torch "
-                f"(ported: {', '.join(sorted(_REGISTRY))}); use audio_edge_ml_pipeline_tpu for it."
-            )
         available = ", ".join(sorted(_REGISTRY))
         raise KeyError(f"No trainer registered under {name!r}. Available: {available or '(none)'}")
     return _REGISTRY[name]

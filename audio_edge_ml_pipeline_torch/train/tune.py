@@ -10,7 +10,7 @@ outputs plus ``--device``. Dispatch by registered model_type:
                per-epoch pruning callbacks, the search-space DSL (list ->
                categorical; dict {type: categorical/float/uniform/
                loguniform/int}), JSON-encoded list-valued categoricals; with
-               ``tune_parallel`` > 1 the cnn / mlp / rnn trials train in
+               ``tune_parallel`` > 1 the cnn / mlp / ds_cnn / rnn / transformer trials train in
                batched rounds (``tune_batched.py``) and the winner is refit
 
 plus: the canonical class-name-sorted label encoding of the class filter,

@@ -9,13 +9,17 @@ Counterpart of the JAX package's ``train/tune_batched.py``:
   batch_size / every knob that changes the module or the batches). Within a
   group, learning_rate and dropout are tensors with one value a trial: the
   k trials' parameters are stacked on a leading trial axis and trained as
-  one program (``TrialGroup``). The cnn and mlp run the k trials through
-  ``torch.func.vmap`` over ``functional_call``, with dropout at each
-  trial's rate (``models/deep.py::runtime_dropout``) and different masks a
-  trial; cuDNN's LSTM has no vmap batching rule, so the rnn runs its k
-  trials one after another inside each step. Either way one backward pass
-  and one Adam update (optax's ``scale_by_adam``, then ``-lr * update``,
-  written over the stacked tensors) serve the whole group;
+  one program (``TrialGroup``). The cnn, mlp, ds_cnn and transformer run
+  the k trials through ``torch.func.vmap`` over ``functional_call``, with
+  dropout at each trial's rate (``models/deep.py::runtime_dropout``) and
+  different masks a trial; cuDNN's LSTM has no vmap batching rule, so the
+  rnn runs its k trials one after another inside each step. Either way one
+  backward pass and one Adam update (optax's ``scale_by_adam``, then
+  ``-lr * update``, written over the stacked tensors) serve the whole
+  group. The ds_cnn's BatchNorm statistics are stacked state like the
+  parameters: each step's forward pass returns the updated ones
+  (``models/layers.py::BatchNorm``) and they replace the old, as JAX
+  threads its ``batch_stats`` through ``vmap``;
 - per-epoch validation accuracy is reported to the pruner per trial (pruned
   trials stop counting; the group keeps its wall clock);
 - the best trial is REFIT through the normal trainer's ``fit`` by the tune
@@ -54,7 +58,7 @@ logger = logging.getLogger(__name__)
 # knobs trained as tensors with one value a trial inside one program
 VMAPPED = ("learning_rate", "dropout")
 # model families whose modules take a runtime dropout_rate
-BATCHABLE_MODELS = {"cnn", "mlp", "rnn"}
+BATCHABLE_MODELS = {"cnn", "mlp", "ds_cnn", "rnn", "transformer"}
 # families whose group runs its trials one after another inside each step
 # (aten::lstm has no vmap batching rule)
 _LOOPED = {"rnn"}
@@ -88,18 +92,27 @@ class _Runner:
         self.looped = arch["type"] in _LOOPED
         self._batched = vmap(self._one, in_dims=(0, 0, None), randomness="different")
 
-    def _one(self, params: dict, rate: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        return functional_call(self.module, params, (x,), {"dropout_rate": rate})
+    def _one(self, params: dict, rate: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        stats: dict[str, torch.Tensor] = {}
+        logits = functional_call(self.module, params, (x,), {"dropout_rate": rate, "stats": stats})
+        return logits, stats
 
-    def logits(self, params: dict, rates: torch.Tensor, x: torch.Tensor, train: bool) -> torch.Tensor:
-        """(k, B, n_classes) logits of every trial on the shared batch x."""
+    def forward(self, params: dict, rates: torch.Tensor, x: torch.Tensor,
+                train: bool) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """(k, B, n_classes) logits of every trial on the shared batch x, and
+        in train mode the trials' updated BatchNorm statistics, (k, ...) a
+        buffer (none for the families without BatchNorm)."""
         self.module.train(train)
         if not self.looped:
             return self._batched(params, rates, x)
         with warnings.catch_warnings():   # cuDNN: the sliced weights are not one flattened buffer
             warnings.simplefilter("ignore", UserWarning)
-            return torch.stack([self._one({n: p[i] for n, p in params.items()}, rates[i], x)
-                                for i in range(len(rates))])
+            outs = [self._one({n: p[i] for n, p in params.items()}, rates[i], x) for i in range(len(rates))]
+        return torch.stack([o[0] for o in outs]), {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]}
+
+    def logits(self, params: dict, rates: torch.Tensor, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """(k, B, n_classes) logits of every trial on the shared batch x."""
+        return self.forward(params, rates, x, train)[0]
 
 
 # runners cached by architecture and device: a shape group seen in a later
@@ -165,10 +178,11 @@ class TrialGroup:
     def step(self, xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
         """One Adam step of every trial on the shared batch; (k,) losses, the
         mean cross-entropy of each trial's batch, left on the device."""
-        logits = self.runner.logits(self.params, self.rates, xb, train=True)   # (k, B, C)
+        logits, stats = self.runner.forward(self.params, self.rates, xb, train=True)   # (k, B, C)
         losses = F.cross_entropy(logits.flatten(0, 1), yb.repeat(self.k), reduction="none").view(self.k, -1).mean(1)
         losses.sum().backward()   # each trial's loss reaches only its own slice
         self._adam()
+        self.params.update(stats)
         return losses.detach()
 
     def epoch(self, X: torch.Tensor, y: torch.Tensor, idx_mat: np.ndarray) -> torch.Tensor:

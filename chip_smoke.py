@@ -105,6 +105,25 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      and its C mel on a tree clip within 5e-5 of the card's
      mel_spec_feature (one mel_rfft<256, float> launch a project) and of
      the float64 oracle;
+  5g. the deep families this slice ported, through the port's train CLI on
+     the card: the ds_cnn at the JAX defaults ([32, 32, 64], first stride
+     2, avg pool, BatchNorm) on 4c's mel FeatureSet and the transformer (4
+     heads, ff 128, 2 blocks) on 4c's MFCC sequences, 3 epochs each: each
+     bundle served card vs CPU (logits 1e-4), one train step card vs CPU
+     from a seeded bundle at dropout 0 (loss 1e-5, gradients 1e-4, the new
+     BatchNorm statistics 1e-5 relative), and the ds_cnn through the deploy
+     CLI and gcc (C scores on 2 rows within 1e-4 of the card, same argmax);
+     then ``configs/experiments/fsc22-nicla-kd.yaml`` on 5e's fsc22-sized
+     mel sets (its class_filter rewritten to 10 synthetic class names): the
+     EfficientNet-B0 teacher at the file's image_size 224, batch 16, dropout
+     0.3 and lr 1e-3 for 2 + 2 epochs, then the enabled [16, 16, 16] student
+     (T 4, alpha 0.7) for 3 epochs. Checks: both runs shortlisted, phase 1
+     moved only the head (every backbone tensor and statistic bit for bit),
+     phase 2 left every batch_stats leaf bit for bit, the teacher's logits
+     card vs CPU on 4 rows within 1e-4 of their largest, the student served
+     by the edge simulator (8 requests, one mel_rfft launch each) and
+     deployed to C as above, and a checkpointed teacher run resumed after
+     its first epoch with its epoch counter and lr;
   6. timing with CUDA events at B=512 five-second clips (at n_fft 512 each
      entry's FFT route beside its dense kernel, in turns, and the plain
      versions; at n_fft 400 the FFT kernel beside both dense kernels, in
@@ -126,7 +145,10 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      against the 4 trials one at a time; from 5f, each optimize mode's
      latency_ms on the card (the CLI's timed call and a second full call),
      the optimize CLI's wall time a candidate, and codegen and gcc a
-     project;
+     project; a ds_cnn and a transformer train step at B=32 and B=512, a
+     teacher step at 224 in phase 1 and phase 2 at B=16 and B=128, a KD
+     student step at B=16 and B=512, and the teacher's predict_proba in
+     rows/s;
   7. one JSON line per kernel, then the result line.
 
 Matmuls and cuDNN convolutions run in full float32 throughout (TF32 off),
@@ -191,6 +213,16 @@ CV_TOL = 1e-4                      # a pca_svm cell's fold-batched decision valu
 GROUP_LOSS_TOL, GROUP_PARAM_TOL = 1e-5, 1e-4   # a cnn trial group's first epoch card vs CPU, relative
 C_SCORE_TOL = 1e-4                 # generated C scores vs predict_proba (tests/test_codegen_ext.py)
 C_MEL_TOL = 5e-5                   # the generated C mel frontend, float32, vs the float64 oracle (tests/test_codegen.py)
+BN_STAT_TOL = 1e-5                 # a train step's new BatchNorm statistics card vs CPU, over each buffer's largest
+F32_GRAD_TOL = {"ds_cnn": 1e-3}    # a float32 step's gradients card vs CPU, and each device's against its float64
+                                   # step, per tensor as GRAD_TOL (GRAD_TOL for the other models): through five
+                                   # train-mode BatchNorms over 160k values a channel the ds_cnn's sit 1.18e-4
+                                   # (CPU) and 2.90e-4 (H100, 700 W) from float64, and 2.90e-4 card vs CPU; 1e-3
+                                   # leaves 3x above the larger floor, and a wrong gradient reads O(1)
+TEACHER_TOL = 1e-4                 # the teacher's logits card vs CPU, over their largest (80 convolution layers)
+KD_CLASSES = 10                    # configs/experiments/fsc22-nicla-kd.yaml's class_filter holds 10 classes
+TEACHER_IMAGE = 224                # the file's image_size
+TEACHER_WARMUP, TEACHER_EPOCHS, STUDENT_EPOCHS = 2, 4, 3   # cut from 10 of 100 and 100
 
 
 def fail(msg: str) -> None:
@@ -654,6 +686,8 @@ def phase_5e(dev) -> dict:
     check(group_loss_gap <= GROUP_LOSS_TOL, "5e: the cnn trial group's losses on the card disagree with the CPU")
     check(group_param_gap <= GROUP_PARAM_TOL, "5e: the cnn trial group's parameters on the card disagree with the CPU")
     return {"mel_launches": mel5e_launches[0], "engine": eng_card, "cell": cell5e, "grid_s": grid_s["grid"],
+            "names": names5e, "mel_sets": {part: (X_mel[split == part], y_mel[split == part])
+                                           for part in ("train", "validation")},
             "n_components": sorted(set(doc5e["runs"][1]["grid"]["n_components"])), "rows": len(Xc_fit),
             "arch": arch5e, "states": states5e, "lrs": lrs5e, "X": Xg_d, "y": yg_d, "idx": idx5e}
 
@@ -969,6 +1003,60 @@ def deploy_times(t5f: dict, card: str) -> None:
     check(all(np.isfinite([v for lat in t5f["latency"].values() for v in lat[:3]])), "5f timing")
 
 
+def family_times(dev, card: str, t5g: dict) -> dict:
+    """Phase 6's times of the ds_cnn, the transformer, the teacher and the KD
+    student (CUDA events): a train step (forward + backward + Adam, the
+    trainers' default dropout) of the ds_cnn and the transformer at B=32 and
+    B=512, of the teacher at TEACHER_IMAGE in phase 1 (head only) and phase 2
+    (everything) at B=16 and B=128, of the KD student at B=16 and B=512; and
+    5g's trained teacher's predict_proba in rows/s (host clock); with the
+    card's name and power limit."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.models import get_model
+
+    mel_shape, seq_shape = (N_MELS, 1 + CLIP // HOP), (40, 1 + CLIP22 // MFCC_HOP)
+
+    def step_ms(tr, shape: tuple, b: int, iters: int = 20) -> float:
+        Xb = tr._prepare_input(np.random.default_rng(b).standard_normal((b, *shape)).astype(np.float32))
+        tr.prepare_fit(Xb, N_CLASSES)
+        if tr.name == "distillation_cnn":
+            tr.set_teacher_logits(np.random.default_rng(1).standard_normal((b, N_CLASSES)))
+        tr._net.train()
+        opt = torch.optim.Adam([p for p in tr._net.parameters() if p.requires_grad], lr=1e-3)
+        X_d = torch.from_numpy(Xb).to(dev)
+        y_d = torch.from_numpy(np.arange(b) % N_CLASSES).to(dev)
+        idx, w = torch.arange(b, device=dev), torch.ones(b, device=dev)
+        ms = cuda_ms(lambda: tr.train_step(opt, X_d, y_d, idx, w), iters=iters)
+        del tr._net, opt, X_d
+        torch.cuda.empty_cache()
+        return ms
+
+    times: dict[str, tuple[float, int, str]] = {}   # label -> (ms, rows, what)
+    for model, shape in (("ds_cnn", mel_shape), ("transformer", seq_shape)):
+        for b in (32, 512):
+            times[f"{model} B={b}"] = (step_ms(get_model(model)(batch_size=b, device=dev), shape, b), b,
+                                       f"train step on {shape} inputs")
+    for phase in (1, 2):
+        for b in (16, 128):
+            tr = get_model("efficientnet_teacher")(image_size=TEACHER_IMAGE, batch_size=b, device=dev)
+            tr._head_only = phase == 1
+            times[f"teacher phase {phase} B={b}"] = (step_ms(tr, mel_shape, b, iters=5), b,
+                                                     f"train step at {TEACHER_IMAGE}x{TEACHER_IMAGE}, "
+                                                     + ("head only" if phase == 1 else "everything"))
+    for b in (16, 512):
+        times[f"KD student B={b}"] = (step_ms(get_model("distillation_cnn")(batch_size=b, device=dev), mel_shape, b),
+                                      b, "train step, [16, 16, 16] on (40, 501)")
+    teacher, Xv = t5g["teacher"], t5g["kd_val"]
+    ms_predict = host_ms(lambda: teacher.predict_proba(Xv), reps=3)
+    for label, (ms, b, what) in times.items():
+        print(f"[6] {label}: {what}, {ms:.3f} ms, {b / ms * 1e3:.0f} rows/s on {card}")
+    print(f"[6] teacher predict_proba (batch {teacher.batch_size}, {TEACHER_IMAGE}x{TEACHER_IMAGE}) on {len(Xv)} rows: "
+          f"{ms_predict:.1f} ms, {len(Xv) / ms_predict * 1e3:.0f} rows/s (host clock) on {card}")
+    check(all(np.isfinite([ms_predict, *(t[0] for t in times.values())])), "5g timing")
+    return {**{k: v[0] for k, v in times.items()}, "teacher predict_proba": ms_predict}
+
+
 def ms_turns(ts: list[float]) -> str:
     return f"turns {', '.join(f'{t:.3f}' for t in ts)}"
 
@@ -988,41 +1076,368 @@ def host_ms(fn, reps: int = 3) -> float:
     return float(np.median(times))
 
 
+def seeded_bundle(model: str, params: dict, input_shape: tuple, path: Path, seed: int = 0) -> Path:
+    """A bundle of ``model`` (``params``: its widths) for inputs of
+    ``input_shape``, from flax's initializers seeded ``seed``, its norm layers
+    moved off their init (scale 1, bias 0; running mean 0, var 1) by a seeded
+    numpy generator: at bias 0 the ds_cnn is invariant to its stem
+    BatchNorm's scale, whose gradient then holds only roundoff, which no
+    relative gate can hold two devices to."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.models import get_model
+    from audio_edge_ml_pipeline_torch.models.layers import BatchNorm, LayerNorm
+
+    tr = get_model(model)(**params, device="cpu")
+    tr.initialize(input_shape, N_CLASSES, torch.Generator().manual_seed(seed))
+    r = np.random.default_rng(seed)
+    with torch.no_grad():
+        for mod in tr._net.modules():
+            if isinstance(mod, (BatchNorm, LayerNorm)):
+                n = mod.weight.shape[0]
+                mod.weight.copy_(torch.from_numpy(r.uniform(0.5, 1.5, n)))
+                mod.bias.copy_(torch.from_numpy(r.normal(0.0, 0.2, n)))
+            if isinstance(mod, BatchNorm):
+                mod.mean.copy_(torch.from_numpy(r.normal(0.0, 0.3, n)))
+                mod.var.copy_(torch.from_numpy(r.uniform(0.5, 2.0, n)))
+    tr.save(path)
+    return path
+
+
 def step_and_grads(dev, X: np.ndarray, y: np.ndarray, bundle: Path, model: str = "cnn",
-                   params: dict | None = None) -> tuple[float, dict]:
+                   params: dict | None = None, dtype=None) -> tuple[float, dict, dict]:
     """One Adam step of ``model``'s trainer (``params``: its widths; the
     flagship CNN's by default) at dropout 0, warm-started from ``bundle``,
-    on the first 32 rows of (X, y): (loss, gradients of the trained
-    parameters)."""
+    on the first 32 rows of (X, y), in ``dtype`` (float32 by default):
+    (loss, gradients of the trained parameters, the buffers after the step:
+    the new BatchNorm statistics)."""
     import torch
 
     from audio_edge_ml_pipeline_torch.models import get_model
 
+    dtype = dtype or torch.float32
     tr = get_model(model)(**(CNN_PARAMS if params is None else params), dropout=0.0, batch_size=32, seed=0,
                           pretrained_model=str(bundle), device=dev)
     Xp = tr._prepare_input(X).astype(np.float32)
     tr.prepare_fit(Xp, N_CLASSES)
-    tr._net.train()
+    tr._net.to(dtype).train()
+    tr._norm_mean, tr._norm_var = tr._norm_mean.to(dtype), tr._norm_var.to(dtype)
     trained = {k: p for k, p in tr._net.named_parameters() if p.requires_grad}
     opt = torch.optim.Adam(trained.values(), lr=1e-3)
     idx = torch.arange(32, device=dev)
-    loss, _ = tr.train_step(opt, torch.from_numpy(Xp).to(dev), torch.from_numpy(y.astype(np.int64)).to(dev),
-                            idx, torch.ones(32, device=dev))
-    return float(loss), {k: p.grad.detach().cpu() for k, p in trained.items()}
+    loss, _ = tr.train_step(opt, torch.from_numpy(Xp).to(dev, dtype), torch.from_numpy(y.astype(np.int64)).to(dev),
+                            idx, torch.ones(32, device=dev, dtype=dtype))
+    return (float(loss), {k: p.grad.detach().cpu() for k, p in trained.items()},
+            {k: b.detach().cpu() for k, b in tr._net.named_buffers()})
+
+
+def rel_grad_gap(grads: dict, ref: dict) -> tuple[float, str, float]:
+    """The largest max|d| between ``grads`` and ``ref`` over the gradient
+    tensors, each relative to the tensor's largest in ``ref`` (an attention
+    key bias to the step's largest: softmax ignores a shift shared by every
+    key, so its gradient is zero in exact arithmetic); that tensor's name;
+    and the largest max|d| relative to the step's largest in ``ref``."""
+    scale = max(float(g.abs().max()) for g in ref.values())
+    diff = {k: float((grads[k].double() - g.double()).abs().max()) for k, g in ref.items()}
+    rel, worst = max((diff[k] / (scale if k.endswith("key.bias") else float(g.abs().max())), k) for k, g in ref.items())
+    return rel, worst, max(diff.values()) / scale
 
 
 def grad_gap(dev, X: np.ndarray, y: np.ndarray, bundle: Path, model: str = "cnn",
-             params: dict | None = None) -> tuple[float, float, float, float, str, int]:
-    """``step_and_grads`` on the card and on the CPU: (card loss, CPU loss,
-    their relative gap, the largest max|d|/max|g| over the gradient tensors,
-    that tensor's name, the tensor count)."""
+             params: dict | None = None, floors: bool = False) -> dict:
+    """``step_and_grads`` in float32 on the card and on the CPU: the card and
+    CPU losses and their relative gap (``loss``, ``loss_cpu``, ``loss_rel``);
+    the gradients' ``rel_grad_gap`` card vs CPU (``grad_rel``, that tensor
+    ``worst``, of ``n_grads``; ``grad_rel_step``); and the largest
+    max|d|/max|b| over the new BatchNorm statistics (``stats_rel``, or 0).
+    ``floors``: the same step in float64 on each device too, giving the
+    float64 readings card vs CPU under ``f64`` and each device's float32
+    gradients against its own float64 ones (``floor_card``, ``floor_cpu``:
+    ``rel_grad_gap``'s first two)."""
     import torch
 
-    loss_gpu, grads_gpu = step_and_grads(dev, X, y, bundle, model, params)
-    loss_cpu, grads_cpu = step_and_grads(torch.device("cpu"), X, y, bundle, model, params)
-    grad_rel, worst = max((float((grads_gpu[k] - grads_cpu[k]).abs().max() / grads_cpu[k].abs().max()), k)
-                          for k in grads_cpu)
-    return loss_gpu, loss_cpu, abs(loss_gpu - loss_cpu) / abs(loss_cpu), grad_rel, worst, len(grads_cpu)
+    runs = {(d, dt): step_and_grads(d, X, y, bundle, model, params, dt)
+            for d in (dev, torch.device("cpu")) for dt in ((torch.float32, torch.float64) if floors else (torch.float32,))}
+
+    def card_vs_cpu(dt) -> dict:
+        (loss_gpu, grads_gpu, stats_gpu), (loss_cpu, grads_cpu, stats_cpu) = runs[dev, dt], runs[torch.device("cpu"), dt]
+        grad_rel, worst, grad_rel_step = rel_grad_gap(grads_gpu, grads_cpu)
+        stats_rel = max((float((stats_gpu[k] - b).abs().max() / b.abs().max()) for k, b in stats_cpu.items()),
+                        default=0.0)
+        return {"loss": loss_gpu, "loss_cpu": loss_cpu, "loss_rel": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
+                "grad_rel": grad_rel, "worst": worst, "n_grads": len(grads_cpu), "grad_rel_step": grad_rel_step,
+                "stats_rel": stats_rel}
+
+    out = card_vs_cpu(torch.float32)
+    if floors:
+        out["f64"] = card_vs_cpu(torch.float64)
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            out[f"floor_{name}"] = rel_grad_gap(runs[d, torch.float32][1], runs[d, torch.float64][1])[:2]
+    return out
+
+
+def compiled_scores(deploy_args: list[str], proj: Path, rows: np.ndarray, card_model) -> tuple[float, bool]:
+    """The deploy CLI on ``deploy_args`` into ``proj``, gcc -O2 -std=c99 on the
+    project's host harness, and its scores on ``rows`` against
+    ``card_model``'s predict_proba on the card: (max|d|, argmax equal)."""
+    from audio_edge_ml_pipeline_torch.deploy import deploy
+
+    captured_stdout(deploy.main, [*deploy_args, "--output", str(proj)])
+    exe = proj / "host_runner"
+    cc_run = subprocess.run(["gcc", "-O2", "-std=c99", f"-I{proj / 'src'}", "-o", str(exe), str(proj / "host_main.c"),
+                             *map(str, sorted((proj / "src").glob("*.c"))), "-lm"],
+                            capture_output=True, text=True, timeout=600)
+    check(cc_run.returncode == 0, f"gcc failed on {proj}: {cc_run.stderr[-2000:]}")
+    err, same = 0.0, True
+    for row in rows:
+        (proj / "feat.f32").write_bytes(np.ascontiguousarray(row, np.float32).tobytes())
+        run = subprocess.run([str(exe), "--predict-feat", str(proj / "feat.f32")], capture_output=True, text=True,
+                             timeout=120)
+        check(run.returncode == 0, f"the harness of {proj} failed: {run.stderr[-2000:]}")
+        c_scores = np.array([float(v) for v in run.stdout.split()])
+        card_scores = card_model.predict_proba(row[None])[0]
+        check(c_scores.shape == card_scores.shape, f"C scores shape {c_scores.shape} of {proj}")
+        err = max(err, float(np.abs(c_scores - card_scores).max()))
+        same &= int(c_scores.argmax()) == int(card_scores.argmax())
+    return err, same
+
+
+def kd_config_copy(train_dir: Path, val_dir: Path, out_root: Path, classes: list[str]) -> tuple[Path, dict]:
+    """configs/experiments/fsc22-nicla-kd.yaml with its FeatureSets and
+    output moved, ``class_filter`` rewritten to ``classes``, the teacher at
+    the file's image_size, batch, dropout and lr with its epochs cut to
+    TEACHER_WARMUP of TEACHER_EPOCHS (both phases run) and its checkpoints in
+    ``out_root/teacher_ckpt`` (``phase1/``, ``phase2/``), and the commented
+    student step enabled on the teacher's bundle at the file's values but
+    STUDENT_EPOCHS epochs; written as JSON under ``out_root``."""
+    import yaml
+
+    doc = yaml.safe_load((REPO / "configs" / "experiments" / "fsc22-nicla-kd.yaml").read_text())
+    check([r["model"] for r in doc["runs"]] == ["efficientnet_teacher"] and len(doc["class_filter"]) == KD_CLASSES,
+          "configs/experiments/fsc22-nicla-kd.yaml's runs and class_filter")
+    teacher = doc["runs"][0]
+    check(teacher["params"]["image_size"] == TEACHER_IMAGE and teacher["params"]["batch_size"] == 16,
+          f"the teacher's params in the file: {teacher['params']}")
+    teacher["params"].update(warmup_epochs=TEACHER_WARMUP, epochs=TEACHER_EPOCHS,
+                             checkpoint_dir=str(out_root / "teacher_ckpt"))
+    doc.update(features_dir=str(train_dir), features_test_dir=str(val_dir), output_dir=str(out_root / "models"),
+               class_filter=list(classes))
+    doc["runs"].append({"model": "distillation_cnn", "name": "fsc22_nicla_kd_student", "params": {
+        "teacher_model": str(out_root / "models" / teacher["name"] / "model.flax.npz"), "filters": [16, 16, 16],
+        "temperature": 4.0, "alpha": 0.7, "epochs": STUDENT_EPOCHS, "batch_size": 16, "learning_rate": 0.001}})
+    out_root.mkdir(parents=True, exist_ok=True)
+    path = out_root / "fsc22-nicla-kd.yaml"
+    path.write_text(json.dumps(doc, indent=1))
+    return path, doc
+
+
+def phase_5g(dev, mel108, mfcc108, t5e: dict) -> dict:
+    """Phase 5g: the ds_cnn and the transformer through the train CLI on 4c's
+    FeatureSets (``mel108``, ``mfcc108``: FeatureSet objects), each served
+    card vs CPU with a train step card vs CPU, the ds_cnn deployed to C;
+    then configs/experiments/fsc22-nicla-kd.yaml (teacher, then student) on
+    5e's fsc22-sized mel sets, with its checks and a resumed teacher run.
+    Returns what phase 6 times."""
+    import logging
+
+    import torch
+
+    from audio_edge_ml_pipeline_torch.data.audio_io import write_wav
+    from audio_edge_ml_pipeline_torch.features import pipeline
+    from audio_edge_ml_pipeline_torch.features.base import FeatureSet
+    from audio_edge_ml_pipeline_torch.models import deep as tdeep
+    from audio_edge_ml_pipeline_torch.models import get_model
+    from audio_edge_ml_pipeline_torch.ops import mel_kernel
+    from audio_edge_ml_pipeline_torch.serve.edge_simulator import EdgeDeviceSimulator
+    from audio_edge_ml_pipeline_torch.train import train
+
+    t_start = time.perf_counter()
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_5g_") as tmp:
+        tmp = Path(tmp)
+        for fs, name in ((mel108, "mel"), (mfcc108, "mfcc_seq")):
+            pipeline.FeaturePipeline.save(fs, tmp / name)
+        os.environ["MLFLOW_TRACKING_URI"] = str(tmp / "mlruns")
+        try:
+            # the ds_cnn (JAX defaults) on the mel set, the transformer (JAX defaults) on the MFCC sequences
+            for model, fs, fs_dir in (("ds_cnn", mel108, "mel"), ("transformer", mfcc108, "mfcc_seq")):
+                t0 = time.perf_counter()
+                train.main(["--features", str(tmp / fs_dir), "--model", model, "--output", str(tmp / "models"),
+                            "--experiment", "chip-smoke-5g", "--param", f"epochs={TRAIN_EPOCHS}"])
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t0
+                bundle = tmp / "models" / model / "model.flax.npz"
+                info = json.loads((bundle.parent / "model_info.json").read_text())
+                keys = np.load(bundle).files
+                n_stats = sum(k.startswith("c/batch_stats/") for k in keys)
+                card_model, cpu_model = tdeep.load_any_model(bundle), tdeep.load_any_model(bundle, device="cpu")
+                check(card_model.device.type == "cuda" and card_model.name == model, f"5g: the {model} served")
+                Xr = fs.features[:8]
+                served = float(np.abs(card_model._batched_logits(card_model._prepare_input(Xr)) -
+                                      cpu_model._batched_logits(cpu_model._prepare_input(Xr))).max())
+                seeded = seeded_bundle(model, {}, card_model._prepare_input(fs.features[:1]).shape[1:],
+                                       tmp / f"{model}_seeded.npz")
+                step = grad_gap(dev, fs.features[:32], fs.labels[:32], seeded, model, {}, floors=True)
+                s64, f32_tol = step["f64"], F32_GRAD_TOL.get(model, GRAD_TOL)
+                print(f"[5g] {model} ({card_model._arch_dict}) through the train CLI on the card: {TRAIN_EPOCHS} "
+                      f"epochs on {len(fs.features)} rows of {fs.features.shape[1:]} in {fit_s:.2f} s, val_accuracy "
+                      f"{info['val_accuracy']:.4f}; bundle {len(keys) - 3} tensors ({n_stats} c/batch_stats); served "
+                      f"logits card vs CPU on 8 rows max|d| {served:.3e} (tol {LOGIT_TOL:g})")
+                for label, st, tol in (("float64", s64, GRAD_TOL), ("float32", step, f32_tol)):
+                    print(f"[5g] {model}: one train step (B=32, dropout 0, seeded bundle) in {label} card vs CPU: loss "
+                          f"{st['loss']:.6f} vs {st['loss_cpu']:.6f} (rel {st['loss_rel']:.3e}, tol {STEP_LOSS_TOL:g}); "
+                          f"gradients max|d| over each tensor's max|g| {st['grad_rel']:.3e} ({st['worst']}, the worst of "
+                          f"{st['n_grads']}; tol {tol:g}), over the step's max|g| {st['grad_rel_step']:.3e}; new "
+                          f"BatchNorm statistics max|d|/max {st['stats_rel']:.3e} (tol {BN_STAT_TOL:g})")
+                print(f"[5g] {model}: the float32 step's gradients against the float64 step's on the same device, max|d| "
+                      f"over each tensor's max|g|: card {step['floor_card'][0]:.3e} ({step['floor_card'][1]}), CPU "
+                      f"{step['floor_cpu'][0]:.3e} ({step['floor_cpu'][1]}) (tol {f32_tol:g})")
+                check(n_stats == (10 if model == "ds_cnn" else 0), f"5g: the {model} bundle holds {n_stats} statistics")
+                check(served <= LOGIT_TOL, f"5g: the {model} logits on the card disagree with the CPU")
+                check(all(st["loss_rel"] <= STEP_LOSS_TOL and st["stats_rel"] <= BN_STAT_TOL for st in (s64, step))
+                      and s64["grad_rel"] <= GRAD_TOL and step["grad_rel"] <= f32_tol,
+                      f"5g: the {model} train step on the card disagrees with the CPU")
+                check(step["floor_card"][0] <= f32_tol and step["floor_cpu"][0] <= f32_tol,
+                      f"5g: the {model}'s float32 gradients stray from its float64 ones")
+                out[model] = card_model
+            # --max-ram 0: the host harness, not a board (the stem's (20, 251, 32) map alone is 642 KB)
+            err, same = compiled_scores(["--model", str(tmp / "models" / "ds_cnn" / "model.flax.npz"),
+                                         "--features-dir", str(tmp / "mel"), "--max-ram", "0"], tmp / "ds_cnn_c",
+                                        mel108.features[-2:], out["ds_cnn"])
+            print(f"[5g] ds_cnn through the deploy CLI (--max-ram 0) and gcc -O2 -std=c99: C scores on 2 rows vs "
+                  f"predict_proba on the card max|d| {err:.3e} (tol {C_SCORE_TOL:g}), argmax equal {same}")
+            check(err <= C_SCORE_TOL and same, "5g: the ds_cnn's C forward disagrees with the card")
+
+            # configs/experiments/fsc22-nicla-kd.yaml on 5e's fsc22-sized mel sets, teacher then student
+            names = t5e["names"]
+            kd_names = names[::2][:KD_CLASSES]
+            for split, (Xs, ys) in t5e["mel_sets"].items():
+                pipeline.FeaturePipeline.save(FeatureSet(features=Xs, feature_type="audio_mel_spec", modality="audio",
+                                                         metadata=[{} for _ in ys], labels=ys, label_names=names),
+                                              tmp / f"fsc22_mel_{split}")
+            cfg, doc = kd_config_copy(tmp / "fsc22_mel_train", tmp / "fsc22_mel_validation", tmp / "kd", kd_names)
+            teacher_name, student_name = (r["name"] for r in doc["runs"])
+            messages: list[str] = []
+            handler = logging.Handler(logging.INFO)
+            handler.emit = lambda record: messages.append(record.getMessage())
+            logging.getLogger("audio_edge_ml_pipeline_torch").addHandler(handler)
+            cwd = os.getcwd()
+            os.chdir(tmp / "kd")   # the CLI archives its config under ./config/experiments
+            t0 = time.perf_counter()
+            try:
+                train.main(["--config", str(cfg)])
+                torch.cuda.synchronize()
+            finally:
+                os.chdir(cwd)
+                logging.getLogger("audio_edge_ml_pipeline_torch").removeHandler(handler)
+            kd_s = time.perf_counter() - t0
+            models = tmp / "kd" / "models"
+            shortlist = json.loads((models / "shortlist.json").read_text())
+            failures = [m for m in messages if "failed" in m]
+            print(f"[5g] {cfg.name} through the train CLI on the card in {kd_s:.2f} s (teacher, both phases, then "
+                  f"student); class_filter {kd_names}; shortlist "
+                  f"{[(c['rank'], c['model'], round(c['val_f1_macro'], 4)) for c in shortlist['candidates']]}; "
+                  f"logged failures {failures or 'none'}")
+            check(sorted(c["model"] for c in shortlist["candidates"]) == ["distillation_cnn", "efficientnet_teacher"],
+                  f"5g: the KD shortlist holds {[c['model'] for c in shortlist['candidates']]}")
+            check(not failures, f"5g: the KD run logged failures {failures}")
+
+            # the teacher's phases from its checkpoints: phase 1 starts from the seeded init (rebuilt here by a
+            # fresh trainer of the same params), phase 2 from phase 1's best state (the bundle it warm-starts from)
+            ids = [names.index(n) for n in kd_names]
+            X_tr, y_tr = t5e["mel_sets"]["train"]
+            teacher_params = {k: v for k, v in doc["runs"][0]["params"].items() if k != "checkpoint_dir"}
+            fresh = get_model("efficientnet_teacher")(**teacher_params, device=dev)
+            fresh.prepare_fit(fresh._prepare_input(X_tr[np.isin(y_tr, ids)]).astype(np.float32), KD_CLASSES)
+            start = tdeep.params_to_flax(fresh._net.state_dict())
+            saved = {}
+            for phase in ("phase1", "phase2"):
+                data = np.load(Path(doc["runs"][0]["params"]["checkpoint_dir"]) / phase / "train_state.npz")
+                saved[phase] = {group: tdeep.params_to_flax({k[len(f"s/{group}/"):]: torch.from_numpy(data[k])
+                                                             for k in data.files if k.startswith(f"s/{group}/")})
+                                for group in ("params", "best")}
+                saved[phase]["meta"] = json.loads(bytes(data["__meta__"].tobytes()).decode())
+            p1, p2_start, p2 = saved["phase1"]["params"], saved["phase1"]["best"], saved["phase2"]["params"]
+            head = [k for k in start if k.startswith("p/head/")]
+            frozen = [k for k in start if k.startswith(("p/backbone/", "c/"))]
+            frozen_moved = [k for k in frozen for end in (p1, p2_start) if not np.array_equal(start[k], end[k])]
+            head_moved = [k for k in head if not np.array_equal(start[k], p1[k])]
+            stats = [k for k in frozen if k.startswith("c/")]
+            stats_moved = [k for k in stats if not np.array_equal(p2_start[k], p2[k])]
+            backbone_moved = [k for k in frozen if k.startswith("p/") and not np.array_equal(p2_start[k], p2[k])]
+            epochs_saved = [saved[ph]["meta"]["epoch"] for ph in ("phase1", "phase2")]
+            print(f"[5g] teacher checkpoints at epochs {epochs_saved} of phases 1 and 2: phase 1 changed "
+                  f"{len(frozen_moved)} of {len(frozen)} backbone tensors (parameters and statistics, last and best "
+                  f"state) and moved {len(head_moved)} of {len(head)} head tensors; phase 2 changed {len(stats_moved)} of "
+                  f"{len(stats)} batch_stats and moved {len(backbone_moved)} of {len(frozen) - len(stats)} backbone "
+                  f"parameters")
+            check(epochs_saved == [TEACHER_WARMUP - 1, TEACHER_EPOCHS - TEACHER_WARMUP - 1],
+                  f"5g: the teacher's phase checkpoints stopped at epochs {epochs_saved}")
+            check(not frozen_moved and len(head_moved) == 2, "5g: phase 1 moved more than the head")
+            check(not stats_moved and len(stats) == 98 and backbone_moved, "5g: phase 2 moved the backbone's statistics")
+            teacher_bundle, student_bundle = models / teacher_name / "model.flax.npz", models / student_name / "model.flax.npz"
+            teacher, teacher_cpu = tdeep.load_any_model(teacher_bundle), tdeep.load_any_model(teacher_bundle, device="cpu")
+            X_val, y_val = t5e["mel_sets"]["validation"]
+            keep = np.isin(y_val, [names.index(n) for n in kd_names])
+            Xk = X_val[keep]
+            lt = teacher._batched_logits(teacher._prepare_input(Xk[:4]))
+            lc = teacher_cpu._batched_logits(teacher_cpu._prepare_input(Xk[:4]))
+            teacher_gap = float(np.abs(lt - lc).max() / np.abs(lc).max())
+            print(f"[5g] teacher (EfficientNet-B0 at {TEACHER_IMAGE}, {teacher._arch_dict['n_classes']} classes) logits "
+                  f"card vs CPU on 4 rows max|d|/max {teacher_gap:.3e} (tol {TEACHER_TOL:g})")
+            check(teacher_gap <= TEACHER_TOL and teacher._arch_dict["image_size"] == TEACHER_IMAGE,
+                  "5g: the teacher's logits on the card disagree with the CPU")
+
+            # the student served by the edge simulator, then deployed to C
+            folder = tmp / "student_clips"
+            gen = torch.Generator(device=dev).manual_seed(7)
+            for c, name in enumerate(kd_names):
+                (folder / name).mkdir(parents=True)
+                write_wav(folder / name / "0.wav", class_clips_on_card(gen, dev, names.index(name), 1)[0].cpu().numpy(), SR)
+            mel_kernel.counter.reset()
+            mel_kernel.counter_dense.reset()
+            sim = EdgeDeviceSimulator(student_bundle, kd_names, folder, device_id="student",
+                                      telemetry_dir=tmp / "telemetry", stats_dir=tmp / "stats", seed=2)
+            sim.run(8)
+            torch.cuda.synchronize()
+            out["mel_launches"] = mel_kernel.counter.launches
+            sim_dense = mel_kernel.counter_dense.launches
+            events = [json.loads(ln) for ln in (tmp / "telemetry" / "student_telemetry.jsonl").read_text().splitlines()]
+            student = tdeep.load_any_model(student_bundle)
+            err, same = compiled_scores(["--model", str(student_bundle), "--labels", *kd_names, "--max-ram", "0"],
+                                        tmp / "student_c", Xk[:2], student)
+            print(f"[5g] student ({student._arch_dict['filters']}, {student.name}) served by the edge simulator: 8 "
+                  f"requests, mel_rfft launches {out['mel_launches'] - sim_dense}, dense {sim_dense}, predictions "
+                  f"{[e['prediction'] for e in events]}; through the deploy CLI and gcc: C scores on 2 validation rows "
+                  f"vs predict_proba on the card max|d| {err:.3e} (tol {C_SCORE_TOL:g}), argmax equal {same}")
+            check(len(events) == 8 and all(e["prediction"] in kd_names for e in events), "5g: the served student")
+            check(out["mel_launches"] == 8 and sim_dense == 0, "5g: the simulator did not launch mel_rfft once a request")
+            check(err <= C_SCORE_TOL and same, "5g: the student's C forward disagrees with the card")
+
+            # a checkpointed teacher run, then one of two epochs resumed from it: the second is built with another
+            # lr, so the lr it ends at says whether it took the checkpoint's
+            sub = np.isin(y_tr, ids)
+            Xs, ys = X_tr[sub][:64], np.searchsorted(sorted(ids), y_tr[sub][:64])
+            ckpt = tmp / "teacher_ckpt"
+            epochs_run: list[int] = []
+            metas: list[dict] = []
+            for epochs, lr in ((1, 1e-3), (2, 2e-3)):
+                tr = get_model("efficientnet_teacher")(epochs=epochs, warmup_epochs=epochs, image_size=TEACHER_IMAGE,
+                                                       batch_size=16, dropout=0.3, learning_rate=lr,
+                                                       checkpoint_dir=str(ckpt), device=dev)
+                tr.fit(Xs[:48], ys[:48], Xs[48:], ys[48:], sorted(kd_names), "ckpt", tmp / f"ckpt_{epochs}", None,
+                       epoch_callback=lambda e, logs: epochs_run.append(e) and False)
+                metas.append(json.loads(bytes(np.load(ckpt / "phase1" / "train_state.npz")["__meta__"].tobytes()).decode()))
+            print(f"[5g] teacher with checkpoint_dir: a 1-epoch run at lr 1e-3 left {metas[0]}; a 2-epoch run built "
+                  f"at lr 2e-3 resumed from it ran epochs {epochs_run[1:]} and left {metas[1]}")
+            check(epochs_run == [0, 1] and metas[0]["epoch"] == 0 and metas[1]["epoch"] == 1
+                  and metas[0]["lr"] == metas[1]["lr"] == 1e-3,
+                  "5g: the resumed teacher did not restore its epoch counter and lr")
+            out.update(teacher=teacher, student=student, kd_val=Xk)
+        finally:
+            os.environ.pop("MLFLOW_TRACKING_URI", None)
+    print(f"[5g] phase 5g in {time.perf_counter() - t_start:.2f} s")
+    return out
 
 
 def main() -> int:
@@ -1501,7 +1916,9 @@ def main() -> int:
         # From phase 5's seeded bundle, not the trained one: training on the card does not repeat from run to
         # run, and a ReLU or max-pool near-tie in one run's weights can go the other way on the CPU (once
         # 9.2e-5 of the 1e-4 limit on an H100).
-        loss_gpu, loss_cpu, loss_rel, grad_rel, grad_worst, n_grads = grad_gap(dev, X_step, y_step, bundle)
+        step = grad_gap(dev, X_step, y_step, bundle)
+        loss_gpu, loss_cpu, loss_rel, grad_rel, grad_worst, n_grads = (
+            step[k] for k in ("loss", "loss_cpu", "loss_rel", "grad_rel", "worst", "n_grads"))
         print(f"[5b] one train step (B=32, dropout 0) card vs CPU: loss {loss_gpu:.6f} vs {loss_cpu:.6f} "
               f"(rel {loss_rel:.3e}, tol {STEP_LOSS_TOL:g}); gradients max|d|/max|g| {grad_rel:.3e} "
               f"({grad_worst}, the worst of {n_grads} tensors; tol {GRAD_TOL:g}, TF32 off)")
@@ -1577,8 +1994,9 @@ def main() -> int:
             seeded.initialize(seeded._prepare_input(fs_run.features[:1]).shape[1:], N_CLASSES,
                               torch.Generator().manual_seed(0))
             seeded.save(tmp / f"{model}_seeded.npz")
-            loss_gpu, loss_cpu, loss_rel, grad_rel, grad_worst, n_grads = grad_gap(
-                dev, fs_run.features[:32], fs_run.labels[:32], tmp / f"{model}_seeded.npz", model, params)
+            step = grad_gap(dev, fs_run.features[:32], fs_run.labels[:32], tmp / f"{model}_seeded.npz", model, params)
+            loss_gpu, loss_cpu, loss_rel, grad_rel, grad_worst, n_grads = (
+                step[k] for k in ("loss", "loss_cpu", "loss_rel", "grad_rel", "worst", "n_grads"))
             print(f"[5c] one {model} train step ({params}, B=32, dropout 0) card vs CPU: loss {loss_gpu:.6f} vs "
                   f"{loss_cpu:.6f} (rel {loss_rel:.3e}, tol {STEP_LOSS_TOL:g}); gradients max|d|/max|g| "
                   f"{grad_rel:.3e} ({grad_worst}, the worst of {n_grads} tensors; tol {GRAD_TOL:g}, TF32 off)")
@@ -1587,6 +2005,8 @@ def main() -> int:
 
         # 5f. the post-training stages on 5c's runs: select, optimize, select --post-opt, deploy
         t5f = phase_5f(dev, tmp / "runs", experiment, tree[0])
+        mel108 = pipeline.FeaturePipeline.load(tmp / "shipped" / "fsc22_mel_train")       # for 5g
+        mfcc108 = pipeline.FeaturePipeline.load(tmp / "shipped" / "fsc22_mfcc_seq_train")
 
     # 5d. the classical core on the card against the CPU at fsc22 scale, with TF32 allowed everywhere
     X_fit, y_fit, X_q, y_q = fsc22_classical(np.random.default_rng(22))
@@ -1638,6 +2058,9 @@ def main() -> int:
     check(bool((on_card["pred"] == on_cpu["pred"]).all()), "5d: svm predictions on the card disagree with the CPU")
 
     t5e = phase_5e(dev)
+
+    # 5g. the ds_cnn, the transformer, and the KD recipe (teacher, then student) through the train CLI on the card
+    t5g = phase_5g(dev, mel108, mfcc108, t5e)
 
     # 6. timing at B=512 five-second clips
     batch = 512
@@ -1856,6 +2279,7 @@ def main() -> int:
 
     tuning_times(t5e, card, in_turns)
     deploy_times(t5f, card)
+    family_times(dev, card, t5g)
 
     check(all(np.isfinite([ms_kernel, ms_dense, ms_plain, ms_unf, ms_unf_dense, ms_unf_plain, ms_400, ms_400_folded,
                             ms_400_unfolded, ms_e2e, ms_epilogue, ms_cnn, *step_ms.values(), ms_mfcc_kernel, ms_mfcc_f64,
@@ -1870,7 +2294,7 @@ def main() -> int:
         "name": "mel_folded", "route": "cuda", "source": "audio_edge_ml_pipeline_torch/csrc/mel_rfft.cu",
         "replaces": "audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:119",
         "launches": (extract_launches + shipped_f32 + serve_launches + trained_launches + t5e["mel_launches"]
-                     + t5f["mel_launches"]),
+                     + t5f["mel_launches"] + t5g["mel_launches"]),
         "max_abs_err": worst_abs,
         "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "plain_products": "float64", "dense_ms": ms_dense,

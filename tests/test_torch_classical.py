@@ -334,11 +334,13 @@ def test_state_trainers_read_legacy_joblib_bundles(blobs6, tmp_path):
 
 
 def test_registry_holds_every_classical_name_and_only_deep_families_wait():
+    """Every name of the JAX registry resolves in the port: no family waits."""
     assert set(CLASSICAL) <= set(tregistry.list_models())
-    assert tregistry.NOT_YET_PORTED == {"ds_cnn", "transformer", "efficientnet_teacher", "distillation_cnn"}
-    assert set(jlist_models()) == set(tregistry.list_models()) | tregistry.NOT_YET_PORTED
-    with pytest.raises(NotImplementedError, match=r"ported: .*knn.*svm"):
-        tget_model("ds_cnn")
+    assert not getattr(tregistry, "NOT_YET_PORTED", None)
+    assert set(jlist_models()) == set(tregistry.list_models()) and len(tregistry.list_models()) == 16
+    assert tget_model("ds_cnn").name == "ds_cnn"
+    with pytest.raises(KeyError, match=r"Available: .*knn.*svm"):
+        tget_model("no_such_trainer")
 
 
 def test_classical_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, blobs6):

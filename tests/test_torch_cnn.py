@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from audio_edge_ml_pipeline_tpu.models import deep as jdeep
 from audio_edge_ml_pipeline_torch.models import deep as tdeep
+from audio_edge_ml_pipeline_torch.models import layers as tlayers
 
 TOL = 1e-5  # logits, float32 convolutions summed in different orders
 
@@ -59,10 +60,10 @@ def test_logits_match_flax_with_carried_weights(rng, name, layout):
 
 
 def test_same_padding_is_flax_same():
-    assert tdeep.same_padding(126, 2) == (0, 1)   # flagship layer 2 on the time axis
-    assert tdeep.same_padding(40, 4) == (0, 0)    # layer 1 on the mel axis
-    assert tdeep.same_padding(501, 4) == (1, 1)
-    assert tdeep.same_padding(20, 1) == (1, 1)
+    assert tlayers.same_padding(126, 2) == (0, 1)   # flagship layer 2 on the time axis
+    assert tlayers.same_padding(40, 4) == (0, 0)    # layer 1 on the mel axis
+    assert tlayers.same_padding(501, 4) == (1, 1)
+    assert tlayers.same_padding(20, 1) == (1, 1)
 
 
 def test_flax_params_round_trip_exactly():
@@ -134,9 +135,12 @@ def test_initialize_is_seeded_and_saves_flax_layout(tmp_path):
 
 
 def test_unported_trainer_names_raise(tmp_path):
+    """Every deep family of the JAX package loads in the port now; multi-card
+    data parallelism is what still raises."""
     path = tmp_path / "transformer.npz"
-    tdeep.save_model_bundle_flat(path, {"type": "transformer"}, {}, np.zeros(1), np.ones(1))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdeep.load_any_model(path, device="cpu")
+    tr = tdeep.TransformerTrainer(num_heads=2, ff_dim=8, n_blocks=1, device="cpu")
+    tr.initialize((5, 6), 3, torch.Generator().manual_seed(0))
+    tr.save(path)
+    assert isinstance(tdeep.load_any_model(path, device="cpu"), tdeep.TransformerTrainer)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tdeep.CNNTrainer(device="cpu", data_parallel=2).fit(None, None, None, None, [], "r", tmp_path, None)

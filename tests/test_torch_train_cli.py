@@ -82,12 +82,13 @@ runs:
     name: cnn_wide
     params: {{filters: [8, 8], first_stride: 2, epochs: 2, batch_size: 8}}
   - model: transformer
+    params: {{num_heads: 0}}
 """
     )
     ttrain.main(["--config", str(cfg), "--device", "cpu"])
     log = capsys.readouterr().err
     assert "CV fold 2/2" in log
-    assert "Run 'transformer' failed" in log  # not yet ported: logged, the sweep goes on
+    assert "Run 'transformer' failed" in log  # no heads, no module: logged, the sweep goes on
     shortlist = json.loads((workdir / "models" / "shortlist.json").read_text())
     assert shortlist["experiment"] == "port-sweep" and shortlist["n_candidates"] == 2
     assert {c["run_name"].rsplit("_", 2)[0] for c in shortlist["candidates"]} == {"cnn_small", "cnn_wide"}

@@ -32,6 +32,10 @@ ARCHS = {
             "second_stride": 1, "input_shape": [32, 20, 1]},
     "mlp": {"type": "mlp", "hidden_units": [16, 8], "dropout": 0.0, "n_classes": 4, "input_shape": [20]},
     "rnn": {"type": "rnn", "units": 8, "n_layers": 1, "dropout": 0.0, "n_classes": 4, "input_shape": [12, 20]},
+    "ds_cnn": {"type": "ds_cnn", "filters": [8, 16], "dropout": 0.0, "n_classes": 4, "first_stride": 2,
+               "pool": "avg", "batch_norm": True, "input_shape": [32, 20, 1]},
+    "transformer": {"type": "transformer", "num_heads": 4, "ff_dim": 16, "n_blocks": 1, "dropout": 0.0,
+                    "n_classes": 4, "input_shape": [12, 10]},
 }
 LRS = np.array([1e-3, 3e-3, 1e-2], np.float32)
 
@@ -70,17 +74,32 @@ def _inputs(name: str):
 
 
 def _jax_epoch(arch, X, y, idx_mat):
-    """JAX's vmapped init of 3 trials, and their parameters and mean losses
-    after one vm_epoch at dropout 0."""
+    """JAX's vmapped init of 3 trials, and their parameters (with their
+    BatchNorm statistics, ``c/batch_stats/`` keys) and mean losses after one
+    vm_epoch at dropout 0. The BatchNorm scales and biases start off their
+    init (1, 0): at bias 0 the ds_cnn is invariant to its stem BatchNorm's
+    scale, whose gradient is then float32 roundoff, which Adam lifts to whole
+    steps of another sign in each package."""
     module, vm_epoch, _, tx = jtb._get_runner(json.dumps(arch, sort_keys=True))
     variables = jax.vmap(lambda key: module.init({"params": key, "dropout": key}, jnp.zeros((1,) + X.shape[1:]),
                                                  train=False))(jax.random.split(jax.random.PRNGKey(0), 3))
-    params = variables["params"]
+    r = np.random.default_rng(3)
+
+    def moved(path, v):
+        keys = [str(getattr(k, "key", k)) for k in path]
+        if not any(k.startswith("BatchNorm") for k in keys):
+            return v
+        return jnp.asarray(r.uniform(0.5, 1.5, v.shape) if keys[-1] == "scale" else r.normal(0, 0.2, v.shape),
+                           jnp.float32)
+
+    params = jax.tree_util.tree_map_with_path(moved, variables["params"])
     cols = {c: v for c, v in variables.items() if c != "params"}
-    after, _, _, _, losses = vm_epoch(params, cols, jax.vmap(tx.init)(params), jnp.asarray(LRS), jnp.zeros(3),
-                                      jax.vmap(jax.random.PRNGKey)(jnp.arange(1, 4)), jnp.asarray(X),
-                                      jnp.asarray(y), jnp.asarray(idx_mat))
-    return _flat(jax.tree.map(np.asarray, params)), _flat(jax.tree.map(np.asarray, after)), np.asarray(losses)
+    after, cols_after, _, _, losses = vm_epoch(
+        params, cols, jax.vmap(tx.init)(params), jnp.asarray(LRS), jnp.zeros(3),
+        jax.vmap(jax.random.PRNGKey)(jnp.arange(1, 4)), jnp.asarray(X), jnp.asarray(y), jnp.asarray(idx_mat))
+    before = {**_flat(jax.tree.map(np.asarray, params)), **_flat(jax.tree.map(np.asarray, cols), "c")}
+    after = {**_flat(jax.tree.map(np.asarray, after)), **_flat(jax.tree.map(np.asarray, cols_after), "c")}
+    return before, after, np.asarray(losses)
 
 
 def _states(flat, k=3):
@@ -98,23 +117,57 @@ def test_shape_key_equals_jax(draw):
     assert ttb.shape_key({**draw, "learning_rate": 0.5, "dropout": 0.0}) == ttb.shape_key(draw)
 
 
-@pytest.mark.parametrize("name", ["cnn", "mlp", "rnn"])
+@pytest.mark.parametrize("name", ["cnn", "mlp", "rnn", "ds_cnn", "transformer"])
 def test_group_epoch_matches_jax_vm_epoch(name):
+    """The ds_cnn's BatchNorm statistics travel as stacked state and must
+    match JAX's threaded ``batch_stats``. The transformer's key biases are
+    left out: softmax ignores a shift shared by every key, so their gradient
+    is zero in exact arithmetic, they never reach the output, and Adam turns
+    each package's roundoff into steps of its own."""
     arch, X, y, idx_mat = _inputs(name)
     before, after, jax_losses = _jax_epoch(arch, X, y, idx_mat)
     group = ttb.TrialGroup(arch, _states(before), LRS, np.zeros(3), CPU)
     losses = group.epoch(torch.from_numpy(X), torch.from_numpy(y.astype(np.int64)), idx_mat).numpy()
     np.testing.assert_allclose(losses, jax_losses, rtol=1e-5, atol=0)
     expected = _states(after)
+    assert sorted(group.params) == sorted(expected[0])
     for key, p in group.params.items():
         if key.startswith("lstms") and "bias_ih" in key:   # no flax counterpart: held at zero
             assert not p.requires_grad and not p.detach().any()
+            continue
+        if key.endswith("key.bias"):
             continue
         ref = torch.stack([e[key] for e in expected])
         assert float((p.detach() - ref).abs().max() / ref.abs().max()) <= 1e-4, key
 
 
-@pytest.mark.parametrize("name", ["cnn", "mlp", "rnn"])
+@pytest.mark.parametrize("name", ["ds_cnn", "transformer"])
+def test_four_trial_group_equals_the_trials_alone_in_float64(name):
+    """A 4-trial group's first epoch at dropout 0 in float64 against each
+    trial trained alone: losses 1e-5 and parameters (and the ds_cnn's
+    BatchNorm statistics) 1e-4 relative. In float32 the ds_cnn's stem
+    BatchNorm scale, whose gradient at bias 0 is roundoff, moves by 2e-5 of
+    its size between the two (Adam lifts roundoff to whole steps)."""
+    arch, X, y, idx_mat = _inputs(name)
+    states = ttb.init_states(arch, 4, seed=11)
+    lrs = np.array([3e-4, 1e-3, 3e-3, 9e-3])
+    Xt, yt = torch.from_numpy(X).double(), torch.from_numpy(y.astype(np.int64))
+    group = ttb.TrialGroup(arch, states, lrs, np.zeros(4), CPU, torch.float64)
+    losses = group.epoch(Xt, yt, idx_mat).numpy()
+    if name == "ds_cnn":
+        assert any(k.endswith(".var") for k in group.params)
+    for i in range(4):
+        alone = ttb.TrialGroup(arch, [states[i]], lrs[i : i + 1], np.zeros(1), CPU, torch.float64)
+        loss_alone = alone.epoch(Xt, yt, idx_mat).numpy()[0]
+        assert abs(losses[i] - loss_alone) <= 1e-5 * abs(loss_alone)
+        for key, p in alone.params.items():
+            t = p.detach()[0]
+            assert float((group.params[key].detach()[i] - t).abs().max()) <= 1e-4 * float(t.abs().max()), (i, key)
+        if name == "ds_cnn":   # the statistics moved off their init
+            assert not torch.equal(alone.params["bns.0.var"][0], states[i]["bns.0.var"].double())
+
+
+@pytest.mark.parametrize("name", ["cnn", "mlp", "rnn", "transformer"])   # the ds_cnn: in float64, below
 def test_each_trial_of_a_group_equals_the_trial_alone(name):
     arch, X, y, idx_mat = _inputs(name)
     states = ttb.init_states(arch, 3, seed=7)
