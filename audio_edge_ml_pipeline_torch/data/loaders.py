@@ -2,9 +2,10 @@
 metadata dict) and implements __len__.
 
 The audio loaders of the JAX package's ``data/loaders.py``: fsc22 (flat dir
-+ CSV + deterministic stratified split) and audio_folder (class-per-subfolder
-+ header probe + split-manifest filter). The other loader names raise a
-"not yet ported" error from ``build_loader``.
++ CSV + deterministic stratified split), audio_folder (class-per-subfolder
++ header probe + split-manifest filter) and birdeep (one sample per
+annotation row, with its segment's start and end). The other loader names
+raise a "not yet ported" error from ``build_loader``.
 """
 
 from __future__ import annotations
@@ -233,11 +234,83 @@ class AudioFolderLoader(_FolderLoader):
         return {"filename": path.name, "class_dir": class_dir.name, **probe_audio(path)}
 
 
+_SPLIT_FILES = {
+    "train": "train_file.csv",
+    "test": "test_file.csv",
+    "validation": "validation_file.csv",
+    "all": "dataset.csv",
+}
+
+
+class BIRDeepLoader(BaseDatasetLoader):
+    """BIRDeep_AudioAnnotations: one sample per annotation row with
+    start_time/end_time metadata; augmented-row exclusion, min-duration and
+    species filters (reference birdeep_loader.py:59-250)."""
+
+    def __init__(
+        self,
+        dataset_root: Path | str,
+        split: str = "train",
+        audio_subdir: str = "Audios",
+        include_augmented: bool = False,
+        min_segment_duration: float = 0.05,
+        species_filter: Optional[set[str]] = None,
+    ) -> None:
+        if split not in _SPLIT_FILES:
+            raise ValueError(f"split must be one of {list(_SPLIT_FILES)}, got {split!r}.")
+        self.dataset_root = Path(dataset_root)
+        self.audio_dir = self.dataset_root / audio_subdir
+        csv_path = self.dataset_root / _SPLIT_FILES[split]
+        if not csv_path.exists():
+            raise FileNotFoundError(f"CSV file not found: {csv_path}.")
+        import pandas as pd
+
+        df = pd.read_csv(csv_path, on_bad_lines="warn")
+        df.columns = df.columns.str.strip()
+        for col in ("start_time", "end_time", "low_frequency", "high_frequency"):
+            if col in df.columns:
+                df[col] = pd.to_numeric(df[col], errors="coerce")
+        df = df.dropna(subset=["path", "specie", "start_time", "end_time"])
+        if not include_augmented:
+            df = df[~df["path"].str.startswith("Data Augmentation")]
+        if min_segment_duration > 0.0:
+            df = df[(df["end_time"] - df["start_time"]) >= min_segment_duration]
+        if species_filter is not None:
+            df = df[df["specie"].isin(set(species_filter))]
+        self._df = df.reset_index(drop=True)
+
+    def __len__(self) -> int:
+        return len(self._df)
+
+    def __iter__(self):
+        import pandas as pd
+
+        for _, row in self._df.iterrows():
+            audio_path = self.audio_dir / row["path"]
+            if not audio_path.exists():
+                logger.warning("Audio file not found, skipping: %s", audio_path)
+                continue
+            meta = {
+                "start_time": float(row["start_time"]),
+                "end_time": float(row["end_time"]),
+                "recorder": str(row.get("recorder", "")),
+                "date": str(row.get("date", "")),
+            }
+            for c in ("low_frequency", "high_frequency"):
+                if c in row and pd.notna(row[c]):
+                    meta[c] = float(row[c])
+            yield audio_path, str(row["specie"]), meta
+
+    @property
+    def species(self) -> list[str]:
+        return sorted(self._df["specie"].unique().tolist())
+
+
 LOADER_NAMES = (
     "birdeep", "birdeep_image", "fsc22", "audio_folder", "image_folder",
     "video_folder", "text_folder", "text_json", "text_csv", "tabular",
 )
-PORTED_LOADERS = ("fsc22", "audio_folder")
+PORTED_LOADERS = ("birdeep", "fsc22", "audio_folder")
 
 
 def build_loader(
@@ -257,6 +330,8 @@ def build_loader(
     """Loader factory shared by flag- and config-driven CLIs; the same
     arguments as the JAX package's ``build_loader``."""
     cf = set(class_filter) if class_filter else None
+    if loader_name == "birdeep":
+        return BIRDeepLoader(dataset, split=split, species_filter=cf)
     if loader_name == "fsc22":
         return FSC22Loader(dataset, split=split, class_filter=cf)
     if loader_name == "audio_folder":

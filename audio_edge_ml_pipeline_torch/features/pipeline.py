@@ -20,7 +20,6 @@ import argparse
 import json
 import logging
 import shutil
-import time
 from pathlib import Path
 from typing import Optional
 
@@ -28,6 +27,7 @@ import numpy as np
 
 from ..data.loaders import LOADER_NAMES, build_loader
 from ..utils.logging import setup_logging
+from ..utils.profiling import log_timing_report, stage_timer
 from .base import BaseDatasetLoader, BaseFeatureExtractor, FeatureSet
 from .registry import get
 
@@ -58,9 +58,9 @@ class FeaturePipeline:
             "extracting %d samples: %s -> %s",
             len(self.loader), type(self.loader).__name__, self.extractor.name,
         )
-        t0 = time.perf_counter()
-        fs = self.extractor.extract_dataset(self.loader, max_samples=max_samples)
-        logger.info("extraction finished in %.3f s: %s", time.perf_counter() - t0, fs)
+        with stage_timer(f"extract:{self.extractor.name}"):
+            fs = self.extractor.extract_dataset(self.loader, max_samples=max_samples)
+        logger.info("extraction finished: %s", fs)
         return fs
 
     @staticmethod
@@ -200,6 +200,7 @@ def main(argv: Optional[list[str]] = None) -> None:
         for exp in experiments:
             print(f"\n=== {exp.resolved_name()} ===")
             _run_experiment(exp, config_path=Path(args.config), device=args.device)
+        log_timing_report()
         print("\ndone — all experiments written.")
     else:
         from .config import ExperimentConfig
@@ -211,6 +212,7 @@ def main(argv: Optional[list[str]] = None) -> None:
                       "text_folder", "video_folder")
         }
         _run_experiment(ExperimentConfig(class_filter=args.classes, **flags), device=args.device)
+        log_timing_report()
 
 
 if __name__ == "__main__":

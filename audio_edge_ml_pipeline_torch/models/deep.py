@@ -654,17 +654,19 @@ class TorchTrainer(BaseTrainer):
         """One optimizer step on rows ``idx`` of the device-resident (X, y),
         weighted by ``w``; then the BatchNorm statistics of the step's forward
         pass replace the running ones (flax's mutable ``batch_stats``).
-        Returns the batch's (loss, accuracy) on the device."""
-        optimizer.zero_grad(set_to_none=True)
-        stats: dict[str, torch.Tensor] = {}
-        loss, acc = self._batch_loss(X.index_select(0, idx), y.index_select(0, idx), w, idx, stats)
-        loss.backward()
-        optimizer.step()
-        if stats:
-            buffers = dict(self._net.named_buffers())
-            with torch.no_grad():
-                for name, value in stats.items():
-                    buffers[name].copy_(value)
+        Returns the batch's (loss, accuracy) on the device. The step is a
+        ``train_step`` range in an ``AEP_PROFILE_DIR`` trace."""
+        with torch.profiler.record_function("train_step"):
+            optimizer.zero_grad(set_to_none=True)
+            stats: dict[str, torch.Tensor] = {}
+            loss, acc = self._batch_loss(X.index_select(0, idx), y.index_select(0, idx), w, idx, stats)
+            loss.backward()
+            optimizer.step()
+            if stats:
+                buffers = dict(self._net.named_buffers())
+                with torch.no_grad():
+                    for name, value in stats.items():
+                        buffers[name].copy_(value)
         return loss.detach(), acc
 
     @staticmethod
@@ -704,7 +706,6 @@ class TorchTrainer(BaseTrainer):
         net = self._net
         trained = [(k, p) for k, p in net.named_parameters() if p.requires_grad]
         optimizer = torch.optim.Adam([p for _, p in trained], lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8)
-        trained_names = [k for k, _ in trained]
 
         n = len(X_train)
         bs = min(self.batch_size, max(n, 1))
@@ -727,7 +728,7 @@ class TorchTrainer(BaseTrainer):
         ckpt_path = Path(checkpoint_dir) / "train_state.npz" if checkpoint_dir else None
         if ckpt_path is not None and resume:
             restored = load_train_state(ckpt_path, {"params": net.state_dict(), "best": best_state}, optimizer,
-                                        trained_names)
+                                        dict(net.named_parameters()))
             if restored is not None:
                 states, meta = restored
                 net.load_state_dict(states["params"])
@@ -791,7 +792,8 @@ class TorchTrainer(BaseTrainer):
                     logger.info("[%s] Early stopped at epoch %d/%d", self.name, epoch + 1, self.epochs)
                     break
             if ckpt_path is not None and (epoch + 1) % checkpoint_every == 0:
-                save_train_state(ckpt_path, {"params": net.state_dict(), "best": best_state}, optimizer, trained_names,
+                save_train_state(ckpt_path, {"params": net.state_dict(), "best": best_state}, optimizer,
+                                 dict(net.named_parameters()),
                                  {"epoch": epoch, "lr": current_lr, "best_val_loss": best_val_loss,
                                   "es_wait": es_wait, "lr_wait": lr_wait})
             if epoch_callback is not None and epoch_callback(log_epoch, logs):

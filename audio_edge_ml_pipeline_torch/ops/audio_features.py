@@ -131,7 +131,12 @@ def classical_feature_vector(
 
     parts = []
     for key in feats:
-        x = cache[key]  # (B, K, T)
+        # the mean and std in float64: a float32 sum of T equal values ends an
+        # ulp off in a card's reduction order, and the std of a constant group
+        # (the rolloff of a steady tone near 6 kHz) then reads that ulp where
+        # golden reads 0 (card vs CPU 4.9e-4 on an NVIDIA H100 80GB HBM3 at
+        # 700 W, chip_smoke.py phase 4e; gate 1e-4)
+        x = cache[key].to(torch.float64)  # (B, K, T)
         if key in _SCALAR_GROUPS:
             # aggregate over all values (librosa float(x.mean()) over (1, T))
             x = x.reshape(x.shape[0], 1, -1)

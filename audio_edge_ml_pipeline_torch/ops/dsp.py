@@ -501,8 +501,15 @@ def spectral_centroid_from_mag(S: torch.Tensor, sr: float, n_fft: int) -> torch.
 
 
 def spectral_rolloff_from_mag(S: torch.Tensor, sr: float, n_fft: int, roll_percent: float = 0.85) -> torch.Tensor:
+    """The lowest bin frequency at which a frame's cumulative magnitude
+    reaches ``roll_percent`` of its total, (B, F, T) -> (B, T). The running
+    sum is float64: the bin jumps by sr / n_fft where the sum meets the
+    threshold within float32 rounding, and a card's scan sums in another
+    order than golden's (the rolloff std of BIRDeep segments read 7.9e-5
+    card vs CPU on an NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py phase
+    4e; gate 1e-4)."""
     freq = _on(S.device, _fft_freqs, sr, n_fft)
-    total = torch.cumsum(S, dim=1)
+    total = torch.cumsum(S.to(torch.float64), dim=1)
     threshold = roll_percent * total[:, -1:, :]
     cand = torch.where(total < threshold, torch.finfo(S.dtype).max, freq[None, :, None])
     return torch.amin(cand, dim=1)  # (B, T)

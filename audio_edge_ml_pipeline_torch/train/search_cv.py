@@ -17,7 +17,7 @@ on the device:
 
 The folds run on one device. JAX shards the fold axis over several devices
 when asked (``devices > 1``); here that raises where more than one card is
-visible (ROADMAP §1 item 10), and never quietly uses one.
+visible (multi-card sharding is not ported yet), and never quietly uses one.
 """
 
 from __future__ import annotations
@@ -156,8 +156,8 @@ def check_single_card(what: str, devices: int, device: torch.device) -> None:
     quietly running on one card."""
     if devices > 1 and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
-            f"{what} over {devices} cards is not yet ported to audio_edge_ml_pipeline_torch "
-            "(multi-card sharding, ROADMAP §1 item 10); set tune_parallel to 1")
+            f"{what} over {devices} cards is not yet ported to audio_edge_ml_pipeline_torch: it needs "
+            "multi-card sharding (torch.distributed), which the port lacks; set tune_parallel to 1")
 
 
 class _CVEngine:

@@ -29,7 +29,8 @@ Initial weights come from one ``torch.Generator`` a trial, seeded ``seed +
 i`` (flax's initializers, ``models/deep.py::init_weights_``); JAX's
 ``jax.random`` init is not reproduced. Every trial trains on one card: JAX
 shards the trial axis over several devices when asked; here that raises
-where more than one card is visible (ROADMAP §1 item 10).
+where more than one card is visible (multi-card sharding is not ported
+yet).
 
 Divergence from the sequential path (as in JAX): trial VALUES come from the
 final sweep epoch without early stopping; the winner's metrics come from

@@ -46,6 +46,38 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      tree (a copy of the shipped config's mel and MFCC-sequence experiments
      at n_fft 480, 2048 and 482 / 2050): each experiment must launch the
      template instantiation of its route, and 3 rows against golden;
+  4e. BIRDeep (the ``birdeep`` loader): a synthetic BIRDeep_AudioAnnotations
+     tree (10 recordings of 30 s at 16 kHz; 16 train and 4 validation rows a
+     species of the five focal ones and of one that class_filter drops,
+     segments of 0.051-5 s; an augmented row and a 0.02 s segment, both
+     dropped) through ``configs/experiments/birdeep-feature-extraction.yaml``
+     on the card: each FeatureSet against the same config's CPU run and 3
+     rows against golden (1e-5; classical 1e-4 relative), the mel_rfft
+     launches by instantiation; then ``birdeep-5-classes-train.yaml`` (the
+     cnn at 3 epochs) through the train CLI on those sets: lda, pca_svm and
+     cnn shortlisted, and random_forest too where scikit-learn is installed
+     (else its run fails naming it, as in JAX);
+  4f. the augmentation stage through the augment CLI, each run its own
+     process: ``configs/augmentation.yaml`` on 27 classes x 3 train clips of
+     5 s (a split manifest; one class named Thunderstorm, whose override
+     time-stretches), the host backend at workers 1 and 4 byte for byte,
+     the device backend on the card with both TF32 flags on against it
+     (byte for byte but the 12 Thunderstorm copies, those within 5e-3); a
+     copy where every class runs time_stretch then pitch_shift at
+     device_batch 64, device vs host within 1e-2 with equal lengths, every
+     copy through the batched vocoder and none through the oracle; both
+     backends' times and ``time_stretch_batch`` at B=64 x 5 s; then the
+     device backend's tree through the extraction CLI (split all):
+     originals x 5 rows;
+  4g. the AEP_PROFILE_DIR trace at fsc22 scale: the extraction CLI on a
+     tree of 27 classes x 75 five-second clips (2025 rows, 8 chunks) and a
+     2-epoch run of the flagship CNN on that FeatureSet through the train
+     CLI with the variable set; each stage's torch.profiler trace parsed:
+     the top kernels by device time with their launches, the device idle
+     share over the stage's window and over the steps after the first, and
+     every train step's host time between kernels (the first, cuDNN's
+     set-up, apart); the extraction trace's mel_rfft launches must equal
+     the kernel's counter;
   5. serving: the flagship CNN [16, 64, 64] (strides 4, 2; 27 classes) from
      a seeded generator, saved as a flax-layout bundle, loaded back, and
      8 edge-simulator requests; logits on the card against the CPU;
@@ -122,8 +154,11 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      phase 2 left every batch_stats leaf bit for bit, the teacher's logits
      card vs CPU on 4 rows within 1e-4 of their largest, the student served
      by the edge simulator (8 requests, one mel_rfft launch each) and
-     deployed to C as above, and a checkpointed teacher run resumed after
-     its first epoch with its epoch counter and lr;
+     deployed to C as above, every parameter's Adam moments in the phase
+     checkpoints (optax's layout; phase 1's frozen ones zero), and a
+     checkpointed teacher run resumed after its first epoch with its epoch
+     counter and lr, its step against an uninterrupted run's (loss 1e-5,
+     gradients from the moments 1e-4 of each tensor's largest);
   6. timing with CUDA events at B=512 five-second clips (at n_fft 512 each
      entry's FFT route beside its dense kernel, in turns, and the plain
      versions; at n_fft 400 the FFT kernel beside both dense kernels, in
@@ -148,8 +183,8 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      project; a ds_cnn and a transformer train step at B=32 and B=512, a
      teacher step at 224 in phase 1 and phase 2 at B=16 and B=128, a KD
      student step at B=16 and B=512, and the teacher's predict_proba in
-     rows/s;
-  7. one JSON line per kernel, then the result line.
+     rows/s; from 4f, the augmentation stage's host and device times;
+  7. one JSON line per kernel, the run's total time, then the result line.
 
 Matmuls and cuDNN convolutions run in full float32 throughout (TF32 off),
 but for phases 3c and 5d, which turn TF32 on: the features must stay within
@@ -194,6 +229,7 @@ GRAD_TOL = 1e-4                    # train-step gradients card vs CPU, max|d| ov
                                    # float32 reductions over 32 x 40 x 501 inputs in other orders, and
                                    # cuDNN's backward may sum in a run-dependent order
 TRAIN_EPOCHS = 3
+TRACE_EPOCHS = 2                   # the traced cnn run of phase 4g: ~51 steps an epoch at fsc22 scale
 DENSE_N_FFT = 482                  # M = 241 has no FFT plan: the dense kernels' route at 16 kHz
 DENSE_N_FFT_22 = 2050              # M = 1025 = 5^2 x 41: the dense route at the 22.05 kHz front end
 NEW_PLANS = (480, 2048)            # the four-pass plans: M = 240 = 4 4 3 5, M = 1024 = 8 8 4 4
@@ -1076,6 +1112,32 @@ def host_ms(fn, reps: int = 3) -> float:
     return float(np.median(times))
 
 
+CKPT_INNER = "o/.inner_state/0/"   # optax's inject_hyperparams(adam) state in a train_state.npz
+ADAM_B1 = 0.9
+
+
+def checkpoint_set(data, group: str) -> dict[str, np.ndarray]:
+    """Set ``group`` ("params" or "best") of a train_state.npz (the JAX
+    package's layout) in the bundle's keys: ``p/<flax path>`` and
+    ``c/batch_stats/<flax path>``."""
+    cols = {"params": "cols", "best": "best_cols"}[group]
+    return {**{"p/" + k[len(f"p/{group}/"):]: data[k] for k in data if k.startswith(f"p/{group}/")},
+            **{"c/" + k[len(f"p/{cols}/"):]: data[k] for k in data if k.startswith(f"p/{cols}/")}}
+
+
+def checkpoint_moments(data, leaf: str = ".mu") -> dict[str, np.ndarray]:
+    """Adam's first (``.mu``) or second (``.nu``) moments of a train_state.npz by flax path."""
+    prefix = f"{CKPT_INNER}{leaf}/"
+    return {k[len(prefix):]: data[k] for k in data if k.startswith(prefix)}
+
+
+def step_gradients(after, before) -> dict[str, np.ndarray]:
+    """The gradient of the one step between two train_state.npz of a run,
+    from Adam's first moments: mu' = b1 mu + (1 - b1) g."""
+    mu0 = checkpoint_moments(before)
+    return {k: (v.astype(np.float64) - ADAM_B1 * mu0[k]) / (1 - ADAM_B1) for k, v in checkpoint_moments(after).items()}
+
+
 def seeded_bundle(model: str, params: dict, input_shape: tuple, path: Path, seed: int = 0) -> Path:
     """A bundle of ``model`` (``params``: its widths) for inputs of
     ``input_shape``, from flax's initializers seeded ``seed``, its norm layers
@@ -1353,10 +1415,9 @@ def phase_5g(dev, mel108, mfcc108, t5e: dict) -> dict:
             saved = {}
             for phase in ("phase1", "phase2"):
                 data = np.load(Path(doc["runs"][0]["params"]["checkpoint_dir"]) / phase / "train_state.npz")
-                saved[phase] = {group: tdeep.params_to_flax({k[len(f"s/{group}/"):]: torch.from_numpy(data[k])
-                                                             for k in data.files if k.startswith(f"s/{group}/")})
-                                for group in ("params", "best")}
+                saved[phase] = {group: checkpoint_set(data, group) for group in ("params", "best")}
                 saved[phase]["meta"] = json.loads(bytes(data["__meta__"].tobytes()).decode())
+                saved[phase]["moved_moments"] = sorted(k for k, v in checkpoint_moments(data).items() if v.any())
             p1, p2_start, p2 = saved["phase1"]["params"], saved["phase1"]["best"], saved["phase2"]["params"]
             head = [k for k in start if k.startswith("p/head/")]
             frozen = [k for k in start if k.startswith(("p/backbone/", "c/"))]
@@ -1375,6 +1436,11 @@ def phase_5g(dev, mel108, mfcc108, t5e: dict) -> dict:
                   f"5g: the teacher's phase checkpoints stopped at epochs {epochs_saved}")
             check(not frozen_moved and len(head_moved) == 2, "5g: phase 1 moved more than the head")
             check(not stats_moved and len(stats) == 98 and backbone_moved, "5g: phase 2 moved the backbone's statistics")
+            print(f"[5g] the phase-1 checkpoint holds moments for {len(start) - len(stats)} parameters (optax's "
+                  f"layout), nonzero for {saved['phase1']['moved_moments']}; phase 2's nonzero for "
+                  f"{len(saved['phase2']['moved_moments'])}")
+            check(saved["phase1"]["moved_moments"] == ["head/bias", "head/kernel"]
+                  and len(saved["phase2"]["moved_moments"]) > 200, "5g: the frozen parameters' moments")
             teacher_bundle, student_bundle = models / teacher_name / "model.flax.npz", models / student_name / "model.flax.npz"
             teacher, teacher_cpu = tdeep.load_any_model(teacher_bundle), tdeep.load_any_model(teacher_bundle, device="cpu")
             X_val, y_val = t5e["mel_sets"]["validation"]
@@ -1414,25 +1480,51 @@ def phase_5g(dev, mel108, mfcc108, t5e: dict) -> dict:
             check(out["mel_launches"] == 8 and sim_dense == 0, "5g: the simulator did not launch mel_rfft once a request")
             check(err <= C_SCORE_TOL and same, "5g: the student's C forward disagrees with the card")
 
-            # a checkpointed teacher run, then one of two epochs resumed from it: the second is built with another
-            # lr, so the lr it ends at says whether it took the checkpoint's
+            # a checkpointed teacher run of one epoch, then one of two epochs resumed from it (built with another lr,
+            # so the lr it ends at says whether it took the checkpoint's), beside an uninterrupted run of two epochs:
+            # one step an epoch (batch = the 48 rows) at dropout 0, so the resumed step is the uninterrupted one's
             sub = np.isin(y_tr, ids)
             Xs, ys = X_tr[sub][:64], np.searchsorted(sorted(ids), y_tr[sub][:64])
-            ckpt = tmp / "teacher_ckpt"
-            epochs_run: list[int] = []
-            metas: list[dict] = []
-            for epochs, lr in ((1, 1e-3), (2, 2e-3)):
+            runs: dict[str, dict] = {}
+            for tag, epochs, lr, ckpt in (("first", 1, 1e-3, "teacher_ckpt"), ("resumed", 2, 2e-3, "teacher_ckpt"),
+                                          ("whole", 2, 1e-3, "teacher_whole")):
+                rec: dict = {"epochs": [], "loss": {}}
+                state = tmp / ckpt / "phase1" / "train_state.npz"
+
+                def cb(e, logs, rec=rec, state=state):
+                    rec["epochs"].append(e)
+                    rec["loss"][e] = logs["loss"]
+                    if e == 0:
+                        rec["epoch0"] = dict(np.load(state))
+                    return False
+
                 tr = get_model("efficientnet_teacher")(epochs=epochs, warmup_epochs=epochs, image_size=TEACHER_IMAGE,
-                                                       batch_size=16, dropout=0.3, learning_rate=lr,
-                                                       checkpoint_dir=str(ckpt), device=dev)
-                tr.fit(Xs[:48], ys[:48], Xs[48:], ys[48:], sorted(kd_names), "ckpt", tmp / f"ckpt_{epochs}", None,
-                       epoch_callback=lambda e, logs: epochs_run.append(e) and False)
-                metas.append(json.loads(bytes(np.load(ckpt / "phase1" / "train_state.npz")["__meta__"].tobytes()).decode()))
-            print(f"[5g] teacher with checkpoint_dir: a 1-epoch run at lr 1e-3 left {metas[0]}; a 2-epoch run built "
-                  f"at lr 2e-3 resumed from it ran epochs {epochs_run[1:]} and left {metas[1]}")
-            check(epochs_run == [0, 1] and metas[0]["epoch"] == 0 and metas[1]["epoch"] == 1
-                  and metas[0]["lr"] == metas[1]["lr"] == 1e-3,
+                                                       batch_size=48, dropout=0.0, learning_rate=lr,
+                                                       checkpoint_dir=str(tmp / ckpt), device=dev)
+                tr.fit(Xs[:48], ys[:48], Xs[48:], ys[48:], sorted(kd_names), tag, tmp / f"ckpt_{tag}", None,
+                       epoch_callback=cb)
+                rec["file"] = dict(np.load(state))
+                rec["meta"] = json.loads(bytes(rec["file"]["__meta__"].tobytes()).decode())
+                runs[tag] = rec
+            first, resumed, whole = runs["first"], runs["resumed"], runs["whole"]
+            g_res = step_gradients(resumed["file"], first["file"])
+            g_whole = step_gradients(whole["file"], whole["epoch0"])
+            grad_gap_res = max(float(np.abs(g_res[k] - g).max() / np.abs(g).max()) if g.any() else
+                               float(np.abs(g_res[k]).max()) for k, g in g_whole.items())
+            loss_gap_res = abs(resumed["loss"][1] - whole["loss"][1]) / abs(whole["loss"][1])
+            print(f"[5g] teacher with checkpoint_dir: a 1-epoch run at lr 1e-3 left {first['meta']}; a 2-epoch run "
+                  f"built at lr 2e-3 resumed from it ran epochs {resumed['epochs']} and left {resumed['meta']}; its "
+                  f"step against an uninterrupted 2-epoch run's second (one step an epoch, dropout 0): loss "
+                  f"{resumed['loss'][1]:.6f} vs {whole['loss'][1]:.6f} (rel {loss_gap_res:.3e}, tol {STEP_LOSS_TOL:g}), "
+                  f"gradients from the moments max|d| over each tensor's max|g| {grad_gap_res:.3e} (tol {GRAD_TOL:g}; "
+                  f"{sum(bool(g.any()) for g in g_whole.values())} of {len(g_whole)} tensors trained)")
+            check(first["epochs"] == [0] and resumed["epochs"] == [1] and whole["epochs"] == [0, 1]
+                  and first["meta"]["epoch"] == 0 and resumed["meta"]["epoch"] == 1
+                  and first["meta"]["lr"] == resumed["meta"]["lr"] == 1e-3,
                   "5g: the resumed teacher did not restore its epoch counter and lr")
+            check(int(resumed["file"]["o/.count"]) == int(whole["file"]["o/.count"]) == 2
+                  and loss_gap_res <= STEP_LOSS_TOL and grad_gap_res <= GRAD_TOL,
+                  "5g: the resumed step disagrees with the uninterrupted one")
             out.update(teacher=teacher, student=student, kd_val=Xk)
         finally:
             os.environ.pop("MLFLOW_TRACKING_URI", None)
@@ -1440,9 +1532,498 @@ def phase_5g(dev, mel108, mfcc108, t5e: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 4e-4g: BIRDeep end to end, the augmentation stage, the device trace
+# ---------------------------------------------------------------------------
+
+BIRDEEP_RECORDINGS, BIRDEEP_RECORDING_S = 10, 30   # recordings a few tens of seconds long, 16 kHz
+BIRDEEP_ROWS = {"train": 16, "validation": 4}      # annotation rows a species and split
+BIRDEEP_SEGMENTS_S = (0.051, 0.3, 0.8, 1.5, 3.0, 5.0)  # segment lengths (the classical vector batches by exact length;
+                                                     # 0.05 itself falls to either side of min_segment_duration by rounding)
+BIRDEEP_DROPPED = "Passer domesticus"              # a species the config's class_filter drops
+AUG_PER_CLASS = 3                                  # train clips a class in the augmentation tree (+1 validation)
+AUG_ONE_STAGE_TOL, AUG_TWO_STAGE_TOL = 5e-3, 1e-2   # device vs host backend (tests/test_effects_jax.py)
+AUG_BATCH = 64                                     # JAX's default device_batch
+
+
+def write_birdeep_tree(root: Path, rng: np.random.Generator, focal: list[str]) -> dict[str, int]:
+    """A BIRDeep_AudioAnnotations tree: BIRDEEP_RECORDINGS recordings of
+    BIRDEEP_RECORDING_S s (noise, with a species' two-tone call at each of its
+    segments) under Audios/<site>/<date>/, and train_file.csv /
+    validation_file.csv with BIRDEEP_ROWS rows a species of the focal five and
+    of BIRDEEP_DROPPED, segments of BIRDEEP_SEGMENTS_S; per split one "Data
+    Augmentation" row and one segment under min_segment_duration, both of
+    which the loader drops. Returns the focal rows a split."""
+    from audio_edge_ml_pipeline_torch.data.audio_io import write_wav
+
+    root.mkdir(parents=True)
+    n = BIRDEEP_RECORDING_S * SR
+    t = np.arange(n) / SR
+    waves = [0.02 * rng.standard_normal(n) for _ in range(BIRDEEP_RECORDINGS)]
+    rels = [f"SITE{r % 3 + 1}/2026_03_{r + 1:02d}/SITE{r % 3 + 1}_202603{r + 1:02d}_060000.WAV"
+            for r in range(BIRDEEP_RECORDINGS)]
+    header = "path,specie,start_time,end_time,low_frequency,high_frequency,recorder,date"
+    species = [*focal, BIRDEEP_DROPPED]
+    for split, per in BIRDEEP_ROWS.items():
+        rows = [header]
+        for k, sp in enumerate(species):
+            f0 = 900.0 * 1.35 ** k
+            for _ in range(per):
+                r = int(rng.integers(BIRDEEP_RECORDINGS))
+                dur = float(rng.choice(BIRDEEP_SEGMENTS_S))
+                start = round(float(rng.uniform(0.0, BIRDEEP_RECORDING_S - 5.5)), 3)
+                seg = (t >= start) & (t < start + dur)
+                waves[r][seg] += 0.3 * np.sin(2 * np.pi * f0 * t[seg]) + 0.15 * np.sin(2 * np.pi * 2.1 * f0 * t[seg])
+                rows.append(f"{rels[r]},{sp},{start:.3f},{start + dur:.3f},{0.8 * f0:.1f},{2.4 * f0:.1f},"
+                            f"{rels[r].split('/')[0]},{rels[r].split('/')[1]}")
+        rows.append(f"Data Augmentation/{rels[0]},{focal[0]},1.0,2.0,,,SITE1,2026_03_01")
+        rows.append(f"{rels[1]},{focal[1]},4.00,4.02,,,SITE2,2026_03_02")
+        (root / f"{split}_file.csv").write_text("\n".join(rows) + "\n")
+    for rel, w in zip(rels, waves):
+        (root / "Audios" / rel).parent.mkdir(parents=True, exist_ok=True)
+        write_wav(root / "Audios" / rel, (0.8 * w / np.abs(w).max()).astype(np.float32), SR)
+    return {split: per * len(focal) for split, per in BIRDEEP_ROWS.items()}
+
+
+def birdeep_configs(dataset: Path, out_root: Path) -> tuple[Path, Path, dict, dict]:
+    """configs/experiments/birdeep-feature-extraction.yaml with its dataset
+    and outputs moved under ``out_root``/card, a copy writing to
+    ``out_root``/cpu, and birdeep-5-classes-train.yaml on the card's outputs
+    with the cnn's epochs cut to TRAIN_EPOCHS, all written as JSON. Returns
+    (the extraction config, its CPU copy, the card's extraction document,
+    the training document)."""
+    import yaml
+
+    shipped = (REPO / "configs" / "experiments" / "birdeep-feature-extraction.yaml").read_text()
+    out_root.mkdir(parents=True)
+    docs = {}
+    for sub in ("card", "cpu"):
+        doc = yaml.safe_load(shipped)
+        doc["dataset"] = str(dataset)
+        for exp in doc["experiments"]:
+            exp["output"] = str(out_root / sub / Path(exp["output"]).name)
+        (out_root / f"birdeep-feature-extraction-{sub}.yaml").write_text(json.dumps(doc, indent=1))
+        docs[sub] = doc
+
+    def moved(path):
+        return str(out_root / "card" / Path(path).name)
+
+    tr = yaml.safe_load((REPO / "configs" / "experiments" / "birdeep-5-classes-train.yaml").read_text())
+    tr["features_dir"], tr["features_test_dir"] = moved(tr["features_dir"]), moved(tr["features_test_dir"])
+    tr["output_dir"] = str(out_root / "models")
+    check([r["model"] for r in tr["runs"]] == ["lda", "pca_svm", "random_forest", "cnn"],
+          "birdeep-5-classes-train.yaml's runs")
+    for run in tr["runs"]:
+        for key in ("features_dir", "features_test_dir"):
+            if key in run:
+                run[key] = moved(run[key])
+        if "epochs" in run.get("params", {}):
+            run["params"]["epochs"] = TRAIN_EPOCHS
+    (out_root / "birdeep-5-classes-train.yaml").write_text(json.dumps(tr, indent=1))
+    return (out_root / "birdeep-feature-extraction-card.yaml", out_root / "birdeep-feature-extraction-cpu.yaml",
+            docs["card"], tr)
+
+
+def phase_4e(dev, tmp: Path) -> dict:
+    """Phase 4e (ROADMAP §3 i): configs/experiments/birdeep-feature-extraction.yaml
+    through the extraction CLI on the card on a synthetic BIRDeep tree, each
+    FeatureSet against the CPU run and 3 rows against golden, its kernel
+    launches counted; then birdeep-5-classes-train.yaml through the train CLI
+    on those sets."""
+    import importlib.util
+    import logging
+
+    import torch
+
+    from audio_edge_ml_pipeline_torch.data.loaders import BIRDeepLoader
+    from audio_edge_ml_pipeline_torch.features import get, pipeline
+    from audio_edge_ml_pipeline_torch.ops import golden, mel_kernel
+    from audio_edge_ml_pipeline_torch.train import train
+
+    t_start = time.perf_counter()
+    root = tmp / "BIRDeep_AudioAnnotations"
+    cfg, cfg_cpu, doc, train_doc = birdeep_configs(root, tmp / "birdeep")
+    rows = write_birdeep_tree(root, np.random.default_rng(11), doc["class_filter"])
+    counters = (mel_kernel.counter, mel_kernel.counter_dense, mel_kernel.counter_f64)
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    pipeline.main(["--config", str(cfg)])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = tuple(c.launches for c in counters)
+    by_inst = dict(mel_kernel.counter.by_instantiation)
+    t0 = time.perf_counter()
+    pipeline.main(["--config", str(cfg_cpu), "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    check(tuple(c.launches for c in counters) == launches, "4e: the CPU run launched a kernel")
+    out: dict = {"mel_launches": by_inst.get("mel_rfft<256, float>", 0),
+                 "f64_launches": by_inst.get("mel_rfft<512, double>", 0)}
+    print(f"[4e] {Path(cfg).name} through the extraction CLI on the card in {card_s:.2f} s (the CPU run "
+          f"{cpu_s:.2f} s): launches (all, dense, float64) {launches}, by instantiation {by_inst}")
+    for exp in doc["experiments"]:
+        classical = exp["extractor"] == "audio_classical"
+        split = exp["split"]
+        fs = pipeline.FeaturePipeline.load(exp["output"])
+        fs_cpu = pipeline.FeaturePipeline.load(Path(exp["output"]).parent.parent / "cpu" / Path(exp["output"]).name)
+        samples = list(BIRDeepLoader(root, split=split, species_filter=set(doc["class_filter"])))
+        shape = (302,) if classical else (N_MELS, 1 + CLIP // HOP)
+        check(fs.features.shape == (rows[split], *shape) == fs_cpu.features.shape and len(samples) == rows[split],
+              f"4e: {exp['name']} FeatureSet shape {fs.features.shape}")
+        check(sorted(fs.label_names) == sorted(doc["class_filter"]) and fs.metadata == [m for _, _, m in samples]
+              and [fs.label_names[c] for c in fs.labels] == [s for _, s, _ in samples], f"4e: {exp['name']} labels")
+        d = np.abs(fs.features.astype(np.float64) - fs_cpu.features)
+        tol = CLASSICAL_REL_TOL if classical else FEATURE_TOL
+        gap = float((d / np.maximum(np.abs(fs_cpu.features), 1.0)).max() if classical else d.max())
+        loader = get(exp["extractor"])(device="cpu", **exp.get("extractor_params", {}))
+        gold_err = 0.0
+        for j in (0, rows[split] // 2, rows[split] - 1):
+            path, _, meta = samples[j]
+            g = (golden.classical_feature_vector if classical else golden.mel_spec_feature)(
+                loader._load_clip(path, meta["start_time"], meta["end_time"]).astype(np.float64))
+            dj = np.abs(fs.features[j] - g)
+            gold_err = max(gold_err, float((dj / np.maximum(np.abs(g), 1.0)).max() if classical else dj.max()))
+        seg_s = sorted({round(m["end_time"] - m["start_time"], 3) for m in fs.metadata})
+        print(f"[4e] {exp['name']} ({exp['extractor']}, {split}): {fs}; segments {seg_s} s; card vs CPU "
+              f"{'max|d|/max(|cpu|, 1)' if classical else 'max|d|'} {gap:.3e}, 3 rows vs float64 golden {gold_err:.3e} "
+              f"(tol {tol:g})")
+        check(gap <= tol and gold_err <= tol, f"4e: {exp['name']} misses its gate")
+    check(out["mel_launches"] == 2 and out["f64_launches"] >= 2 and launches[1] == 0,
+          f"4e: the mel experiments launched mel_rfft<256, float> {out['mel_launches']} times, not once each")
+
+    # birdeep-5-classes-train.yaml on those FeatureSets, through the train CLI on the card
+    messages: list[str] = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda record: messages.append(record.getMessage())
+    logging.getLogger("audio_edge_ml_pipeline_torch").addHandler(handler)
+    os.environ["MLFLOW_TRACKING_URI"] = str(tmp / "birdeep" / "mlruns")
+    cwd = os.getcwd()
+    os.chdir(tmp / "birdeep")
+    t0 = time.perf_counter()
+    try:
+        train.main(["--config", str(tmp / "birdeep" / "birdeep-5-classes-train.yaml")])
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+        os.environ.pop("MLFLOW_TRACKING_URI")
+        logging.getLogger("audio_edge_ml_pipeline_torch").removeHandler(handler)
+    train_s = time.perf_counter() - t0
+    shortlist = json.loads((tmp / "birdeep" / "models" / "shortlist.json").read_text())
+    models = sorted(c["model"] for c in shortlist["candidates"])
+    failures = [m for m in messages if "failed" in m]
+    sklearn = importlib.util.find_spec("sklearn") is not None
+    print(f"[4e] {train_doc['experiment']} (birdeep-5-classes-train.yaml, the cnn at {TRAIN_EPOCHS} epochs) through "
+          f"the train CLI on the card in {train_s:.2f} s: shortlist "
+          f"{[(c['rank'], c['model'], round(c['val_f1_macro'], 4)) for c in shortlist['candidates']]}; scikit-learn "
+          f"{'present' if sklearn else 'absent'}; logged failures {failures or 'none'}")
+    if sklearn:
+        check(models == ["cnn", "lda", "pca_svm", "random_forest"] and not failures, "4e: all four runs shortlisted")
+    else:   # the random forest is scikit-learn's in both packages
+        check(models == ["cnn", "lda", "pca_svm"] and len(failures) == 1 and "random_forest" in failures[0]
+              and "scikit-learn" in failures[0], "4e: the three device runs shortlisted, the forest refused by name")
+    print(f"[4e] phase 4e in {time.perf_counter() - t_start:.2f} s")
+    return out
+
+
+def write_aug_tree(root: Path, rng: np.random.Generator) -> list[str]:
+    """The augmentation stage's input: N_CLASSES class folders of 5 s 16 kHz
+    clips, AUG_PER_CLASS + 1 a class, one class named Thunderstorm (the
+    shipped config's override), and a split_manifest.json that puts
+    AUG_PER_CLASS a class in train and one in validation."""
+    from audio_edge_ml_pipeline_torch.data.audio_io import write_wav
+
+    names = [f"class{c:02d}" for c in range(N_CLASSES)]
+    names[5] = "Thunderstorm"
+    manifest: dict[str, list[str]] = {"train": [], "validation": []}
+    for name in names:
+        (root / name).mkdir(parents=True)
+        for i, y in enumerate(synth_clips(rng, AUG_PER_CLASS + 1)):
+            write_wav(root / name / f"{i}.wav", y, SR)
+            manifest["train" if i < AUG_PER_CLASS else "validation"].append(f"{name}/{i}.wav")
+    (root / "split_manifest.json").write_text(json.dumps(manifest))
+    return names
+
+
+def aug_config(src: Path, out: Path, path: Path, **over) -> Path:
+    """configs/augmentation.yaml with its dataset, manifest and output moved,
+    ``over`` set; written as JSON to ``path``."""
+    import yaml
+
+    doc = yaml.safe_load((REPO / "configs" / "augmentation.yaml").read_text())
+    doc.update(dataset=str(src), manifest=str(src / "split_manifest.json"), output_dir=str(out), **over)
+    path.write_text(json.dumps(doc, indent=1))
+    return path
+
+
+def augment_cli(cfg: Path, *extra: str, tf32: bool = False) -> tuple[float, str]:
+    """The augment CLI as a user runs it, in its own process (its host pool
+    forks, which a process that has started CUDA must not): (seconds, its
+    log). ``tf32`` turns both TF32 flags on in that process first."""
+    argv = ["--config", str(cfg), *extra]
+    code = ("import sys, torch\n"
+            + ("torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True\n" if tf32 else "")
+            + "from audio_edge_ml_pipeline_torch.features.augment import main\n"
+            + f"main({argv!r})\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=cfg.parent,
+                       timeout=600)
+    secs = time.perf_counter() - t0
+    check(r.returncode == 0, f"the augment CLI failed on {cfg.name}: {r.stderr[-3000:]}")
+    return secs, r.stdout + r.stderr
+
+
+def wav_tree(root: Path) -> dict[str, bytes]:
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*.wav"))}
+
+
+def vocoder_counts(log: str) -> tuple[int, int]:
+    m = re.search(r"vocoder copies: (\d+) batched, (\d+) on the oracle", log)
+    check(m is not None, "the device backend did not log its vocoder copies")
+    return int(m[1]), int(m[2])
+
+
+def phase_4f(dev, tmp: Path) -> dict:
+    """Phase 4f: the augmentation stage. configs/augmentation.yaml (paths
+    moved) through the augment CLI: the host backend at workers 1 and 4 byte
+    for byte, the device backend on the card (both TF32 flags on) against
+    it; a copy where every class runs time_stretch then pitch_shift at
+    device_batch 64, device against host; time_stretch_batch alone at B=64 x
+    5 s; then the augmented tree through the extraction CLI (split all)."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.data.audio_io import load_audio
+    from audio_edge_ml_pipeline_torch.features import pipeline
+    from audio_edge_ml_pipeline_torch.ops import effects_device, mel_kernel
+
+    t_start = time.perf_counter()
+    root = tmp / "aug"
+    src = root / "fsc22_device"
+    names = write_aug_tree(src, np.random.default_rng(12))
+    n_files = N_CLASSES * AUG_PER_CLASS
+    out: dict = {}
+    s_h1, _ = augment_cli(aug_config(src, root / "host1", root / "host1.yaml", workers=1))
+    s_h4, _ = augment_cli(aug_config(src, root / "host4", root / "host4.yaml", workers=4))
+    host1, host4 = wav_tree(root / "host1"), wav_tree(root / "host4")
+    check(len(host1) == n_files * 5 and host1 == host4, "4f: the host backend's trees at workers 1 and 4 differ")
+    s_dev, log_dev = augment_cli(aug_config(src, root / "dev", root / "dev.yaml", backend="device"), tf32=True)
+    dev_tree = wav_tree(root / "dev")
+    check(dev_tree.keys() == host1.keys(), "4f: the device backend wrote other files")
+    storm = [k for k in host1 if k.startswith("Thunderstorm/") and "_aug" in k]
+    same = [k for k in host1 if k not in storm and host1[k] == dev_tree[k]]
+    storm_err = max(float(np.abs(load_audio(root / "host1" / k)[0] - load_audio(root / "dev" / k)[0]).max())
+                    for k in storm)
+    counts = vocoder_counts(log_dev)
+    print(f"[4f] configs/augmentation.yaml on {n_files} train clips x 4 copies: host backend {s_h1:.2f} s at "
+          f"workers 1, {s_h4:.2f} s at 4 (byte-identical); device backend on the card (TF32 on) {s_dev:.2f} s: "
+          f"{len(same)} of {len(host1) - len(storm)} non-vocoder files byte-identical, the {len(storm)} Thunderstorm "
+          f"copies max|d| {storm_err:.3e} (tol {AUG_ONE_STAGE_TOL:g}); vocoder copies (batched, oracle) {counts}")
+    check(len(same) == len(host1) - len(storm) and len(storm) == 4 * AUG_PER_CLASS, "4f: device files differ")
+    check(storm_err <= AUG_ONE_STAGE_TOL and counts == (4 * AUG_PER_CLASS, 0), "4f: the Thunderstorm copies")
+
+    # every class through time_stretch then pitch_shift at device_batch 64
+    chain = {"augmentations": [{"type": "time_stretch"}, {"type": "pitch_shift"}], "class_overrides": {},
+             "device_batch": AUG_BATCH}
+    s_vh, _ = augment_cli(aug_config(src, root / "voc_host", root / "voc_host.yaml", **chain))
+    s_vd, log_vd = augment_cli(aug_config(src, root / "voc_dev", root / "voc_dev.yaml", backend="device", **chain),
+                               tf32=True)
+    vh, vd = wav_tree(root / "voc_host"), wav_tree(root / "voc_dev")
+    check(vh.keys() == vd.keys() and len(vh) == n_files * 5, "4f: the vocoder trees hold other files")
+    err, lengths_equal = 0.0, True
+    for k in vh:
+        a, b = load_audio(root / "voc_host" / k)[0], load_audio(root / "voc_dev" / k)[0]
+        lengths_equal &= a.shape == b.shape
+        err = max(err, float(np.abs(a - b).max()))
+    vcounts = vocoder_counts(log_vd)
+    workers = min(8, os.cpu_count() or 1)
+    print(f"[4f] time_stretch then pitch_shift on every class, device_batch {AUG_BATCH}: host backend {s_vh:.2f} s "
+          f"(workers {workers}), device backend on the card (TF32 on) {s_vd:.2f} s; device vs host max|d| {err:.3e} "
+          f"(tol {AUG_TWO_STAGE_TOL:g}), lengths equal {lengths_equal}; vocoder copies (batched, oracle) {vcounts}")
+    check(lengths_equal and err <= AUG_TWO_STAGE_TOL, "4f: the device vocoder disagrees with the host backend")
+    check(vcounts == (2 * 4 * n_files, 0), f"4f: vocoder copies {vcounts}: the oracle took copies at device_batch 64")
+    out.update(aug_host_s=s_vh, aug_dev_s=s_vd, aug_workers=workers, shipped_host_s=s_h1, shipped_dev_s=s_dev)
+
+    # time_stretch_batch alone at B=64 five-second clips
+    clips = synth_clips(np.random.default_rng(13), AUG_BATCH)
+    rates = np.random.default_rng(14).uniform(0.85, 1.15, AUG_BATCH)
+    out["stretch_ms"] = host_ms(lambda: effects_device.time_stretch_batch(clips, rates, device=dev))
+    out["stretch_cpu_ms"] = host_ms(lambda: effects_device.time_stretch_batch(clips[:8], rates[:8], device="cpu"),
+                                    reps=1) * AUG_BATCH / 8
+
+    # the augmented tree through the extraction CLI on the card, split all
+    mel_kernel.counter.reset()
+    mel_kernel.counter_dense.reset()
+    pipeline.main(["--loader", "audio_folder", "--dataset", str(root / "dev"), "--split", "all", "--extractor",
+                   "audio_mel_spec", "--output", str(root / "mel")])
+    torch.cuda.synchronize()
+    out["mel_launches"] = mel_kernel.counter.launches
+    fs = pipeline.FeaturePipeline.load(root / "mel")
+    print(f"[4f] the device backend's tree through the extraction CLI (audio_mel_spec, split all): {fs}; mel_rfft "
+          f"launches {out['mel_launches']}, dense {mel_kernel.counter_dense.launches}")
+    check(fs.features.shape == (n_files * 5, N_MELS, 1 + CLIP // HOP) and fs.n_classes == N_CLASSES
+          and sorted(fs.label_names) == sorted(names) and bool(np.isfinite(fs.features).all()),
+          "4f: the augmented FeatureSet")
+    check(out["mel_launches"] >= 1 and mel_kernel.counter_dense.launches == 0, "4f: the extraction's mel kernel")
+    print(f"[4f] phase 4f in {time.perf_counter() - t_start:.2f} s")
+    return out
+
+
+def kernel_intervals(events: list[dict]) -> list[tuple[float, float]]:
+    """The union of the kernels' [start, end) intervals in a trace, in µs."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel")
+    union: list[list[float]] = []
+    for a, b in spans:
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
+    return [(a, b) for a, b in union]
+
+
+def covered(union: list[tuple[float, float]], a: float, b: float) -> float:
+    return sum(max(0.0, min(b, y) - max(a, x)) for x, y in union)
+
+
+def trace_summary(stage_dir: Path) -> dict:
+    """A stage's torch.profiler trace: kernels by total device time (µs,
+    launches), the device idle share over the stage's window (1 - the union
+    of kernel intervals over the span of all its timed events) and over the
+    train steps after the first, and each train_step range's host time, the
+    kernel time inside it and the kernel launches made in it."""
+    (path,) = stage_dir.glob("*.pt.trace.json")
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    kernels: dict[str, list[float]] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            k = kernels.setdefault(e["name"], [0.0, 0])
+            k[0] += e["dur"]
+            k[1] += 1
+    union = kernel_intervals(events)
+    t0, t1 = min(e["ts"] for e in events), max(e["ts"] + e["dur"] for e in events)
+    steps = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == "train_step"]
+    launches = [e for e in events if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e["name"]]
+    steps.sort(key=lambda s: s["ts"])
+    a, b = (steps[1]["ts"], steps[-1]["ts"] + steps[-1]["dur"]) if len(steps) > 1 else (t0, t1)
+    launch_ts = np.sort([e["ts"] for e in launches])
+    return {"kernels": kernels, "window_us": t1 - t0, "busy_us": covered(union, t0, t1),
+            "idle": 1.0 - covered(union, t0, t1) / (t1 - t0), "bytes": path.stat().st_size,
+            "steady_idle": 1.0 - covered(union, a, b) / (b - a),
+            "steps": [(s["dur"], covered(union, s["ts"], s["ts"] + s["dur"]),
+                       int(np.searchsorted(launch_ts, s["ts"] + s["dur"]) - np.searchsorted(launch_ts, s["ts"])))
+                      for s in steps]}
+
+
+def write_fsc22_tree(root: Path, dev, per_class: int) -> Path:
+    """An fsc22-layout tree (flat audio dir and metadata CSV) of 27 classes
+    x ``per_class`` five-second 16 kHz clips, made on the card from a seeded
+    generator and written as 16-bit WAVs by a thread pool."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from audio_edge_ml_pipeline_torch.data.audio_io import write_wav
+
+    audio_dir = root / "Audio Wise V1.0-20260101" / "Audio Wise V1.0"
+    meta_dir = root / "Metadata-20260101" / "Metadata"
+    audio_dir.mkdir(parents=True)
+    meta_dir.mkdir(parents=True)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows = ["Source File Name,Dataset File Name,Class ID,Class Name"]
+    with ThreadPoolExecutor(8) as pool:
+        for c in range(N_CLASSES):
+            clips = class_clips_on_card(gen, dev, c, per_class).cpu().numpy()
+            names = [f"{c + 1}_{i + 1}.wav" for i in range(per_class)]
+            list(pool.map(lambda a: write_wav(audio_dir / a[0], a[1], SR), zip(names, clips)))
+            rows += [f"src_{n},{n},{c + 1},class{c:02d}" for n in names]
+    (meta_dir / "Metadata V1.0 FSC22.csv").write_text("\n".join(rows) + "\n")
+    return root
+
+
+def phase_4g(dev, tmp: Path) -> dict:
+    """Phase 4g: the AEP_PROFILE_DIR device trace at fsc22 scale. The
+    extraction CLI on an fsc22-sized tree (27 classes x 75 five-second
+    clips, split all: 2025 rows in chunks of the extractor's 256) and a
+    TRACE_EPOCHS-epoch run of the flagship CNN through the train CLI on that
+    FeatureSet, with AEP_PROFILE_DIR set; each stage's trace parsed: the top
+    kernels by device time, the idle share over the stage's window, and
+    every train step's host range (the time the host takes to launch it),
+    the kernel time inside it and the host time between kernels, the first
+    step (cuDNN's algorithm choice) reported apart. The extraction trace
+    must name mel_rfft with the launches the kernel's counter saw."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.features import pipeline
+    from audio_edge_ml_pipeline_torch.ops import mel_kernel
+    from audio_edge_ml_pipeline_torch.train import train
+
+    t_start = time.perf_counter()
+    tree = write_fsc22_tree(tmp / "fsc22_full", dev, FSC22_CLIPS)
+    write_s = time.perf_counter() - t_start
+    trace_dir = tmp / "trace"
+    os.environ["AEP_PROFILE_DIR"] = str(trace_dir)
+    os.environ["MLFLOW_TRACKING_URI"] = str(tmp / "trace_mlruns")
+    try:
+        mel_kernel.counter.reset()
+        t0 = time.perf_counter()
+        pipeline.main(["--loader", "fsc22", "--dataset", str(tree), "--extractor", "audio_mel_spec", "--split",
+                       "all", "--output", str(tmp / "trace_features")])
+        torch.cuda.synchronize()
+        extract_s = time.perf_counter() - t0
+        launches = mel_kernel.counter.launches
+        t0 = time.perf_counter()
+        train.main(["--features", str(tmp / "trace_features"), "--model", "cnn", "--output",
+                    str(tmp / "trace_models"), "--experiment", "chip-smoke-trace",
+                    *(a for k, v in CNN_PARAMS.items() for a in ("--param", f"{k}={json.dumps(v)}")),
+                    "--param", f"epochs={TRACE_EPOCHS}"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("AEP_PROFILE_DIR")
+        os.environ.pop("MLFLOW_TRACKING_URI")
+    stages = sorted(p.name for p in trace_dir.iterdir())
+    check(stages == ["extract:audio_mel_spec", "fit:cnn"], f"4g: the traced stages {stages}")
+    rows = N_CLASSES * FSC22_CLIPS
+    print(f"[4g] an fsc22-sized tree ({rows} clips of 5 s at 16 kHz) written in {write_s:.2f} s; the extraction CLI "
+          f"on it in {extract_s:.2f} s, the train CLI ({TRACE_EPOCHS} epochs of the cnn {CNN_PARAMS}, B=32) in "
+          f"{train_s:.2f} s, both traced")
+    out: dict = {"mel_launches": launches}
+    for stage, secs in (("extract:audio_mel_spec", extract_s), ("fit:cnn", train_s)):
+        s = trace_summary(trace_dir / stage)
+        top = sorted(s["kernels"].items(), key=lambda kv: -kv[1][0])[:6]
+        print(f"[4g] trace of {stage} ({secs:.2f} s in the CLI, {s['bytes'] / 1e6:.2f} MB): window "
+              f"{s['window_us'] / 1e3:.3f} ms, kernels busy {s['busy_us'] / 1e3:.3f} ms, device idle share "
+              f"{s['idle']:.4f}; top kernels by device time: "
+              + "; ".join(f"{n[:70]} {t / 1e3:.3f} ms x {c}" for n, (t, c) in top))
+        check(bool(s["kernels"]), f"4g: the trace of {stage} holds no kernel")
+        out[stage] = s
+    ext = out["extract:audio_mel_spec"]
+    mel_traced = sum(c for n, (_, c) in ext["kernels"].items() if "mel_rfft" in n)
+    print(f"[4g] mel_rfft in the extraction trace: {mel_traced} launches; the kernel's counter: {launches}")
+    check(mel_traced == launches == -(-rows // 256), "4g: the trace's mel_rfft launches differ from the counter's")
+    fit = out["fit:cnn"]
+    steps = fit["steps"]
+    per_epoch = -(-(rows - rows // 5) // 32)
+    check(len(steps) >= 2 * per_epoch - 2, f"4g: the train trace holds {len(steps)} train_step ranges")
+    host = np.array([d - k for d, k, _ in steps]) / 1e3
+    rng_ms, busy_ms = np.array([d for d, _, _ in steps]) / 1e3, np.array([k for _, k, _ in steps]) / 1e3
+    n_launch = np.array([n for _, _, n in steps])
+    later = slice(1, None)
+    print(f"[4g] train steps in the trace: {len(steps)} (B=32, {TRACE_EPOCHS} epochs); the first (cuDNN's set-up): "
+          f"host range {rng_ms[0]:.3f} ms, kernels inside it {busy_ms[0]:.3f} ms, {n_launch[0]} launches; the "
+          f"other {len(steps) - 1}: host range {np.mean(rng_ms[later]):.3f} ms mean ({np.median(rng_ms[later]):.3f} "
+          f"median), kernels inside it {np.mean(busy_ms[later]):.3f} ms mean, host time between kernels "
+          f"{np.mean(host[later]):.3f} ms mean, {np.median(host[later]):.3f} median, {np.min(host[later]):.3f}-"
+          f"{np.max(host[later]):.3f}, kernel launches a step {np.mean(n_launch[later]):.1f}; device idle share from "
+          f"the second step's start to the last one's end {fit['steady_idle']:.4f}")
+    print("[4g] every step's host time between kernels, ms: " + " ".join(f"{h:.3f}" for h in host))
+    print(f"[4g] phase 4g in {time.perf_counter() - t_start:.2f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
+    t_all = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU", file=sys.stderr)
         return 2
@@ -1821,6 +2402,11 @@ def main() -> int:
             for k, v in slice_launches[exp["name"]].items():
                 path_launches[k] = path_launches.get(k, 0) + v
 
+        # 4e-4g. BIRDeep end to end (ROADMAP §3 i), the augmentation stage, the AEP_PROFILE_DIR trace
+        t4e = phase_4e(dev, tmp)
+        t4f = phase_4f(dev, tmp)
+        t4g = phase_4g(dev, tmp)
+
         # 5. serving
         trainer = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, device=dev)
         trainer.initialize((N_MELS, 1 + CLIP // HOP, 1), N_CLASSES, torch.Generator().manual_seed(0))
@@ -2186,7 +2772,25 @@ def main() -> int:
         ms_group = {k: cuda_ms(lambda fn=fn: fn(Smag), iters=5) for k, fn in groups.items()}
         M40 = audio_features.mfcc(waves22, SR22, 40, MFCC_N_FFT, MFCC_HOP)
         ms_group["deltas"] = cuda_ms(lambda: (dsp.delta(M40, order=1), dsp.delta(M40, order=2)), iters=5)
-        del Smag, M40
+
+        # what the classical vector's two float64 sums cost here: the rolloff's running sum and the groups'
+        # mean and std (over each group's (B, K, T) values, K as the vector's groups), each against float32
+        def rolloff_f32(S):
+            total = torch.cumsum(S, dim=1)
+            cand = torch.where(total < 0.85 * total[:, -1:, :], torch.finfo(S.dtype).max, freqs22[None, :, None])
+            return torch.amin(cand, dim=1)
+
+        def aggregate(dtype):
+            return torch.cat([torch.cat([dsp._masked_mean(x.to(dtype), None, 2), dsp._masked_std(x.to(dtype), None, 2)],
+                                        1) for x in group_vals], 1).to(torch.float32)
+
+        freqs22 = torch.from_numpy(golden.fft_frequencies(SR22, MFCC_N_FFT).astype(np.float32)).to(dev)
+        group_vals = [torch.rand(batch, k, Smag.shape[-1], device=dev) for k in (40, 40, 40, 1, 1, 1, 7, 1, 12, 6, 1, 1)]
+        ms_repairs = {"rolloff float64 sum": cuda_ms(lambda: groups["rolloff"](Smag), iters=10),
+                      "rolloff float32 sum": cuda_ms(lambda: rolloff_f32(Smag), iters=10),
+                      "mean/std float64": cuda_ms(lambda: aggregate(torch.float64), iters=10),
+                      "mean/std float32": cuda_ms(lambda: aggregate(torch.float32), iters=10)}
+        del Smag, M40, group_vals
     nonzeros_mfcc = int(np.count_nonzero(golden.mel_filterbank(SR22, MFCC_N_FFT, MFCC_MELS)))
     bound_mfcc, bound_by_mfcc, fft_mfcc, dense_mfcc, _ = mel_folded_bound(batch, CLIP22, MFCC_N_FFT, nonzeros_mfcc,
                                                                          MFCC_HOP, MFCC_MELS)
@@ -2204,6 +2808,8 @@ def main() -> int:
           f"{batch / ms_classical * 1e3:.0f} clips/s; alone: its MFCC block (mfcc) {ms_mfcc_block:.3f} ms, its "
           f"magnitude STFT {ms_mag_stft:.3f} ms, its spectral groups, zcr and rms {ms_groups:.3f} ms "
           f"({', '.join(f'{k} {v:.3f}' for k, v in ms_group.items())} ms) on {card}")
+    print(f"[6] the classical vector's float64 sums at B={batch} x 5 s, 22.05 kHz, against float32 in this call: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms_repairs.items()) + f" on {card}")
     # the four-pass plans and the dense routes at B=512 five-second clips, beside their bounds and plain versions
     timed = {}   # instantiation -> (ms, plain ms, bound ms, bound_by, shape)
     with torch.inference_mode():
@@ -2280,6 +2886,12 @@ def main() -> int:
     tuning_times(t5e, card, in_turns)
     deploy_times(t5f, card)
     family_times(dev, card, t5g)
+    print(f"[6] augmentation stage on {card}: configs/augmentation.yaml {t4f['shipped_host_s']:.2f} s on the host "
+          f"backend (workers 1) and {t4f['shipped_dev_s']:.2f} s on the device backend; time_stretch then pitch_shift "
+          f"on every class ({N_CLASSES * AUG_PER_CLASS} clips x 4 copies) {t4f['aug_host_s']:.2f} s on the host backend "
+          f"(workers {t4f['aug_workers']}) and {t4f['aug_dev_s']:.2f} s on the device backend (each a CLI process, "
+          f"start-up included); time_stretch_batch alone at B={AUG_BATCH} x 5 s: {t4f['stretch_ms']:.2f} ms on the "
+          f"card, {t4f['stretch_cpu_ms']:.1f} ms on the CPU (B=8, scaled to {AUG_BATCH})")
 
     check(all(np.isfinite([ms_kernel, ms_dense, ms_plain, ms_unf, ms_unf_dense, ms_unf_plain, ms_400, ms_400_folded,
                             ms_400_unfolded, ms_e2e, ms_epilogue, ms_cnn, *step_ms.values(), ms_mfcc_kernel, ms_mfcc_f64,
@@ -2293,8 +2905,9 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "mel_folded", "route": "cuda", "source": "audio_edge_ml_pipeline_torch/csrc/mel_rfft.cu",
         "replaces": "audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:119",
-        "launches": (extract_launches + shipped_f32 + serve_launches + trained_launches + t5e["mel_launches"]
-                     + t5f["mel_launches"] + t5g["mel_launches"]),
+        "launches": (extract_launches + shipped_f32 + t4e["mel_launches"] + t4f["mel_launches"] + t4g["mel_launches"]
+                     + serve_launches + trained_launches + t5e["mel_launches"] + t5f["mel_launches"]
+                     + t5g["mel_launches"]),
         "max_abs_err": worst_abs,
         "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "plain_products": "float64", "dense_ms": ms_dense,
@@ -2302,7 +2915,7 @@ def main() -> int:
     }, {
         "name": "mel_folded_f64", "route": "cuda", "source": "audio_edge_ml_pipeline_torch/csrc/mel_rfft.cu",
         "replaces": "audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:119",
-        "launches": shipped_f64, "max_abs_err": worst_abs_f64,
+        "launches": shipped_f64 + t4e["f64_launches"], "max_abs_err": worst_abs_f64,
         "ms": ms_mfcc_f64, "plain_ms": ms_mfcc_plain, "bound_ms": bound_f64, "bound_by": bound_by_f64,
         "library_ms": None, "plain_products": "float64",
         "shape": f"B={batch} x 5 s at 22.05 kHz, n_fft {MFCC_N_FFT}, hop {MFCC_HOP}, {MFCC_MELS} mels",
@@ -2319,6 +2932,7 @@ def main() -> int:
         "launches": path_launches[key], "max_abs_err": errs_by_instantiation[key], "ms": ms, "plain_ms": ms_p,
         "bound_ms": bound, "bound_by": by, "library_ms": None, "shape": shape,
     } for key, (ms, ms_p, bound, by, shape) in timed.items())]}))
+    print(f"[7] the smoke run took {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

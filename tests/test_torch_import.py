@@ -146,4 +146,4 @@ def test_unported_names_raise_not_yet_ported(tmp_path):
     with pytest.raises(KeyError):
         get("no_such_extractor")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_loader("birdeep", str(tmp_path), "train")
+        build_loader("birdeep_image", str(tmp_path), "train")

@@ -208,7 +208,7 @@ def test_grid_search_picks_jax_cell_and_its_refit_loads_in_jax(data, tmp_path):
 
 def test_sharding_over_several_cards_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="multi-card sharding"):
         sc.check_single_card("fold-batched grid CV", 2, torch.device("cuda", 0))
     sc.check_single_card("fold-batched grid CV", 2, torch.device("cpu"))   # the CPU is one device: no sharding to refuse
     sc.check_single_card("fold-batched grid CV", 1, torch.device("cuda", 0))

@@ -323,7 +323,11 @@ def test_port_runs_are_read_by_the_jax_tracking_store(tmp_path):
     ttracking.set_tracking_uri(None)
 
 
-def test_stage_timer_counts_and_refuses_the_unported_trace(monkeypatch, caplog):
+def test_stage_timer_counts_and_refuses_the_unported_trace(monkeypatch, caplog, tmp_path):
+    """Stages are timed; with AEP_PROFILE_DIR set each stage writes its
+    torch.profiler trace under $AEP_PROFILE_DIR/<name>/ (the trace was
+    ported, so it is no longer refused), a stage nested in a traced one
+    writes none, and both are timed."""
     tprofiling.reset()
     for _ in range(2):
         with tprofiling.stage_timer("fit:cnn"):
@@ -332,8 +336,21 @@ def test_stage_timer_counts_and_refuses_the_unported_trace(monkeypatch, caplog):
     with caplog.at_level("INFO", logger=tprofiling.logger.name):
         tprofiling.log_timing_report()
     assert '"fit:cnn": {"calls": 2' in caplog.text
-    monkeypatch.setenv("AEP_PROFILE_DIR", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    assert not list(tmp_path.iterdir())
+    monkeypatch.setenv("AEP_PROFILE_DIR", str(tmp_path))
+    with tprofiling.stage_timer("fit:cnn"):
+        x = torch.randn(64, 64)
+        with tprofiling.stage_timer("extract:audio_mel_spec"):
+            (x @ x).sum()
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["fit:cnn"]
+    (trace,) = (tmp_path / "fit:cnn").glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any("mm" in str(e.get("name", "")) for e in events)
+    report = tprofiling.timing_report()
+    assert report["fit:cnn"]["calls"] == 3 and report["extract:audio_mel_spec"]["calls"] == 1
+    # an unwritable trace directory raises: the trace was asked for
+    monkeypatch.setenv("AEP_PROFILE_DIR", str(trace))
+    with pytest.raises(OSError):
         with tprofiling.stage_timer("fit:cnn"):
             pass
     tprofiling.reset()

@@ -250,7 +250,7 @@ def test_a_failed_group_marks_its_trials_fail(data, monkeypatch, caplog):
 def test_several_cards_raise_instead_of_one(data, monkeypatch):
     X, y, Xv, yv, K = data
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="multi-card sharding"):
         ttb.train_trial_group("cnn", [{"filters": [8]}], X, y, Xv, yv, K, 1, devices=4,
                               device=torch.device("cuda", 0))
 
