@@ -1,15 +1,18 @@
 """Dataset loaders: every loader yields (sample_path | None, label | None,
 metadata dict) and implements __len__.
 
-The audio loaders of the JAX package's ``data/loaders.py``: fsc22 (flat dir
-+ CSV + deterministic stratified split), audio_folder (class-per-subfolder
-+ header probe + split-manifest filter) and birdeep (one sample per
-annotation row, with its segment's start and end). The other loader names
-raise a "not yet ported" error from ``build_loader``.
+The audio, image and video loaders of the JAX package's ``data/loaders.py``:
+fsc22 (flat dir + CSV + deterministic stratified split), audio_folder
+(class-per-subfolder + header probe + split-manifest filter), birdeep (one
+sample per annotation row, with its segment's start and end),
+birdeep_image (the same rows' spectrogram PNGs with their YOLO boxes),
+image_folder and video_folder (class-per-subfolder). The text and tabular
+loader names raise a "not yet ported" error from ``build_loader``.
 """
 
 from __future__ import annotations
 
+import ast
 import json
 import logging
 from pathlib import Path
@@ -25,6 +28,8 @@ logger = logging.getLogger(__name__)
 _VALID_SPLITS = ("train", "validation", "test", "all")
 
 _AUDIO_SUFFIXES = frozenset({".wav", ".flac", ".ogg", ".mp3", ".aac", ".m4a", ".opus", ".aiff", ".aif"})
+_IMAGE_SUFFIXES = frozenset({".png", ".jpg", ".jpeg", ".bmp", ".gif", ".tiff", ".webp"})
+_VIDEO_SUFFIXES = frozenset({".mp4", ".avi", ".mov", ".mkv", ".webm", ".mpg", ".mpeg"})
 
 
 def stratified_split_indices(
@@ -234,6 +239,22 @@ class AudioFolderLoader(_FolderLoader):
         return {"filename": path.name, "class_dir": class_dir.name, **probe_audio(path)}
 
 
+class ImageFolderLoader(_FolderLoader):
+    suffixes = _IMAGE_SUFFIXES
+
+    def __init__(self, root, split=None, **kw):
+        split = None if split in (None, "all") else split
+        super().__init__(root, split=split, **kw)
+
+
+class VideoFolderLoader(_FolderLoader):
+    suffixes = _VIDEO_SUFFIXES
+
+    def __init__(self, root, split=None, **kw):
+        split = None if split in (None, "all") else split
+        super().__init__(root, split=split, **kw)
+
+
 _SPLIT_FILES = {
     "train": "train_file.csv",
     "test": "test_file.csv",
@@ -306,11 +327,70 @@ class BIRDeepLoader(BaseDatasetLoader):
         return sorted(self._df["specie"].unique().tolist())
 
 
+class BIRDeepImageLoader(BaseDatasetLoader):
+    """BIRDeep spectrogram PNGs (``images/<row path>.PNG``) with the row's
+    normalized YOLO box (class id dropped) as ``bbox_norm`` when its area is
+    at least ``min_bbox_area`` (reference birdeep_loader.py:259-388)."""
+
+    def __init__(
+        self,
+        dataset_root: Path | str,
+        split: str = "train",
+        image_subdir: str = "images",
+        include_augmented: bool = False,
+        min_bbox_area: float = 1e-5,
+        species_filter: Optional[set[str]] = None,
+    ) -> None:
+        if split not in _SPLIT_FILES:
+            raise ValueError(f"split must be one of {list(_SPLIT_FILES)}, got {split!r}.")
+        self.dataset_root = Path(dataset_root)
+        self.image_dir = self.dataset_root / image_subdir
+        self.min_bbox_area = min_bbox_area
+        csv_path = self.dataset_root / _SPLIT_FILES[split]
+        if not csv_path.exists():
+            raise FileNotFoundError(f"CSV file not found: {csv_path}.")
+        import pandas as pd
+
+        df = pd.read_csv(csv_path, on_bad_lines="warn")
+        df.columns = df.columns.str.strip()
+        df = df.dropna(subset=["path", "specie", "bbox"])
+        if not include_augmented:
+            df = df[~df["path"].str.startswith("Data Augmentation")]
+        if species_filter is not None:
+            df = df[df["specie"].isin(set(species_filter))]
+        self._df = df.reset_index(drop=True)
+
+    @staticmethod
+    def _parse_bbox(raw: str) -> Optional[list[float]]:
+        try:
+            vals = ast.literal_eval(raw)
+            if len(vals) >= 5:
+                return [float(v) for v in vals[1:5]]  # drop class id
+        except Exception:
+            pass
+        return None
+
+    def __len__(self) -> int:
+        return len(self._df)
+
+    def __iter__(self):
+        for _, row in self._df.iterrows():
+            img_path = self.image_dir / Path(row["path"]).with_suffix(".PNG")
+            if not img_path.exists():
+                logger.warning("Image not found, skipping: %s", img_path)
+                continue
+            meta = {"recorder": str(row.get("recorder", ""))}
+            bbox = self._parse_bbox(str(row.get("bbox", "")))
+            if bbox is not None and bbox[2] * bbox[3] >= self.min_bbox_area:
+                meta["bbox_norm"] = bbox
+            yield img_path, str(row["specie"]), meta
+
+
 LOADER_NAMES = (
     "birdeep", "birdeep_image", "fsc22", "audio_folder", "image_folder",
     "video_folder", "text_folder", "text_json", "text_csv", "tabular",
 )
-PORTED_LOADERS = ("birdeep", "fsc22", "audio_folder")
+PORTED_LOADERS = ("birdeep", "birdeep_image", "fsc22", "audio_folder", "image_folder", "video_folder")
 
 
 def build_loader(
@@ -332,12 +412,18 @@ def build_loader(
     cf = set(class_filter) if class_filter else None
     if loader_name == "birdeep":
         return BIRDeepLoader(dataset, split=split, species_filter=cf)
+    if loader_name == "birdeep_image":
+        return BIRDeepImageLoader(dataset, split=split, species_filter=cf)
     if loader_name == "fsc22":
         return FSC22Loader(dataset, split=split, class_filter=cf)
     if loader_name == "audio_folder":
         root = audio_folder or dataset
         folder_split = None if (manifest or not split or split == "all") else split
         return AudioFolderLoader(root, split=folder_split, manifest=manifest, manifest_split=manifest_split)
+    if loader_name == "image_folder":
+        return ImageFolderLoader(image_folder or dataset, split=split)
+    if loader_name == "video_folder":
+        return VideoFolderLoader(video_folder or dataset, split=split)
     if loader_name in LOADER_NAMES:
         raise NotImplementedError(
             f"loader {loader_name!r} is not yet ported to audio_edge_ml_pipeline_torch "

@@ -8,3 +8,5 @@ from .base import BaseDatasetLoader, BaseFeatureExtractor, BatchedAudioExtractor
 from .registry import get, list_extractors, register  # noqa: F401
 
 from . import audio as _audio  # noqa: E402,F401
+from . import image as _image  # noqa: E402,F401
+from . import video as _video  # noqa: E402,F401

@@ -1,9 +1,9 @@
 """Registered audio extractors, batched on one device.
 
 Same names, parameters, defaults and numerical contracts as the JAX
-package's ``features/audio.py``, plus a ``device`` argument. Ported:
-``audio_mel_spec``, ``audio_waveform``, ``audio_mfcc_seq`` and
-``audio_classical``; ``audio_cqt`` is not yet.
+package's ``features/audio.py``, plus a ``device`` argument:
+``audio_mel_spec``, ``audio_waveform``, ``audio_cqt``, ``audio_mfcc_seq``
+and ``audio_classical``.
 """
 
 from __future__ import annotations
@@ -79,6 +79,47 @@ class AudioWaveform(BatchedAudioExtractor):
 
     def batch_feature(self, waves: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
         return dsp.waveform_feature(waves, lengths)
+
+
+@register
+class AudioCQT(BatchedAudioExtractor):
+    """|CQT| in dB, normalized to [0, 1]; shape (n_bins, T)."""
+
+    name = "audio_cqt"
+    feature_type = "deep"
+    # dsp.cqt_magnitude blocks its float64 partial products by itself, so the
+    # batch is not bounded by memory
+    batch_size = 512
+
+    def __init__(
+        self,
+        sample_rate: int = 22050,
+        hop_length: int = 512,
+        n_bins: int = 84,
+        bins_per_octave: int = 12,
+        fmin: Optional[float] = None,
+        duration: Optional[float] = None,
+        device: torch.device | str | None = None,
+    ) -> None:
+        self.sample_rate = sample_rate
+        self.hop_length = hop_length
+        self.n_bins = n_bins
+        self.bins_per_octave = bins_per_octave
+        self.fmin = fmin
+        self.duration = duration
+        self.device = resolve_device(device)
+
+    def min_samples(self) -> int:
+        return self.hop_length * 2
+
+    def frames_for(self, n_samples: int) -> int:
+        return dsp.n_frames_for(n_samples, self.hop_length)
+
+    def batch_feature(self, waves: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+        return dsp.cqt_feature(
+            waves, sr=self.sample_rate, hop_length=self.hop_length, n_bins=self.n_bins,
+            bins_per_octave=self.bins_per_octave, fmin=self.fmin, lengths=lengths,
+        )
 
 
 @register

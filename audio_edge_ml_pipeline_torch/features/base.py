@@ -1,9 +1,10 @@
 """Core abstractions of the feature layer.
 
 Same public surface as the JAX package's ``features/base.py`` (FeatureSet /
-BaseFeatureExtractor / BaseDatasetLoader / BatchedAudioExtractor). The
-batched audio path decodes on a host thread pool while the previous chunk
-runs on one device, in fixed-shape (batch_size, n) chunks.
+BaseFeatureExtractor / BaseDatasetLoader / BatchedAudioExtractor, and the
+batched image and video path: ``auto_device_batch``, ``pad_stack``,
+``_device_batched_dataset``). The batched paths decode on a host thread
+pool while the previous chunk runs on one device, in fixed-shape chunks.
 """
 
 from __future__ import annotations
@@ -135,6 +136,95 @@ def _overlap_device(chunks, process):
             pending = (fut, good)
         if pending is not None:
             yield pending[1], pending[0].result()
+
+
+def auto_device_batch(flag: Optional[bool], device: torch.device) -> bool:
+    """None = auto: the batched device path when ``device`` is a CUDA card,
+    the per-sample numpy path on the CPU (the path the caller's device
+    names, as in JAX where the CPU backend takes the numpy path)."""
+    if flag is not None:
+        return flag
+    return device.type == "cuda"
+
+
+def pad_stack(decoded: list[np.ndarray], batch: int) -> np.ndarray:
+    """Stack per-item arrays and zero-pad the leading axis to ``batch`` so
+    every device call sees one shape (padded rows are computed and
+    discarded by the caller)."""
+    x = np.stack(decoded)
+    pad = batch - len(x)
+    if pad:
+        x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+    return x
+
+
+def _device_batched_dataset(
+    loader: BaseDatasetLoader,
+    max_samples: Optional[int],
+    decode,  # (path, meta) -> decoded array; raises to skip the sample
+    pack,  # list[decoded] -> fixed-shape numpy input
+    run,  # input tensor on ``device`` -> output tensor
+    unpack,  # (numpy output, list[decoded]) -> per-item feature vectors
+    chunk: int,
+    feature_type: str,
+    modality: str,
+    device: torch.device,
+    workers: int = 8,
+) -> FeatureSet:
+    """The chunked decode -> pad -> device -> collect loop of the batched
+    extractor paths (image and video descriptors, backbone embeddings):
+    host threads decode with skip-and-continue, the device runs each packed
+    chunk while the next one decodes (``_overlap_device``), and labels
+    intern in first-occurrence order as BaseFeatureExtractor.extract_dataset
+    interns them."""
+    samples = []
+    for i, item in enumerate(loader):
+        if max_samples is not None and i >= max_samples:
+            break
+        samples.append(item)
+
+    feats: list[np.ndarray] = []
+    labels: list[int] = []
+    metas: list[dict] = []
+    label_to_idx: dict[str, int] = {}
+
+    def _decode(item):
+        path, label, meta = item
+        try:
+            out = decode(path, meta)
+        except Exception as exc:
+            logger.warning("Skipping %s: %s", path, exc)
+            return None, label, meta
+        if out is None or (hasattr(out, "__len__") and len(out) == 0):
+            logger.warning("Skipping %s: empty decode", path)
+            return None, label, meta
+        return out, label, meta
+
+    def _process(good):
+        decoded = [g for g, _, _ in good]
+        x = torch.from_numpy(np.ascontiguousarray(pack(decoded))).to(device)
+        with torch.inference_mode():
+            out = run(x).cpu().numpy()
+        return unpack(out, decoded)
+
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+
+        def _chunks():
+            for s in range(0, len(samples), chunk):
+                out = list(pool.map(_decode, samples[s : s + chunk]))
+                good = [(g, l, m) for g, l, m in out if g is not None]
+                if good:
+                    yield good
+
+        for good, vecs in _overlap_device(_chunks(), _process):
+            for vec, (_, label, meta) in zip(vecs, good):
+                feats.append(np.asarray(vec, np.float32))
+                metas.append(meta)
+                if label is not None:
+                    if label not in label_to_idx:
+                        label_to_idx[label] = len(label_to_idx)
+                    labels.append(label_to_idx[label])
+    return _collect(feats, labels, metas, label_to_idx, feature_type, modality)
 
 
 class BaseFeatureExtractor(ABC):

@@ -13,11 +13,8 @@ _REGISTRY: dict[str, type] = {}
 
 # extractors of the JAX package that are still to be ported
 NOT_YET_PORTED = frozenset({
-    "audio_cqt",
-    "image_classical", "image_pixels", "image_mobilenet_v2",
     "tabular_classical", "tabular_polynomial",
     "text_tfidf", "text_bow", "text_char_ngram", "text_sentence_embed", "text_bert_tokens",
-    "video_classical", "video_frame_seq", "video_mobilenet_v2_seq",
 })
 
 

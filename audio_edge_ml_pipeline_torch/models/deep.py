@@ -32,7 +32,7 @@ module names mirror the flax tree: a flax ``Family_i`` path segment is the
 torch ``<families>.i`` (``Conv`` -> ``convs``, ``Dense`` -> ``denses``,
 ``BatchNorm`` -> ``bns``, ``LayerNorm`` -> ``lns``,
 ``MultiHeadDotProductAttention`` -> ``attns``, ``_ConvBN`` -> ``convbns``,
-``_MBConvSE`` -> ``blocks``) and a named one (``backbone``, ``head``,
+``_MBConvSE`` -> ``blocks``, ``_InvertedResidual`` -> ``invres``) and a named one (``backbone``, ``head``,
 ``query``) keeps its name, at any depth
 (``p/backbone/_MBConvSE_3/_ConvBN_1/Conv_0/kernel`` is
 ``backbone.blocks.3.convbns.1.convs.0.weight``). The leaves:
@@ -357,7 +357,8 @@ _MODULE_FACTORY = {"cnn": _cnn_from_arch, "mlp": _mlp_from_arch, "rnn": _rnn_fro
 # ---------------------------------------------------------------------------
 
 _FAMILIES = {"Conv": "convs", "Dense": "denses", "BatchNorm": "bns", "LayerNorm": "lns",
-             "MultiHeadDotProductAttention": "attns", "_ConvBN": "convbns", "_MBConvSE": "blocks"}
+             "MultiHeadDotProductAttention": "attns", "_ConvBN": "convbns", "_MBConvSE": "blocks",
+             "_InvertedResidual": "invres"}
 _TORCH_FAMILIES = {v: k for k, v in _FAMILIES.items()}
 _STATS = "c/batch_stats/"
 _LSTM_CELL = "OptimizedLSTMCell"

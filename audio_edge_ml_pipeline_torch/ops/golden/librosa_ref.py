@@ -1,7 +1,7 @@
 """Float64 numpy reference DSP, algorithmically compatible with librosa.
 
 The port's own copy of the functions its audio features are checked
-against (the JAX package keeps the same oracle, with the CQT besides).
+against (the JAX package keeps the same oracle).
 Conventions (librosa 0.10/0.11 defaults):
 
 - STFT: win_length = n_fft, periodic Hann, center=True, pad_mode="constant".
@@ -480,6 +480,105 @@ def waveform_feature(y: np.ndarray) -> np.ndarray:
     y = np.asarray(y, dtype=np.float64)
     peak = np.abs(y).max()
     return y / peak if peak > 0 else y
+
+
+# ----------------------------------------------------------------------
+# Constant-Q transform (single-resolution frequency-domain filterbank)
+# ----------------------------------------------------------------------
+
+C1_HZ = 32.70319566257483  # librosa.note_to_hz('C1'), default cqt fmin
+
+
+def cqt_basis(
+    sr: float,
+    fmin: float,
+    n_bins: int,
+    bins_per_octave: int,
+    filter_scale: float = 1.0,
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Frequency-domain CQT kernels.
+
+    Returns (fft_basis (n_bins, 1+n_fft//2) complex, lengths (n_bins,), n_fft).
+
+    The CQT here is a single-resolution frequency-domain filterbank (one
+    rectangular-window STFT times a complex kernel matrix), not librosa's
+    recursive multirate algorithm. Each kernel is a centered, L1-normalized,
+    periodic-Hann-windowed complex exponential; the output is scaled by
+    1/sqrt(len_k) (librosa's scale=True convention).
+    """
+    Q = filter_scale / (2.0 ** (1.0 / bins_per_octave) - 1.0)
+    freqs = fmin * 2.0 ** (np.arange(n_bins) / bins_per_octave)
+    if freqs[-1] > sr / 2.0:
+        raise ValueError("CQT top bin exceeds Nyquist; lower n_bins or raise sr")
+    lengths = np.ceil(Q * sr / freqs).astype(int)
+    n_fft = int(2 ** np.ceil(np.log2(lengths.max())))
+    basis = np.zeros((n_bins, n_fft), dtype=np.complex128)
+    for k in range(n_bins):
+        Nk = int(lengths[k])
+        win = hann_periodic(Nk)
+        t = np.arange(Nk, dtype=np.float64) - Nk // 2
+        kernel = win * np.exp(2j * np.pi * freqs[k] * t / sr)
+        kernel /= np.sum(np.abs(kernel))
+        start = (n_fft - Nk) // 2
+        basis[k, start : start + Nk] = kernel
+    basis *= lengths[:, None] / float(n_fft)
+    fft_basis = np.fft.fft(basis, axis=-1)[:, : n_fft // 2 + 1]
+    return fft_basis, lengths.astype(np.float64), n_fft
+
+
+def cqt_time_basis(
+    sr: float,
+    fmin: float,
+    n_bins: int,
+    bins_per_octave: int,
+    filter_scale: float = 1.0,
+) -> tuple[np.ndarray, int]:
+    """Exact time-domain equivalent of the half-spectrum product
+    ``fft_basis @ rfft(frame)``: with G the fft_basis zero-extended to the
+    full spectrum, sum_f G[f] X[f] = sum_n h[n] x[n] where h = FFT(G).
+    With the 1/sqrt(len) output scale folded into h, the CQT is one pair of
+    real products against each frame (the FFTs run here, in float64).
+
+    Returns (h (n_bins, n_fft) complex128, n_fft).
+    """
+    fft_basis, lengths, n_fft = cqt_basis(sr, fmin, n_bins, bins_per_octave, filter_scale)
+    G = np.zeros((n_bins, n_fft), dtype=np.complex128)
+    G[:, : n_fft // 2 + 1] = fft_basis
+    h = np.fft.fft(G, axis=-1) / np.sqrt(lengths)[:, None]
+    return h, n_fft
+
+
+def cqt(
+    y: np.ndarray,
+    sr: float,
+    hop_length: int,
+    n_bins: int,
+    bins_per_octave: int = 12,
+    fmin: float | None = None,
+) -> np.ndarray:
+    """|CQT| magnitude, shape (n_bins, n_frames), in the role of librosa.cqt
+    (see cqt_basis for the algorithm)."""
+    if fmin is None:
+        fmin = C1_HZ
+    fft_basis, lengths, n_fft = cqt_basis(sr, fmin, n_bins, bins_per_octave)
+    D = stft(y, n_fft=n_fft, hop_length=hop_length, window="ones")
+    C = fft_basis @ D
+    C /= np.sqrt(lengths)[:, None]
+    return np.abs(C)
+
+
+def cqt_feature(
+    y: np.ndarray,
+    sr: float = 22050,
+    hop_length: int = 512,
+    n_bins: int = 84,
+    bins_per_octave: int = 12,
+    fmin: float | None = None,
+) -> np.ndarray:
+    """audio_cqt contract: |CQT| -> amplitude_to_db(ref=max) -> [0,1]."""
+    C = cqt(y, sr, hop_length=hop_length, n_bins=n_bins, bins_per_octave=bins_per_octave, fmin=fmin)
+    log_cqt = amplitude_to_db(C, ref="max")
+    return minmax_normalize(log_cqt)
 
 
 _ALL_CLASSICAL = [

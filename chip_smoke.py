@@ -78,6 +78,26 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      every train step's host time between kernels (the first, cuDNN's
      set-up, apart); the extraction trace's mel_rfft launches must equal
      the kernel's counter;
+  4h. audio_cqt: the extraction CLI on phase 4's tree (split train: 27 x 4
+     clips resampled to 22.05 kHz; 84 bins, 12 an octave from C1, n_fft
+     16384, hop 512) on the card and on the CPU, card vs CPU within 1e-6
+     and 3 rows within 1e-5 of golden; ``cqt_feature`` at B=512 x 5 s
+     with its peak memory (under the card's), a clip alone against the
+     same clip in the batch (1e-6), and the card's float64 GEMM rate at the
+     CQT's shape;
+  4i. the image modality: an image_folder tree (4 classes x 16 PNGs) and a
+     birdeep_image tree (spectrogram PNGs, the three split CSVs, YOLO
+     boxes, an augmented row, a box under min_bbox_area) through the
+     extraction CLI with image_classical (128 x 128, 8196 dims),
+     image_pixels and image_mobilenet_v2 (224, 1280 dims, a weights .npz the
+     port writes from seeded weights) on the card and on the CPU:
+     classical within 2e-4 with the LBP and histogram columns bit for bit,
+     pixels equal, embeddings within 1e-4 of their largest (TF32 off); the
+     train CLI's mlp for 2 epochs on the folder's classical set;
+  4j. the video modality: a video_folder tree written with cv2 (3 classes x
+     2 MJPG clips of 24 frames) through the extraction CLI with
+     video_classical (optical flow on), video_frame_seq and
+     video_mobilenet_v2_seq on the card and on the CPU, at the image gates;
   5. serving: the flagship CNN [16, 64, 64] (strides 4, 2; 27 classes) from
      a seeded generator, saved as a flax-layout bundle, loaded back, and
      8 edge-simulator requests; logits on the card against the CPU;
@@ -184,6 +204,10 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      teacher step at 224 in phase 1 and phase 2 at B=16 and B=128, a KD
      student step at B=16 and B=512, and the teacher's predict_proba in
      rows/s; from 4f, the augmentation stage's host and device times;
+     from 4h, ``cqt_feature`` at B=512 x 5 s beside its float64 bound;
+     from 4i, ``classical_image_vector_batch`` at B=256 x 128 x 128 (and
+     each descriptor alone) and the MobileNetV2 embedder at B=32 and 256 x
+     224;
   7. one JSON line per kernel, the run's total time, then the result line.
 
 Matmuls and cuDNN convolutions run in full float32 throughout (TF32 off),
@@ -2020,6 +2044,347 @@ def phase_4g(dev, tmp: Path) -> dict:
     return out
 
 
+CQT_BINS, CQT_HOP = 84, 512                     # audio_cqt's defaults: 84 bins, 12 an octave from C1, hop 512
+CQT_BATCH = 512                                 # the extractor's batch: 5 s clips at 22.05 kHz
+CQT_CARD_CPU_TOL = 1e-6                         # both sides float64 products: what is left is float32 rounding
+IMAGE_TOL, EMBED_TOL = 2e-4, 1e-4               # the image gates (tests/test_image_jax.py); embeddings over their largest
+IMAGE_CLASSES, IMAGE_PER_CLASS = 4, 16
+IMAGE_BATCH, EMBED_BATCHES = 256, (32, 256)
+VIDEO_CLASSES, VIDEO_PER_CLASS, VIDEO_FRAMES = 3, 2, 24
+
+
+def phase_4h(dev, tmp: Path, fsc22: Path, train_rows: int) -> dict:
+    """Phase 4h: audio_cqt. The extraction CLI on phase 4's fsc22 tree
+    (split train, resampled to 22.05 kHz) on the card and on the CPU: equal
+    labels and metadata, card vs CPU within CQT_CARD_CPU_TOL, 3 rows within
+    FEATURE_TOL of golden; then ``cqt_feature`` alone at B=CQT_BATCH x 5 s:
+    its time, peak memory (under the card's), the float64 GEMM's own rate,
+    and one clip alone against the same clip in the batch."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.data.audio_io import load_audio
+    from audio_edge_ml_pipeline_torch.features import pipeline
+    from audio_edge_ml_pipeline_torch.ops import dsp, golden
+
+    t_start = time.perf_counter()
+    secs = {}
+    for side, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        pipeline.main(["--loader", "fsc22", "--dataset", str(fsc22), "--extractor", "audio_cqt", "--split", "train",
+                       "--output", str(tmp / "cqt" / side), *extra])
+        torch.cuda.synchronize()
+        secs[side] = time.perf_counter() - t0
+    fs, fs_cpu = (pipeline.FeaturePipeline.load(tmp / "cqt" / side) for side in ("card", "cpu"))
+    T = 1 + CLIP22 // CQT_HOP
+    check(fs.features.shape == fs_cpu.features.shape == (train_rows, CQT_BINS, T), f"4h: shape {fs.features.shape}")
+    check(fs.metadata == fs_cpu.metadata and list(fs.labels) == list(fs_cpu.labels) and fs.n_classes == N_CLASSES,
+          "4h: labels or metadata card vs CPU")
+    check(bool(np.isfinite(fs.features).all()) and fs.features.min() >= 0 and fs.features.max() <= 1, "4h: range")
+    gap = float(np.abs(fs.features - fs_cpu.features).max())
+    audio_dir = fsc22 / "Audio Wise V1.0-20260101" / "Audio Wise V1.0"
+    gold_err = 0.0
+    for j in (0, train_rows // 2, train_rows - 1):
+        yj, _ = load_audio(audio_dir / fs.metadata[j]["filename"], sr=SR22)
+        gold_err = max(gold_err, float(np.abs(fs.features[j] - golden.cqt_feature(yj)).max()))
+    print(f"[4h] audio_cqt through the extraction CLI (fsc22 tree, split train, {train_rows} clips at 22.05 kHz): "
+          f"{fs} on the card in {secs['card']:.2f} s, the CPU run {secs['cpu']:.2f} s; card vs CPU max|d| {gap:.3e} "
+          f"(tol {CQT_CARD_CPU_TOL:g}); 3 rows vs float64 golden {gold_err:.3e} (tol {FEATURE_TOL:g})")
+    check(gap <= CQT_CARD_CPU_TOL and gold_err <= FEATURE_TOL, "4h: audio_cqt misses its gate")
+
+    rng = np.random.default_rng(41)
+    waves = torch.from_numpy(np.tile(synth_clips(rng, 8, CLIP22, SR22), (CQT_BATCH // 8, 1))).to(dev)
+    waves[3] = torch.from_numpy(synth_clips(rng, 1, CLIP22, SR22)[0]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    feat = dsp.cqt_feature(waves)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    alone = dsp.cqt_feature(waves[3:4])
+    alone_gap = float((feat[3] - alone[0]).abs().max())
+    check(feat.shape == (CQT_BATCH, CQT_BINS, T) and bool(torch.isfinite(feat).all()), "4h: the B=512 feature")
+    check(peak < total, f"4h: peak memory {peak} over the card's {total}")
+    print(f"[4h] cqt_feature at B={CQT_BATCH} x 5 s: peak memory {peak / 2**30:.2f} GiB of the card's "
+          f"{total / 2**30:.2f} GiB (blocks of {dsp._CQT_BLOCK_BYTES / 2**30:.0f} GiB of partial products); one clip "
+          f"alone vs in the batch max|d| {alone_gap:.3e} (tol {CQT_CARD_CPU_TOL:g})")
+    check(alone_gap <= CQT_CARD_CPU_TOL, "4h: a clip's CQT depends on its batch-mates")
+    ms = cuda_ms(lambda: dsp.cqt_feature(waves), iters=5, warmup=1)
+    n_fft = dsp._cqt_n_fft(float(SR22), golden.C1_HZ, CQT_BINS, 12)
+    taps = dsp._cqt_taps64(float(SR22), golden.C1_HZ, CQT_BINS, 12, CQT_HOP)
+    chunks = T + taps.shape[1] // (2 * CQT_BINS) - 1
+    a = torch.randn(CQT_BATCH * chunks // 3, CQT_HOP, dtype=torch.float64, device=dev)
+    w = torch.from_numpy(taps).to(dev)
+    gemm_ms = cuda_ms(lambda: a @ w, iters=5, warmup=1)
+    gemm_rate = 2 * a.shape[0] * CQT_HOP * w.shape[1] / (gemm_ms * 1e-3)
+    flops = 2.0 * CQT_BATCH * T * n_fft * 2 * CQT_BINS    # every frame against every kernel, real and imaginary
+    done = 2.0 * CQT_BATCH * chunks * CQT_HOP * taps.shape[1]   # the hop-chunk GEMM as run (kernels zero-extended)
+    nbytes = 4 * CQT_BATCH * (CLIP22 + CQT_BINS * T)
+    t_ops, t_bytes = flops / F64_PEAK, nbytes / HBM_RATE
+    bound = 1e3 * max(t_ops, t_bytes)
+    out = {"ms": ms, "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops,
+           "gemm_rate": gemm_rate, "peak_gib": peak / 2**30}
+    print(f"[4h] cqt_feature at B={CQT_BATCH} x 5 s, 22.05 kHz, {CQT_BINS} bins, n_fft {n_fft}, hop {CQT_HOP}: "
+          f"{ms:.3f} ms ({CQT_BATCH / ms * 1e3:.0f} clips/s); float64 operations {flops / 1e9:.1f} G (the GEMM as run "
+          f"{done / 1e9:.1f} G), bytes {nbytes / 1e6:.1f} MB: bound {bound:.3f} ms ({out['bound_by']}; {F64_PEAK / 1e12:.0f} "
+          f"TFLOP/s float64, {HBM_RATE / 1e12:.2f} TB/s), {100 * bound / ms:.2f} % of it; this card's float64 GEMM "
+          f"alone at the CQT's shape ({a.shape[0]} x {CQT_HOP} x {w.shape[1]}) {gemm_ms:.3f} ms, "
+          f"{gemm_rate / 1e12:.2f} TFLOP/s")
+    check(np.isfinite(ms) and ms > 0, "4h: timing")
+    print(f"[4h] phase 4h in {time.perf_counter() - t_start:.2f} s")
+    return out
+
+
+def write_image_trees(root: Path, rng: np.random.Generator) -> tuple[Path, Path, dict]:
+    """An image_folder tree (IMAGE_CLASSES classes x IMAGE_PER_CLASS PNGs of
+    various sizes, gray and RGB) and a birdeep_image tree: 640 x 256
+    spectrogram-like RGB PNGs under images/<site>/<date>/, train_file.csv /
+    validation_file.csv / test_file.csv with YOLO boxes, per split one "Data
+    Augmentation" row (dropped) and one box under min_bbox_area (kept, with
+    no bbox_norm). Returns (folder, birdeep root, rows a split)."""
+    from PIL import Image
+
+    folder = root / "image_folder"
+    for c in range(IMAGE_CLASSES):
+        (folder / f"class{c}").mkdir(parents=True)
+        for i in range(IMAGE_PER_CLASS):
+            h, w = int(rng.integers(96, 200)), int(rng.integers(96, 200))
+            yy, xx = np.mgrid[0:h, 0:w]
+            base = 127 + 100 * np.sin(2 * np.pi * ((c + 1) * xx / w + (i % 4) * yy / h))
+            img = np.clip(base[..., None] + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(np.uint8)
+            Image.fromarray(img if i % 2 else img[..., 0]).save(folder / f"class{c}" / f"{i:02d}.png")
+    bird = root / "BIRDeep_Spectrograms"
+    species = ["Cisticola juncidis", "Emberiza calandra", "Passer domesticus"]
+    header = "path,specie,start_time,end_time,recorder,date,bbox"
+    rows: dict[str, int] = {}
+    k = 0
+    for split, per in (("train", 6), ("validation", 2), ("test", 2)):
+        lines = [header]
+        for s, sp in enumerate(species):
+            for _ in range(per):
+                rel = f"SITE{s + 1}/2026_04_0{s + 1}/SITE{s + 1}_2026040{s + 1}_{k:06d}.WAV"
+                png = (bird / "images" / rel).with_suffix(".PNG")
+                png.parent.mkdir(parents=True, exist_ok=True)
+                spec = rng.gamma(2.0, 20.0, (256, 640))
+                spec[80 + 30 * s : 110 + 30 * s, 200:420] += 120
+                Image.fromarray(np.clip(np.stack([spec, spec * 0.8, 255 - spec], -1), 0, 255).astype(np.uint8)).save(png)
+                box = "0.5, 0.4, 0.001, 0.003" if k % 9 == 4 else f"{0.3 + 0.02 * (k % 10)}, 0.4, 0.35, 0.15"
+                lines.append(f'{rel},{sp},1.0,3.5,SITE{s + 1},2026_04_0{s + 1},"[{s}, {box}]"')
+                k += 1
+        lines.append(f'Data Augmentation/SITE1/aug_{split}.WAV,{species[0]},0.0,1.0,SITE1,2026_04_01,"[0, 0.5, 0.5, 0.2, 0.2]"')
+        (bird / f"{split}_file.csv").write_text("\n".join(lines) + "\n")
+        rows[split] = per * len(species)
+    return folder, bird, rows
+
+
+def seeded_mobilenet_weights(path: Path, seed: int = 7) -> Path:
+    """A MobileNetV2 weights .npz in the flax layout written by the port:
+    flax's initializers from a seeded generator, every BatchNorm's scale,
+    bias and statistics moved off their init from the same seed."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.models.backbones import MobileNetV2
+    from audio_edge_ml_pipeline_torch.models.deep import init_weights_, params_to_flax
+
+    gen = torch.Generator().manual_seed(seed)
+    net = MobileNetV2()
+    init_weights_(net, gen)
+    with torch.no_grad():
+        for name, t in net.state_dict().items():
+            if ".bns." in name:
+                if name.endswith(("weight", "var")):
+                    t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+                else:
+                    t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+    np.savez(path, **params_to_flax(net.state_dict()))
+    return path
+
+
+def extraction_config(path: Path, dataset: Path, loader: str, split: str, exps: list[dict], out: Path) -> Path:
+    """An extraction config (JSON, which the YAML loader reads) of ``exps``
+    on one dataset, each written under ``out``."""
+    path.write_text(json.dumps({"dataset": str(dataset), "loader": loader, "split": split, "experiments": [
+        {**e, "output": str(out / e["name"])} for e in exps]}, indent=1))
+    return path
+
+
+def card_vs_cpu(tmp: Path, tag: str, dataset: Path, loader: str, split: str, exps: list[dict]) -> dict:
+    """``exps`` through the extraction CLI on the card and again with
+    --device cpu: {name: (card FeatureSet, CPU FeatureSet)}, and the
+    seconds of each side."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.features import pipeline
+
+    runs: dict = {}
+    for side, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        cfg = extraction_config(tmp / f"{tag}_{side}.json", dataset, loader, split, exps, tmp / tag / side)
+        t0 = time.perf_counter()
+        pipeline.main(["--config", str(cfg), *extra])
+        torch.cuda.synchronize()
+        runs[f"{side}_s"] = time.perf_counter() - t0
+    for e in exps:
+        runs[e["name"]] = tuple(pipeline.FeaturePipeline.load(tmp / tag / side / e["name"]) for side in ("card", "cpu"))
+    return runs
+
+
+def check_image_set(label: str, extractor: str, card, cpu, rows: int) -> str:
+    """Card against CPU at the image gates: classical within IMAGE_TOL with
+    the LBP and histogram columns (the 90 before the GLCM's 6) bit for bit,
+    pixels and frame stacks equal, embeddings within EMBED_TOL of their
+    largest. Returns the printed comparison."""
+    check(card.features.shape == cpu.features.shape and len(card.features) == rows,
+          f"{label}: shape {card.features.shape} vs {cpu.features.shape}, {rows} rows expected")
+    check(card.metadata == cpu.metadata and list(card.labels) == list(cpu.labels), f"{label}: labels or metadata")
+    check(bool(np.isfinite(card.features).all()), f"{label}: features are not finite")
+    d = float(np.abs(card.features - cpu.features).max())
+    if extractor in ("image_classical", "video_classical"):
+        flat = card.features.shape[1]
+        if extractor == "image_classical":
+            exact = bool(np.array_equal(card.features[:, flat - 96 : flat - 6], cpu.features[:, flat - 96 : flat - 6]))
+            check(exact, f"{label}: LBP or histogram columns differ card vs CPU")
+        check(d <= IMAGE_TOL, f"{label}: card vs CPU {d:.3e}")
+        return f"max|d| {d:.3e} (tol {IMAGE_TOL:g})" + (", LBP and histogram bit for bit" if extractor == "image_classical" else "")
+    if extractor in ("image_pixels", "video_frame_seq"):
+        check(d == 0.0, f"{label}: pixels differ card vs CPU")
+        return "equal"
+    scale = float(np.abs(cpu.features).max())
+    check(d <= EMBED_TOL * scale, f"{label}: embeddings card vs CPU {d:.3e} of {scale:.3e}")
+    return f"max|d| {d:.3e}, {d / scale:.3e} of the largest (tol {EMBED_TOL:g})"
+
+
+def phase_4i(dev, tmp: Path) -> dict:
+    """Phase 4i: the image modality. An image_folder tree and a birdeep_image
+    tree (``write_image_trees``) through the extraction CLI with
+    image_classical (128 x 128, 8196 dims), image_pixels and
+    image_mobilenet_v2 (224, 1280 dims, a weights .npz written by the port
+    from seeded weights), on the card and on the CPU (check_image_set); the
+    train CLI's mlp for 2 epochs on the folder's image_classical set; then
+    ``classical_image_vector_batch`` at B=IMAGE_BATCH x 128 x 128 and the
+    embedder at B=32 and 256 x 224 timed."""
+    import importlib.util
+    import torch
+
+    from audio_edge_ml_pipeline_torch.features.image import ImageClassicalExtractor
+    from audio_edge_ml_pipeline_torch.models.backbones import mobilenet_v2_embedder
+    from audio_edge_ml_pipeline_torch.ops import imgdsp
+    from audio_edge_ml_pipeline_torch.train import train
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(17)
+    out: dict = {}
+    weights = seeded_mobilenet_weights(tmp / "mbv2_seeded.npz")
+    if importlib.util.find_spec("PIL") is None:
+        print("[4i] PIL is not installed: the extraction CLI's image paths (image_folder, birdeep_image loaders; "
+              "image_classical, image_pixels, image_mobilenet_v2) cannot run; the batched path is driven on numpy images")
+        ex = ImageClassicalExtractor()
+        images = rng.random((IMAGE_BATCH + 3, 128, 128), dtype=np.float32)
+        loader = [(Path(f"{i}.png"), f"c{i % 4}", {}) for i in range(len(images))]
+        from audio_edge_ml_pipeline_torch.features.base import _device_batched_dataset, pad_stack
+
+        fs = _device_batched_dataset(loader, None, decode=lambda p, m: images[int(p.stem)],
+                                     pack=lambda d: pad_stack(d, ex.batch_size), run=imgdsp.classical_image_vector_batch,
+                                     unpack=lambda o, d: o[: len(d)], chunk=ex.batch_size, feature_type="classical",
+                                     modality="image", device=dev)
+        check(fs.features.shape == (len(images), 8196), "4i: the batched path on numpy images")
+    else:
+        folder, bird, bird_rows = write_image_trees(tmp / "images", rng)
+        exps = [{"name": "classical", "extractor": "image_classical"},
+                {"name": "pixels", "extractor": "image_pixels"},
+                {"name": "mobilenet", "extractor": "image_mobilenet_v2", "extractor_params": {"weights": str(weights)}}]
+        shapes = {"classical": (8196,), "pixels": (64, 64, 1), "mobilenet": (1280,)}
+        for tag, dataset, loader, split, rows in (
+                ("folder", folder, "image_folder", "all", IMAGE_CLASSES * IMAGE_PER_CLASS),
+                ("birdeep", bird, "birdeep_image", "train", bird_rows["train"])):
+            runs = card_vs_cpu(tmp, f"img_{tag}", dataset, loader, split, exps)
+            for e in exps:
+                card, cpu = runs[e["name"]]
+                check(card.features.shape[1:] == shapes[e["name"]], f"4i: {tag} {e['name']} shape {card.features.shape}")
+                cmp = check_image_set(f"4i {tag} {e['name']}", e["extractor"], card, cpu, rows)
+                print(f"[4i] {e['extractor']} on the {loader} tree ({split}): {card}; card vs CPU {cmp}")
+            print(f"[4i] the {loader} tree's three extractors through the CLI: card {runs['card_s']:.2f} s, "
+                  f"CPU {runs['cpu_s']:.2f} s")
+            if tag == "birdeep":
+                boxes = sum("bbox_norm" in m for m in runs["classical"][0].metadata)
+                check(0 < boxes < rows, f"4i: {boxes} of {rows} BIRDeep rows carry a bbox_norm")
+        os.environ["MLFLOW_TRACKING_URI"] = str(tmp / "img_mlruns")
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        t0 = time.perf_counter()
+        try:
+            train.main(["--features", str(tmp / "img_folder" / "card" / "classical"), "--model", "mlp", "--output",
+                        str(tmp / "img_models"), "--experiment", "chip-smoke-image", "--param", "epochs=2"])
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+            os.environ.pop("MLFLOW_TRACKING_URI")
+        bundles = sorted(p.name for p in (tmp / "img_models").rglob("model.flax.npz"))
+        print(f"[4i] the train CLI's mlp, 2 epochs on the image_classical FeatureSet (64 x 8196) on the card: "
+              f"{time.perf_counter() - t0:.2f} s, bundles {bundles}")
+        check(len(bundles) == 1, "4i: the mlp on image features wrote no bundle")
+
+    imgs = torch.rand((IMAGE_BATCH, 128, 128), device=dev, generator=torch.Generator(dev).manual_seed(3))
+    out["image_ms"] = cuda_ms(lambda: imgdsp.classical_image_vector_batch(imgs), iters=10)
+    out["image_parts_ms"] = {name: cuda_ms(lambda fn=fn: fn(imgs), iters=10) for name, fn in (
+        ("hog", imgdsp.hog_features_batch), ("lbp", imgdsp.lbp_histogram_batch),
+        ("gray_hist", imgdsp.gray_hist_batch), ("glcm", imgdsp.glcm_stats_batch))}
+    embed = mobilenet_v2_embedder(224, str(weights), device=dev)
+    out["embed_ms"] = {}
+    with torch.inference_mode():
+        for b in EMBED_BATCHES:
+            x = torch.rand((b, 224, 224, 3), device=dev) * 2 - 1
+            out["embed_ms"][b] = cuda_ms(lambda: embed(x), iters=10)
+    print(f"[4i] phase 4i in {time.perf_counter() - t_start:.2f} s")
+    return out
+
+
+def write_video_tree(root: Path, rng: np.random.Generator) -> Path:
+    """VIDEO_CLASSES classes x VIDEO_PER_CLASS MJPG clips of VIDEO_FRAMES
+    frames at 96 x 80, written with cv2: a class-coloured square moving
+    across noise."""
+    import cv2
+
+    for c in range(VIDEO_CLASSES):
+        (root / f"class{c}").mkdir(parents=True)
+        for i in range(VIDEO_PER_CLASS):
+            w = cv2.VideoWriter(str(root / f"class{c}" / f"{i}.avi"), cv2.VideoWriter_fourcc(*"MJPG"), 10, (96, 80))
+            check(w.isOpened(), "4j: cv2 cannot write MJPG")
+            for f in range(VIDEO_FRAMES):
+                frame = rng.integers(0, 60, (80, 96, 3), dtype=np.uint8)
+                x = (4 * f + 9 * i) % 70
+                frame[20 + 10 * c : 40 + 10 * c, x : x + 24] = (200 - 60 * c, 90 + 50 * c, 60 + 30 * i)
+                w.write(frame)
+            w.release()
+    return root
+
+
+def phase_4j(dev, tmp: Path) -> None:
+    """Phase 4j: the video modality. A video_folder tree written with cv2
+    through the extraction CLI with video_classical (optical flow on),
+    video_frame_seq and video_mobilenet_v2_seq (224, phase 4i's seeded
+    weights) on the card and on the CPU, at the image gates."""
+    import importlib.util
+
+    t_start = time.perf_counter()
+    if importlib.util.find_spec("cv2") is None:
+        print("[4j] cv2 is not installed: the extraction CLI's video paths (video_folder loader; video_classical, "
+              "video_frame_seq, video_mobilenet_v2_seq) cannot run")
+        return
+    tree = write_video_tree(tmp / "videos", np.random.default_rng(23))
+    weights = tmp / "mbv2_seeded.npz"
+    exps = [{"name": "classical", "extractor": "video_classical", "extractor_params": {"optical_flow": True}},
+            {"name": "frames", "extractor": "video_frame_seq"},
+            {"name": "mobilenet", "extractor": "video_mobilenet_v2_seq", "extractor_params": {"weights": str(weights)}}]
+    shapes = {"classical": (2 * (4 * 9 * 9 + 26 + 64 + 6) + 10,), "frames": (16, 64, 64, 3), "mobilenet": (16, 1280)}
+    runs = card_vs_cpu(tmp, "video", tree, "video_folder", "all", exps)
+    for e in exps:
+        card, cpu = runs[e["name"]]
+        check(card.features.shape[1:] == shapes[e["name"]], f"4j: {e['name']} shape {card.features.shape}")
+        cmp = check_image_set(f"4j {e['name']}", e["extractor"], card, cpu, VIDEO_CLASSES * VIDEO_PER_CLASS)
+        print(f"[4j] {e['extractor']} on the video_folder tree: {card}; card vs CPU {cmp}")
+    print(f"[4j] the three video extractors through the CLI: card {runs['card_s']:.2f} s, CPU {runs['cpu_s']:.2f} s; "
+          f"phase 4j in {time.perf_counter() - t_start:.2f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2406,6 +2771,11 @@ def main() -> int:
         t4e = phase_4e(dev, tmp)
         t4f = phase_4f(dev, tmp)
         t4g = phase_4g(dev, tmp)
+
+        # 4h-4j. audio_cqt on the same tree, then the image and video modalities
+        t4h = phase_4h(dev, tmp, fsc22, split_rows["train"])
+        t4i = phase_4i(dev, tmp)
+        phase_4j(dev, tmp)
 
         # 5. serving
         trainer = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, device=dev)
@@ -2883,6 +3253,17 @@ def main() -> int:
     print(f"[6] classical at fsc22 scale on {card}: " + "; ".join(f"{k} {v:.2f} ms" for k, v in classical_ms.items()))
     check(all(np.isfinite([ms_svm_eager, ms_svm_captured, *classical_ms.values()])), "classical timing")
 
+    print(f"[6] audio_cqt at B={CQT_BATCH} x 5 s, 22.05 kHz: cqt_feature {t4h['ms']:.3f} ms "
+          f"({CQT_BATCH / t4h['ms'] * 1e3:.0f} clips/s), bound {t4h['bound_ms']:.3f} ms ({t4h['bound_by']}, "
+          f"{t4h['flops'] / 1e9:.1f} G float64 operations), {100 * t4h['bound_ms'] / t4h['ms']:.2f} % of it; peak memory "
+          f"{t4h['peak_gib']:.2f} GiB; float64 GEMM {t4h['gemm_rate'] / 1e12:.2f} TFLOP/s on {card}")
+    print(f"[6] image_classical at B={IMAGE_BATCH} x 128 x 128: classical_image_vector_batch {t4i['image_ms']:.3f} ms "
+          f"({IMAGE_BATCH / t4i['image_ms'] * 1e3:.0f} images/s; "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in t4i["image_parts_ms"].items()) + "); MobileNetV2 embedder at 224: "
+          + ", ".join(f"B={b} {v:.3f} ms ({b / v * 1e3:.0f} images/s)" for b, v in t4i["embed_ms"].items())
+          + f" on {card}")
+    check(all(np.isfinite([t4h["ms"], t4i["image_ms"], *t4i["image_parts_ms"].values(), *t4i["embed_ms"].values()])),
+          "4h-4j timing")
     tuning_times(t5e, card, in_turns)
     deploy_times(t5f, card)
     family_times(dev, card, t5g)

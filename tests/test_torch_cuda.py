@@ -387,3 +387,70 @@ def test_optimize_on_the_card_matches_the_cpu(cuda_device, tmp_path):
             assert float(np.abs(p_card - p_cpu).max()) <= 1e-4, mode
     finally:
         torch.backends.cudnn.allow_tf32 = flags
+
+
+@pytest.mark.cuda
+def test_cqt_on_the_card_matches_the_cpu_and_golden(cuda_device):
+    """audio_cqt's float64 products on the card: the feature within 1e-6 of
+    the CPU's and 1e-5 of golden, with TF32 allowed (no float32 product is
+    on the path); a clip alone equals it inside the batch."""
+    from audio_edge_ml_pipeline_torch.ops import dsp
+
+    rng = np.random.default_rng(12)
+    t = np.arange(3 * 22050) / 22050
+    y = np.stack([0.5 * np.sin(2 * np.pi * (110 + 150 * i) * (1 + 0.1 * t) * t) + 0.02 * rng.standard_normal(len(t))
+                  for i in range(5)]).astype(np.float32)
+    flags = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = dsp.cqt_feature(torch.from_numpy(y).to(cuda_device)).cpu().numpy()
+        alone = dsp.cqt_feature(torch.from_numpy(y[2:3]).to(cuda_device)).cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags
+    cpu = dsp.cqt_feature(torch.from_numpy(y)).numpy()
+    assert card.shape == (5, 84, 1 + y.shape[1] // 512)
+    assert float(np.abs(card - cpu).max()) <= 1e-6
+    assert float(np.abs(card[2] - alone[0]).max()) <= 1e-6
+    for i in (0, 4):
+        assert float(np.abs(card[i] - golden.cqt_feature(y[i].astype(np.float64))).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,cell,block", [(128, 128, (8, 8), (2, 2)), (96, 80, (16, 8), (1, 2))])
+def test_image_descriptors_on_the_card_match_the_numpy_oracle(cuda_device, h, w, cell, block):
+    """ops/imgdsp.py on the card: LBP and the gray histogram bit for bit,
+    HOG within 1e-5, the whole vector within 2e-4 of the numpy oracle."""
+    from audio_edge_ml_pipeline_torch.features import image
+    from audio_edge_ml_pipeline_torch.ops import imgdsp
+
+    rng = np.random.default_rng(h + w)
+    imgs = np.stack([rng.random((h, w), dtype=np.float32), np.full((h, w), 0.5, np.float32),
+                     (np.kron(rng.random((h // 8, w // 8)) > 0.5, np.ones((8, 8))) * 0.8 + 0.1).astype(np.float32),
+                     np.clip(rng.normal(0.5, 0.2, (h, w)), 0, 1).astype(np.float32)])
+    out = imgdsp.classical_image_vector_batch(torch.from_numpy(imgs).to(cuda_device), cell=cell,
+                                              block=block).cpu().numpy()
+    n_hog = out.shape[1] - 96
+    for i, g in enumerate(imgs):
+        ref = image.classical_image_vector(g, cell=cell, block=block)
+        np.testing.assert_array_equal(out[i, n_hog : n_hog + 90], ref[n_hog : n_hog + 90])
+        assert float(np.abs(out[i, :n_hog] - ref[:n_hog]).max()) <= 1e-5
+        assert float(np.abs(out[i] - ref).max()) <= 2e-4
+
+
+@pytest.mark.cuda
+def test_mobilenet_embedder_on_the_card_matches_the_cpu(cuda_device):
+    """The frozen MobileNetV2 at 224 on the card against the CPU, the same
+    seeded init, cuDNN in full float32: within 1e-4 of the largest."""
+    from audio_edge_ml_pipeline_torch.models.backbones import mobilenet_v2_embedder
+
+    x = np.random.default_rng(1).uniform(-1, 1, (2, 224, 224, 3)).astype(np.float32)
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            card = mobilenet_v2_embedder(224, device=cuda_device)(torch.from_numpy(x).to(cuda_device)).cpu().numpy()
+            cpu = mobilenet_v2_embedder(224, device="cpu")(torch.from_numpy(x)).numpy()
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags
+    assert card.shape == (2, 1280)
+    assert float(np.abs(card - cpu).max()) <= 1e-4 * float(np.abs(cpu).max())

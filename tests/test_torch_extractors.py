@@ -41,9 +41,8 @@ def test_registry_has_the_three_extractors_and_not_cqt():
     assert tfeatures.get("audio_mfcc_seq") is taudio.AudioMFCCSequence
     assert tfeatures.get("audio_classical") is taudio.AudioClassicalExtractor
     assert not NOT_YET_PORTED & set(tfeatures.list_extractors())
-    assert "audio_cqt" in NOT_YET_PORTED and not {n for n in NOT_YET_PORTED if n.startswith("audio_")} - {"audio_cqt"}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tfeatures.get("audio_cqt")
+    assert not {n for n in NOT_YET_PORTED if n.startswith("audio_")}
+    assert tfeatures.get("audio_cqt") is taudio.AudioCQT
 
 
 @pytest.mark.parametrize("name,kwargs", [

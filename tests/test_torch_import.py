@@ -142,8 +142,8 @@ def test_unported_names_raise_not_yet_ported(tmp_path):
     from audio_edge_ml_pipeline_torch.features.registry import get
 
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get("audio_cqt")
+        get("text_tfidf")
     with pytest.raises(KeyError):
         get("no_such_extractor")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_loader("birdeep_image", str(tmp_path), "train")
+        build_loader("tabular", str(tmp_path), "train")
