@@ -180,10 +180,26 @@ def load_audio(
     mono: bool = True,
 ) -> tuple[np.ndarray, int]:
     """librosa.load-compatible decode: seek at native rate, mean-downmix,
-    resample to ``sr``. Returns (float32 (n,), sample_rate). Numpy decoder
-    only; the samples equal those of the JAX package's native C++ reader."""
-    y, native_sr = read_wav(path)
-    y = (y.mean(axis=1) if y.shape[1] > 1 else y[:, 0]) if mono else y
+    resample to ``sr``. Returns (float32 (n,), sample_rate).
+
+    Mono decodes go through the native C++ reader (data/native_wavio.py)
+    when its library is available: it releases the GIL, so the extractor's
+    decode threads run in parallel. Otherwise, and for any file it refuses,
+    the numpy codec decodes, with identical samples
+    (tests/test_torch_native_wavio.py)."""
+    y = native_sr = None
+    if mono:
+        from . import native_wavio
+
+        info = probe_audio(path)
+        n_frames = int(round(info["duration"] * info["sample_rate"])) if info["sample_rate"] else 0
+        if n_frames > 0:
+            decoded = native_wavio.decode(path, n_frames)
+            if decoded is not None:
+                y, native_sr = decoded
+    if y is None:
+        y, native_sr = read_wav(path)
+        y = (y.mean(axis=1) if y.shape[1] > 1 else y[:, 0]) if mono else y
     if offset or duration is not None:
         start = int(round(offset * native_sr))
         stop = len(y) if duration is None else start + int(round(duration * native_sr))

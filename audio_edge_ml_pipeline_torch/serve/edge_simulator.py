@@ -5,7 +5,8 @@ Simulates a deployed device (contract of the JAX package's
 directory, extracts its log-mel on the torch device (the folded-mel kernel
 on a CUDA card), runs the ``.npz`` model bundle, writes a telemetry JSONL
 event, and — when confidence falls below the upload threshold — POSTs the
-clip to the ingestion API for later re-labeling. Aggregated stats land in
+clip to the ingestion API (``serve/api.py``) for later re-labeling, through
+``urllib.request``. Aggregated stats land in
 data/device_stats/<device>_stats.json; both feed the dashboard. The
 ``.tflite`` branch is not yet ported.
 
@@ -23,6 +24,8 @@ import json
 import logging
 import random
 import time
+import urllib.request
+import uuid
 from datetime import datetime
 from pathlib import Path
 
@@ -34,6 +37,16 @@ from ..utils.device import resolve_device
 from ..utils.logging import setup_logging
 
 logger = logging.getLogger(__name__)
+
+
+def multipart_body(boundary: str, fields: dict[str, str], file_field: str, filename: str, content: bytes,
+                   content_type: str) -> bytes:
+    """A multipart/form-data body: the plain ``fields``, then one file part."""
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in fields.items()]
+    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="{file_field}"; filename="{filename}"'
+                 f"\r\nContent-Type: {content_type}\r\n\r\n".encode() + content + b"\r\n")
+    return b"".join(parts) + f"--{boundary}--\r\n".encode()
 
 
 class EdgeDeviceSimulator:
@@ -100,18 +113,15 @@ class EdgeDeviceSimulator:
     def _upload(self, wav_path: Path, prediction: str, confidence: float) -> bool:
         if not self.api_url:
             return False
+        boundary = uuid.uuid4().hex
+        fields = {"device_id": self.device_id, "prediction": prediction, "confidence": str(confidence)}
         try:
-            import requests
-
-            with open(wav_path, "rb") as f:
-                r = requests.post(
-                    f"{self.api_url}/upload",
-                    files={"file": (wav_path.name, f, "audio/wav")},
-                    data={"device_id": self.device_id, "prediction": prediction, "confidence": str(confidence)},
-                    timeout=10,
-                )
-            return r.status_code == 200
-        except Exception as exc:
+            body = multipart_body(boundary, fields, "file", wav_path.name, wav_path.read_bytes(), "audio/wav")
+            req = urllib.request.Request(f"{self.api_url}/upload", data=body, method="POST",
+                                         headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
+            with urllib.request.urlopen(req, timeout=10) as r:
+                return r.status == 200
+        except OSError as exc:   # URLError / HTTPError (a status other than 2xx), a timeout, an unreadable clip
             logger.warning("upload failed: %s", exc)
             return False
 

@@ -454,3 +454,63 @@ def test_mobilenet_embedder_on_the_card_matches_the_cpu(cuda_device):
         torch.backends.cudnn.allow_tf32 = flags
     assert card.shape == (2, 1280)
     assert float(np.abs(card - cpu).max()) <= 1e-4 * float(np.abs(cpu).max())
+
+
+@pytest.mark.cuda
+def test_compile_stage_candidates_match_the_eager_forward(cuda_device, tmp_path):
+    """compile_xla's CUDA graph and each torch.compile candidate of its
+    --tune-flags search give the eager forward's logits (TF32 off), on a
+    seeded flagship-width cnn bundle."""
+    from audio_edge_ml_pipeline_torch.compilation import compile_xla
+    from audio_edge_ml_pipeline_torch.features.base import FeatureSet
+    from audio_edge_ml_pipeline_torch.features.pipeline import FeaturePipeline
+    from audio_edge_ml_pipeline_torch.models.deep import CNNTrainer
+
+    trainer = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, device="cpu")
+    trainer.initialize((40, 501, 1), 27, torch.Generator().manual_seed(0))
+    trainer.save(tmp_path / "model.flax.npz")
+    X = np.random.default_rng(2).random((40, 40, 501), dtype=np.float32)
+    FeaturePipeline.save(FeatureSet(features=X, feature_type="audio_mel_spec", modality="audio",
+                                    metadata=[{} for _ in X], labels=np.arange(40) % 27,
+                                    label_names=[str(i) for i in range(27)]), tmp_path / "feats")
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _, forward, xb = compile_xla.load_forward(tmp_path / "model.flax.npz", tmp_path / "feats", 32, cuda_device)
+        eager = forward(xb).clone()
+        compile_xla.capture_graph(forward, xb)()   # one captured and dropped, as the CLI's plain run leaves it
+        graph = compile_xla.capture_graph(forward, xb)
+        assert float((graph() - eager).abs().max()) <= 1e-5
+        _, record = compile_xla.flag_search(forward, xb, len(xb))
+        # replayed after the reduce-overhead candidate cleared cuBLAS's workspaces while it recorded
+        assert float((graph() - eager).abs().max()) <= 1e-5
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags
+    assert [c["flags"].get("mode", c["flags"]["backend"]) for c in record["candidates"]] == \
+        ["eager", "cuda_graph", "default", "reduce-overhead"]
+    for c in record["candidates"]:
+        assert "error" not in c, c
+        assert c["max_abs_diff_vs_eager"] <= 1e-5 and c["latency_ms_per_sample"] > 0
+
+
+@pytest.mark.cuda
+def test_audio_processor_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """The ingestion preprocessor's .npy files on the card against the CPU
+    within 1e-5, through the native WAV reader."""
+    from audio_edge_ml_pipeline_torch.data import native_wavio
+    from audio_edge_ml_pipeline_torch.data.audio_io import write_wav
+    from audio_edge_ml_pipeline_torch.serve.audio_processor import AudioPreprocessor
+
+    rng = np.random.default_rng(8)
+    (tmp_path / "in").mkdir()
+    for i in range(3):
+        write_wav(tmp_path / "in" / f"{i}.wav", (0.3 * rng.standard_normal(80000 - 1000 * i)).astype(np.float32), 16000)
+    assert native_wavio.available()
+    before = mel_kernel.counter.launches
+    assert AudioPreprocessor(device=cuda_device).process_dataset(tmp_path / "in", tmp_path / "card") == 3
+    assert mel_kernel.counter.launches == before + 3
+    assert AudioPreprocessor(device="cpu").process_dataset(tmp_path / "in", tmp_path / "cpu") == 3
+    for i in range(3):
+        card, cpu = np.load(tmp_path / "card" / f"{i}.npy"), np.load(tmp_path / "cpu" / f"{i}.npy")
+        assert card.shape == (40, 501) and float(np.abs(card - cpu).max()) <= 1e-5

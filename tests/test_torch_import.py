@@ -50,12 +50,17 @@ def test_importing_every_port_module_leaves_jax_out():
 
 
 def test_post_training_clis_load_no_jax_ml_dtypes_sklearn_or_joblib():
-    """The H100 machine has none of them: optimize, select and deploy import
-    them at no point of their import."""
+    """The H100 machine has none of them (nor matplotlib or requests): the
+    post-training, serving and compile CLIs import them at no point of their
+    import."""
     mods = ["audio_edge_ml_pipeline_torch.optimize.optimize", "audio_edge_ml_pipeline_torch.train.select",
             "audio_edge_ml_pipeline_torch.deploy.deploy", "audio_edge_ml_pipeline_torch.deploy.export_svm",
-            "audio_edge_ml_pipeline_torch.compilation.generate_c_header"]
-    absent = (*FORBIDDEN, "ml_dtypes", "sklearn", "joblib")
+            "audio_edge_ml_pipeline_torch.compilation.generate_c_header",
+            "audio_edge_ml_pipeline_torch.serve.api", "audio_edge_ml_pipeline_torch.serve.audio_processor",
+            "audio_edge_ml_pipeline_torch.serve.dashboard", "audio_edge_ml_pipeline_torch.serve.edge_simulator",
+            "audio_edge_ml_pipeline_torch.train.dataset", "audio_edge_ml_pipeline_torch.compilation.compile_xla",
+            "audio_edge_ml_pipeline_torch.data.native_wavio", "audio_edge_ml_pipeline_torch.utils.tracking"]
+    absent = (*FORBIDDEN, "ml_dtypes", "sklearn", "joblib", "matplotlib", "requests")
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -100,6 +105,8 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda, tmp_path
     from audio_edge_ml_pipeline_torch.models import deep
     from audio_edge_ml_pipeline_torch.optimize import optimize, quantize
     from audio_edge_ml_pipeline_torch.serve.edge_simulator import EdgeDeviceSimulator
+    from audio_edge_ml_pipeline_torch.compilation import compile_xla
+    from audio_edge_ml_pipeline_torch.serve import audio_processor
     from audio_edge_ml_pipeline_torch.train import train
 
     bundle = tmp_path / "m.npz"
@@ -122,6 +129,8 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda, tmp_path
         lambda: quantize.load_trainer_any(bundle, "cnn"),
         lambda: optimize.main(["--model-path", str(bundle), "--model-name", "cnn", "--no-tracking",
                                "--output", str(tmp_path / "opt")]),
+        lambda: audio_processor.main(["--input", str(tmp_path / "data" / "a"), "--output", str(tmp_path / "mel")]),
+        lambda: compile_xla.main(["--model", str(bundle), "--features", str(tmp_path)]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

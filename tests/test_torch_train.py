@@ -317,9 +317,10 @@ def test_port_runs_are_read_by_the_jax_tracking_store(tmp_path):
     assert (rec.run_id, rec.run_name, rec.status) == (run.info.run_id, "port-run", "FINISHED")
     assert rec.params["model"] == "cnn" and rec.metrics["val_accuracy"] == 0.75
     assert ttracking.get_run(run.info.run_id).metrics == rec.metrics
-    ttracking.set_tracking_uri("http://localhost:5000")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttracking.search_runs("crossing")
+    # an http(s) URI takes the REST backend (tests/test_torch_tracking_rest.py); nothing listens on port 1
+    ttracking.set_tracking_uri("http://127.0.0.1:1")
+    with pytest.raises(ttracking.TrackingServerError, match="unreachable"):
+        ttracking.set_experiment("crossing")
     ttracking.set_tracking_uri(None)
 
 
