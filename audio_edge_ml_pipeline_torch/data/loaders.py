@@ -1,13 +1,14 @@
 """Dataset loaders: every loader yields (sample_path | None, label | None,
 metadata dict) and implements __len__.
 
-The audio, image and video loaders of the JAX package's ``data/loaders.py``:
+The loaders of the JAX package's ``data/loaders.py``:
 fsc22 (flat dir + CSV + deterministic stratified split), audio_folder
 (class-per-subfolder + header probe + split-manifest filter), birdeep (one
 sample per annotation row, with its segment's start and end),
 birdeep_image (the same rows' spectrogram PNGs with their YOLO boxes),
-image_folder and video_folder (class-per-subfolder). The text and tabular
-loader names raise a "not yet ported" error from ``build_loader``.
+image_folder, video_folder and text_folder (class-per-subfolder), text_json
+and text_csv (in-memory documents), and tabular (rows of csv, json, jsonl,
+parquet, feather, excel, hdf or sqlite as in-memory samples).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ _VALID_SPLITS = ("train", "validation", "test", "all")
 _AUDIO_SUFFIXES = frozenset({".wav", ".flac", ".ogg", ".mp3", ".aac", ".m4a", ".opus", ".aiff", ".aif"})
 _IMAGE_SUFFIXES = frozenset({".png", ".jpg", ".jpeg", ".bmp", ".gif", ".tiff", ".webp"})
 _VIDEO_SUFFIXES = frozenset({".mp4", ".avi", ".mov", ".mkv", ".webm", ".mpg", ".mpeg"})
+_TEXT_SUFFIXES = frozenset({".txt", ".md"})
 
 
 def stratified_split_indices(
@@ -255,6 +257,204 @@ class VideoFolderLoader(_FolderLoader):
         super().__init__(root, split=split, **kw)
 
 
+class TextFolderLoader(_FolderLoader):
+    suffixes = _TEXT_SUFFIXES
+
+    def __init__(self, root, split=None, encoding: str = "utf-8", **kw):
+        split = None if split in (None, "all") else split
+        self._encoding = encoding
+        super().__init__(root, split=split, **kw)
+
+    def _meta(self, path, class_dir):
+        meta = super()._meta(path, class_dir)
+        if self._encoding != "utf-8":
+            meta["encoding"] = self._encoding  # consumed by _doc_text
+        return meta
+
+
+class TextJSONLoader(BaseDatasetLoader):
+    """JSON array or JSONL of {"text": ..., "label": ...} documents; yields
+    (None, label, {"text": ...}) in-memory samples. With a dict root, the
+    record list is found under records_key — or the first list-valued key
+    when unset (reference text_loader.py:146-193)."""
+
+    def __init__(self, path: Path | str, text_key: str = "text",
+                 label_key: Optional[str] = "label",
+                 records_key: Optional[str] = None) -> None:
+        p = Path(path)
+        raw = p.read_text()
+        try:
+            docs = json.loads(raw)
+            if isinstance(docs, dict):
+                key = records_key or next(
+                    (k for k, v in docs.items() if isinstance(v, list)), None
+                )
+                if not (key and isinstance(docs.get(key), list)):
+                    raise ValueError(f"No record list under {records_key or '<any key>'!r} in {p}")
+                docs = docs[key]
+        except json.JSONDecodeError:
+            docs = [json.loads(line) for line in raw.splitlines() if line.strip()]
+        self._samples = []
+        for d in docs:
+            if text_key not in d:
+                continue
+            label = d.get(label_key) if label_key else None
+            meta = {"text": d[text_key]}
+            meta.update({k: v for k, v in d.items() if k not in (text_key, label_key)})
+            self._samples.append((None, None if label is None else str(label), meta))
+
+    def __len__(self):
+        return len(self._samples)
+
+    def __iter__(self):
+        yield from self._samples
+
+
+class TextCSVLoader(BaseDatasetLoader):
+    """CSV with a text column and optional label column (name or 0-based
+    index). delimiter=None sniffs from the header; skip_header drops leading
+    junk lines (reference text_loader.py:216-226)."""
+
+    def __init__(self, path: Path | str, text_col: str | int = "text",
+                 label_col: Optional[str | int] = None,
+                 delimiter: Optional[str] = None, encoding: str = "utf-8",
+                 skip_header: int = 0) -> None:
+        import pandas as pd
+
+        if delimiter is None:
+            import csv as _csv
+
+            with open(path, "r", encoding=encoding, errors="replace") as f:
+                for _ in range(skip_header):
+                    f.readline()
+                sample = f.read(8192)
+            try:
+                delimiter = _csv.Sniffer().sniff(sample, delimiters=",;\t|").delimiter
+            except _csv.Error:
+                delimiter = ","
+        df = pd.read_csv(path, sep=delimiter, encoding=encoding, skiprows=skip_header)
+        df.columns = df.columns.str.strip()
+
+        def _col(spec):
+            if isinstance(spec, int):
+                return df.columns[spec]
+            return spec
+
+        text_col = _col(text_col)
+        label_col = _col(label_col) if label_col is not None else None
+        if text_col not in df.columns:
+            raise ValueError(f"text column {text_col!r} not in CSV columns {list(df.columns)}")
+        self._samples = []
+        for _, row in df.iterrows():
+            label = str(row[label_col]) if label_col and label_col in df.columns else None
+            self._samples.append((None, label, {"text": str(row[text_col])}))
+
+    def __len__(self):
+        return len(self._samples)
+
+    def __iter__(self):
+        yield from self._samples
+
+
+_TABULAR_FORMAT_MAP = {
+    ".csv": "csv", ".tsv": "csv", ".txt": "csv",
+    ".json": "json", ".jsonl": "jsonl", ".ndjson": "jsonl",
+    ".parquet": "parquet", ".pq": "parquet",
+    ".arrow": "feather", ".feather": "feather",
+    ".xls": "excel", ".xlsx": "excel",
+    ".h5": "hdf", ".hdf": "hdf", ".hdf5": "hdf",
+    ".db": "sqlite", ".sqlite": "sqlite", ".sqlite3": "sqlite",
+}
+
+
+class TabularLoader(BaseDatasetLoader):
+    """Multi-format tabular rows as in-memory samples: yields
+    (None, label, {col: value}). Formats auto-detected by suffix or forced
+    with format=: csv/tsv, json, jsonl, parquet, feather, excel, hdf,
+    sqlite (table or sql_query) — reference tabular_loader.py:110-260."""
+
+    def __init__(self, path: Path | str, label_col: Optional[str | int] = None,
+                 format: Optional[str] = None, sheet_name: str | int = 0,
+                 hdf_key: str = "data", sqlite_table: Optional[str] = None,
+                 sql_query: Optional[str] = None, read_kwargs: Optional[dict] = None,
+                 drop_cols: Optional[list[str]] = None,
+                 max_rows: Optional[int] = None) -> None:
+        self._path = Path(path)
+        fmt = format or _TABULAR_FORMAT_MAP.get(self._path.suffix.lower())
+        if fmt is None:
+            raise ValueError(
+                f"Cannot auto-detect tabular format for {self._path.suffix!r}; "
+                f"pass format= (one of {sorted(set(_TABULAR_FORMAT_MAP.values()))})"
+            )
+        df = self._load(fmt, sheet_name, hdf_key, sqlite_table, sql_query,
+                        dict(read_kwargs or {}), max_rows)
+        df.columns = df.columns.astype(str).str.strip()
+        for c in drop_cols or []:
+            if c in df.columns:
+                df = df.drop(columns=[c])
+        if isinstance(label_col, int):
+            label_col = df.columns[label_col]
+        self._samples = []
+        for _, row in df.iterrows():
+            d = row.to_dict()
+            label = None
+            if label_col and label_col in d:
+                label = str(d.pop(label_col))
+            self._samples.append((None, label, d))
+
+    def _load(self, fmt, sheet_name, hdf_key, sqlite_table, sql_query, kw, max_rows):
+        import pandas as pd
+
+        p = self._path
+        if fmt == "csv":
+            return pd.read_csv(p, nrows=max_rows, on_bad_lines="warn", **kw)
+        if fmt == "json":
+            df = pd.read_json(p, **kw)
+        elif fmt == "jsonl":
+            return pd.read_json(p, lines=True, nrows=max_rows, **kw)
+        elif fmt == "parquet":
+            df = pd.read_parquet(p, **kw)
+        elif fmt == "feather":
+            df = pd.read_feather(p, **kw)
+        elif fmt == "excel":
+            return pd.read_excel(p, sheet_name=sheet_name, nrows=max_rows, **kw)
+        elif fmt == "hdf":
+            df = pd.read_hdf(p, key=hdf_key, **kw)
+        elif fmt == "sqlite":
+            import sqlite3
+
+            con = sqlite3.connect(p)
+            try:
+                if sql_query:
+                    query = sql_query
+                else:
+                    table = sqlite_table
+                    if not table:
+                        row = con.execute(
+                            "SELECT name FROM sqlite_master WHERE type='table' LIMIT 1"
+                        ).fetchone()
+                        if row is None:
+                            raise ValueError(
+                                f"{p}: sqlite database has no tables; pass "
+                                "sqlite_table= or sql_query="
+                            )
+                        table = row[0]
+                    limit = f" LIMIT {int(max_rows)}" if max_rows else ""
+                    query = f'SELECT * FROM "{table}"{limit}'
+                df = pd.read_sql_query(query, con, **kw)
+            finally:
+                con.close()
+        else:
+            raise ValueError(f"Unsupported tabular format: {fmt!r}")
+        return df.head(max_rows) if max_rows else df
+
+    def __len__(self):
+        return len(self._samples)
+
+    def __iter__(self):
+        yield from self._samples
+
+
 _SPLIT_FILES = {
     "train": "train_file.csv",
     "test": "test_file.csv",
@@ -390,7 +590,6 @@ LOADER_NAMES = (
     "birdeep", "birdeep_image", "fsc22", "audio_folder", "image_folder",
     "video_folder", "text_folder", "text_json", "text_csv", "tabular",
 )
-PORTED_LOADERS = ("birdeep", "birdeep_image", "fsc22", "audio_folder", "image_folder", "video_folder")
 
 
 def build_loader(
@@ -422,11 +621,14 @@ def build_loader(
         return AudioFolderLoader(root, split=folder_split, manifest=manifest, manifest_split=manifest_split)
     if loader_name == "image_folder":
         return ImageFolderLoader(image_folder or dataset, split=split)
+    if loader_name == "text_folder":
+        return TextFolderLoader(text_folder or dataset, split=split)
+    if loader_name == "text_json":
+        return TextJSONLoader(dataset)
+    if loader_name == "text_csv":
+        return TextCSVLoader(dataset, text_col=text_col, label_col=label_col)
+    if loader_name == "tabular":
+        return TabularLoader(dataset, label_col=label_col)
     if loader_name == "video_folder":
         return VideoFolderLoader(video_folder or dataset, split=split)
-    if loader_name in LOADER_NAMES:
-        raise NotImplementedError(
-            f"loader {loader_name!r} is not yet ported to audio_edge_ml_pipeline_torch "
-            f"(ported: {', '.join(PORTED_LOADERS)}); use audio_edge_ml_pipeline_tpu for it."
-        )
     raise ValueError(f"Unknown loader: {loader_name!r}. Valid choices: {', '.join(LOADER_NAMES)}.")

@@ -9,4 +9,6 @@ from .registry import get, list_extractors, register  # noqa: F401
 
 from . import audio as _audio  # noqa: E402,F401
 from . import image as _image  # noqa: E402,F401
+from . import tabular as _tabular  # noqa: E402,F401
+from . import text as _text  # noqa: E402,F401
 from . import video as _video  # noqa: E402,F401

@@ -1,8 +1,8 @@
 """Extractor registry: @register class decorator + name lookup.
 
 Contract of the JAX package's ``features/registry.py`` (duplicate-name guard,
-KeyError with available names on unknown lookup). A name the JAX package
-registers but the port does not yet have raises NotImplementedError.
+KeyError with available names on unknown lookup). Every name the JAX package
+registers is ported.
 """
 
 from __future__ import annotations
@@ -11,11 +11,8 @@ from typing import Type
 
 _REGISTRY: dict[str, type] = {}
 
-# extractors of the JAX package that are still to be ported
-NOT_YET_PORTED = frozenset({
-    "tabular_classical", "tabular_polynomial",
-    "text_tfidf", "text_bow", "text_char_ngram", "text_sentence_embed", "text_bert_tokens",
-})
+# extractors of the JAX package that are still to be ported: none
+NOT_YET_PORTED: frozenset[str] = frozenset()
 
 
 def register(cls: Type) -> Type:
@@ -34,11 +31,6 @@ def get(name: str) -> type:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in NOT_YET_PORTED:
-            raise NotImplementedError(
-                f"extractor {name!r} is not yet ported to audio_edge_ml_pipeline_torch "
-                f"(ported: {sorted(_REGISTRY)}); use audio_edge_ml_pipeline_tpu for it."
-            ) from None
         raise KeyError(
             f"Unknown extractor: {name!r}. Available: {sorted(_REGISTRY)}"
         ) from None

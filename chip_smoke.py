@@ -104,6 +104,29 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      2 MJPG clips of 24 frames) through the extraction CLI with
      video_classical (optical flow on), video_frame_seq and
      video_mobilenet_v2_seq on the card and on the CPU, at the image gates;
+  4k. the text modality (no kernel of the port; no mel kernel may launch in
+     4k-4l): a seeded corpus shaped like 20 Newsgroups (20 classes x 200
+     documents of 80-240 tokens, Zipf(1.1) over 30,000 pseudo-words, class
+     topic words) through the extraction CLI on the card and on the CPU:
+     text_tfidf (10,000 columns), text_bow and text_bert_tokens on all
+     4,000 documents, text_char_ngram (50,000 columns) and the LSA on a
+     1,000-document subset, the LSA of all 4,000 (4000 x 20000 -> 384) on
+     the card: vocabularies equal, bow and token ids equal, tfidf and char
+     rows within 1e-7, LSA rows within 1e-5, the top 10 singular values
+     within 1e-6 relative of an exact float64 decomposition (the Gram
+     matrix's eigenvalues), the IDF, weighting and SVD on the card; small
+     text_folder, text_json and text_csv trees of the same documents give
+     one FeatureSet; the train CLI's mlp (2 epochs) on the tfidf set and lda
+     on the LSA set, served card vs CPU; the TF-IDF weighting and the LSA
+     timed on the card and the CPU;
+  4l. the tabular modality: 32,561 seeded rows with UCI Adult's schema
+     (6 numeric, 8 categorical columns, 99 categories, missing cells at
+     Adult's '?' shares) through the extraction CLI with tabular_classical
+     (105 columns) and tabular_polynomial (126), each with the standard,
+     minmax and robust scalers, card vs CPU within 1e-6 of each column's
+     largest value, the statistics on the card; sqlite and jsonl copies of
+     500 rows as the CSV of them; the mlp (2 epochs) served card vs CPU;
+     the transform timed at 32,561 rows;
   5. serving: the flagship CNN [16, 64, 64] (strides 4, 2; 27 classes) from
      a seeded generator, saved as a flax-layout bundle, loaded back, and
      8 edge-simulator requests; logits on the card against the CPU;
@@ -2440,6 +2463,409 @@ def phase_4j(dev, tmp: Path) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 4k-4l: the text and tabular modalities
+# ---------------------------------------------------------------------------
+
+TEXT_CLASSES, TEXT_PER_CLASS = 20, 200           # 20 Newsgroups' 20 classes; 200 documents a class (it has ~940)
+TEXT_TOKENS = (80, 240)                          # tokens a document
+TEXT_VOCAB, TEXT_ZIPF = 30_000, 1.1              # pseudo-words drawn by Zipf(1.1) rank
+TEXT_TOPIC_WORDS, TEXT_TOPIC_SHARE = 40, 0.15    # a class's topic words, and the share of tokens drawn from them
+TEXT_SUBSET = 50                                 # documents a class in the 1,000-document subset
+TEXT_SMALL = (4, 5)                              # classes x documents of the text_folder / text_json trees
+TFIDF_TOL = 1e-7                                 # tfidf and char n-gram rows card vs CPU (tests/test_torch_text.py)
+LSA_TOL = 1e-5                                   # LSA rows card vs CPU
+SV_REL_TOL = 1e-6                                # top 10 randomized singular values vs an exact float64 decomposition
+ADULT_ROWS = 32_561                              # UCI Adult's training file
+ADULT_SUBSET = 500                               # rows of the sqlite and jsonl copies
+TABULAR_TOL = 1e-6                               # card vs CPU, of each column's largest |value|
+ADULT_NUMERIC = ("age", "fnlwgt", "education-num", "capital-gain", "capital-loss", "hours-per-week")
+ADULT_CATEGORIES = {                             # adult.names, in its order; '?' cells become missing values
+    "workclass": ["Private", "Self-emp-not-inc", "Self-emp-inc", "Federal-gov", "Local-gov", "State-gov",
+                  "Without-pay", "Never-worked"],
+    "education": ["Bachelors", "Some-college", "11th", "HS-grad", "Prof-school", "Assoc-acdm", "Assoc-voc", "9th",
+                  "7th-8th", "12th", "Masters", "1st-4th", "10th", "Doctorate", "5th-6th", "Preschool"],
+    "marital-status": ["Married-civ-spouse", "Divorced", "Never-married", "Separated", "Widowed",
+                       "Married-spouse-absent", "Married-AF-spouse"],
+    "occupation": ["Tech-support", "Craft-repair", "Other-service", "Sales", "Exec-managerial", "Prof-specialty",
+                   "Handlers-cleaners", "Machine-op-inspct", "Adm-clerical", "Farming-fishing", "Transport-moving",
+                   "Priv-house-serv", "Protective-serv", "Armed-Forces"],
+    "relationship": ["Wife", "Own-child", "Husband", "Not-in-family", "Other-relative", "Unmarried"],
+    "race": ["White", "Asian-Pac-Islander", "Amer-Indian-Eskimo", "Other", "Black"],
+    "sex": ["Female", "Male"],
+    "native-country": ["United-States", "Cambodia", "England", "Puerto-Rico", "Canada", "Germany",
+                       "Outlying-US(Guam-USVI-etc)", "India", "Japan", "Greece", "South", "China", "Cuba", "Iran",
+                       "Honduras", "Philippines", "Italy", "Poland", "Jamaica", "Vietnam", "Mexico", "Portugal",
+                       "Ireland", "France", "Dominican-Republic", "Laos", "Ecuador", "Taiwan", "Haiti", "Columbia",
+                       "Hungary", "Guatemala", "Nicaragua", "Scotland", "Thailand", "Yugoslavia", "El-Salvador",
+                       "Trinadad&Tobago", "Peru", "Hong", "Holand-Netherlands"],
+}
+ADULT_MISSING = {"workclass": 0.056, "occupation": 0.057, "native-country": 0.018}   # the '?' shares of adult.data
+ADULT_COLUMNS = ("age", "workclass", "fnlwgt", "education", "education-num", "marital-status", "occupation",
+                 "relationship", "race", "sex", "capital-gain", "capital-loss", "hours-per-week", "native-country",
+                 "income")
+
+
+def text_corpus(rng: np.random.Generator) -> tuple[list[str], list[str]]:
+    """TEXT_CLASSES x TEXT_PER_CLASS documents shaped like 20 Newsgroups:
+    TEXT_TOKENS tokens a document from a Zipf(TEXT_ZIPF) vocabulary of
+    TEXT_VOCAB pseudo-words of 1-5 syllables (onset, nucleus, coda),
+    TEXT_TOPIC_SHARE of them from the class's topic words, in capitalised
+    sentences of 12 words."""
+    onsets = list("bcdfghjklmnprstvwz") + ["br", "cr", "dr", "st", "th", "ch", "sh", "pl", "gr", "tr"]
+    nuclei = list("aeiou") + ["ai", "ou", "ee", "ea"]
+    codas = ["", "", "", "n", "r", "s", "t", "l", "m", "nd", "st"]
+    seen: set[str] = set()
+    words: list[str] = []
+    while len(words) < TEXT_VOCAB:
+        w = "".join(onsets[rng.integers(len(onsets))] + nuclei[rng.integers(len(nuclei))] + codas[rng.integers(len(codas))]
+                    for _ in range(int(rng.integers(1, 6))))
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    vocab = np.array(words)
+    p = 1.0 / np.arange(1, TEXT_VOCAB + 1) ** TEXT_ZIPF
+    p /= p.sum()
+    docs, labels = [], []
+    for c in range(TEXT_CLASSES):
+        topic = vocab[rng.choice(np.arange(100, TEXT_VOCAB), TEXT_TOPIC_WORDS, replace=False)]
+        lengths = rng.integers(TEXT_TOKENS[0], TEXT_TOKENS[1] + 1, TEXT_PER_CLASS)
+        tokens = vocab[rng.choice(TEXT_VOCAB, int(lengths.sum()), p=p)]
+        mix = rng.random(len(tokens)) < TEXT_TOPIC_SHARE
+        tokens[mix] = topic[rng.integers(0, TEXT_TOPIC_WORDS, int(mix.sum()))]
+        for piece in np.split(tokens, np.cumsum(lengths)[:-1]):
+            sentences = [" ".join(piece[i : i + 12]) for i in range(0, len(piece), 12)]
+            docs.append(". ".join(s.capitalize() for s in sentences) + ".")
+            labels.append(f"group{c:02d}")
+    return docs, labels
+
+
+def write_text_csv(path: Path, docs: list[str], labels: list[str]) -> Path:
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["text", "label"])
+        w.writerows(zip(docs, labels))
+    return path
+
+
+def write_text_trees(root: Path, docs: list[str], labels: list[str]) -> tuple[Path, Path, Path]:
+    """TEXT_SMALL classes x documents as a text_folder tree, a text_json
+    array in the folder's order and a text_csv file of the same documents."""
+    picked = [(label, d) for c in range(TEXT_SMALL[0]) for label, d in
+              [(labels[i], docs[i]) for i in range(c * TEXT_PER_CLASS, c * TEXT_PER_CLASS + TEXT_SMALL[1])]]
+    for k, (label, d) in enumerate(picked):
+        (root / "folder" / label).mkdir(parents=True, exist_ok=True)
+        (root / "folder" / label / f"{k:03d}.txt").write_text(d)
+    (root / "docs.json").write_text(json.dumps([{"text": d, "label": label} for label, d in picked]))
+    return root / "folder", root / "docs.json", write_text_csv(root / "small.csv", [d for _, d in picked],
+                                                              [label for label, _ in picked])
+
+
+class recorded_extractors:
+    """Within the block, every FeaturePipeline.run appends its extractor to
+    the list it yields (the fitted vectorizers and transforms of a CLI run)."""
+
+    def __enter__(self) -> list:
+        from audio_edge_ml_pipeline_torch.features import pipeline
+
+        self.seen: list = []
+        self.run = pipeline.FeaturePipeline.run
+        seen, run = self.seen, self.run
+
+        def recording(pipe, max_samples=None):
+            seen.append(pipe.extractor)
+            return run(pipe, max_samples)
+
+        pipeline.FeaturePipeline.run = recording
+        return self.seen
+
+    def __exit__(self, *exc) -> None:
+        from audio_edge_ml_pipeline_torch.features import pipeline
+
+        pipeline.FeaturePipeline.run = self.run
+
+
+def cli_side(tmp: Path, tag: str, exps: list[dict], device: str | None) -> tuple[float, list]:
+    """``exps`` (each naming its dataset and loader) through the extraction
+    CLI, on the card or with ``device``: the seconds and the extractors."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.features import pipeline
+
+    cfg = extraction_config(tmp / f"{tag}.json", exps[0]["dataset"], exps[0]["loader"], "all", exps, tmp / tag)
+    t0 = time.perf_counter()
+    with recorded_extractors() as seen:
+        pipeline.main(["--config", str(cfg), *(["--device", device] if device else [])])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, list(seen)
+
+
+def train_and_serve(tmp: Path, tag: str, features: Path, model: str, epochs: int | None) -> tuple[float, float]:
+    """The train CLI's ``model`` on ``features`` on the card, its bundle
+    served on the card and on the CPU: (seconds, largest logit or decision
+    gap over 8 rows, relative to the largest for a classical model)."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.features import pipeline
+    from audio_edge_ml_pipeline_torch.models import get_model
+    from audio_edge_ml_pipeline_torch.models.deep import MODEL_FILENAME, load_any_model
+    from audio_edge_ml_pipeline_torch.train import train
+
+    out = tmp / f"{tag}_models"
+    os.environ["MLFLOW_TRACKING_URI"] = str(tmp / f"{tag}_mlruns")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    t0 = time.perf_counter()
+    try:
+        train.main(["--features", str(features), "--model", model, "--output", str(out), "--experiment",
+                    f"chip-smoke-{tag}", *(["--param", f"epochs={epochs}"] if epochs else [])])
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+        os.environ.pop("MLFLOW_TRACKING_URI")
+    seconds = time.perf_counter() - t0
+    X = pipeline.FeaturePipeline.load(features).features[:8]
+    if model == "lda":
+        (bundle,) = out.rglob("lda.npz")
+        card, cpu = get_model("lda").load(bundle), get_model("lda").load(bundle, device="cpu")
+        check(card.device.type == "cuda", f"{tag}: the lda bundle is not served on the card")
+        dec_card, dec_cpu = card._decision(X), cpu._decision(X)
+        return seconds, float(np.abs(dec_card - dec_cpu).max() / np.abs(dec_cpu).max())
+    (bundle,) = out.rglob(MODEL_FILENAME)
+    card, cpu = load_any_model(bundle), load_any_model(bundle, device="cpu")
+    check(card.device.type == "cuda", f"{tag}: the {model} bundle is not served on the card")
+    return seconds, float(np.abs(card._batched_logits(card._prepare_input(X)) -
+                                 cpu._batched_logits(cpu._prepare_input(X))).max())
+
+
+def phase_4k(dev, tmp: Path, card: str) -> None:
+    """Phase 4k: the text modality. A seeded corpus shaped like 20
+    Newsgroups (``text_corpus``) as a text_csv file, and a few of its
+    documents as text_folder and text_json trees, through the extraction
+    CLI at the extractors' defaults: text_tfidf (10,000 columns), text_bow
+    and text_bert_tokens on all 4,000 documents on the card and on the CPU,
+    text_sentence_embed (LSA of 4,000 x 20,000 -> 384) on the card,
+    text_char_ngram (50,000 columns) and the LSA on a 1,000-document subset
+    on both. Checks: vocabularies equal, bow and token ids equal, tfidf and
+    char rows within TFIDF_TOL, LSA rows within LSA_TOL, the top 10
+    singular values within SV_REL_TOL of an exact float64 decomposition of
+    the same TF-IDF matrix on the card (the eigenvalues of its Gram
+    matrix), the weighting, IDF and SVD on the card; the three small trees
+    give one FeatureSet. Then the train CLI's mlp (2 epochs) on the tfidf
+    set and lda on the LSA set, each served card vs CPU."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.features import pipeline
+    from audio_edge_ml_pipeline_torch.features.vectorize import TfidfVectorizer
+    from audio_edge_ml_pipeline_torch.ops.lsa import truncated_svd
+
+    t_start = time.perf_counter()
+    root = tmp / "text"
+    root.mkdir()
+    docs, labels = text_corpus(np.random.default_rng(29))
+    full = write_text_csv(root / "corpus.csv", docs, labels)
+    sub = [i for c in range(TEXT_CLASSES) for i in range(c * TEXT_PER_CLASS, c * TEXT_PER_CLASS + TEXT_SUBSET)]
+    subset = write_text_csv(root / "subset.csv", [docs[i] for i in sub], [labels[i] for i in sub])
+    print(f"[4k] corpus: {len(docs)} documents in {TEXT_CLASSES} classes, "
+          f"{sum(len(d.split()) for d in docs) / len(docs):.1f} tokens a document (Zipf {TEXT_ZIPF} over "
+          f"{TEXT_VOCAB} pseudo-words, {TEXT_TOPIC_SHARE:.0%} topic words); a {len(sub)}-document subset")
+
+    def exp(name, extractor, dataset):
+        return {"name": name, "extractor": extractor, "loader": "text_csv", "dataset": str(dataset),
+                "label_col": "label"}
+
+    both = [exp("tfidf", "text_tfidf", full), exp("bow", "text_bow", full), exp("tokens", "text_bert_tokens", full),
+            exp("char", "text_char_ngram", subset), exp("lsa_subset", "text_sentence_embed", subset)]
+    card_s, card_ex = cli_side(tmp, "text_card", both + [exp("lsa", "text_sentence_embed", full)], None)
+    cpu_s, cpu_ex = cli_side(tmp, "text_cpu", both, "cpu")
+    print(f"[4k] the extraction CLI, 6 experiments on the card: {card_s:.2f} s; the 5 on both sides on the CPU: "
+          f"{cpu_s:.2f} s ({card})")
+    sets = {side: {name: pipeline.FeaturePipeline.load(tmp / f"text_{side}" / name) for name in names}
+            for side, names in (("card", [e["name"] for e in both] + ["lsa"]), ("cpu", [e["name"] for e in both]))}
+    shapes = {"tfidf": (4000, 10_000), "bow": (4000, 10_000), "tokens": (4000, 128), "char": (1000, 50_000),
+              "lsa_subset": (1000, 384), "lsa": (4000, 384)}
+    for e, ex_card, ex_cpu in zip(both, card_ex, cpu_ex):
+        name = e["name"]
+        c, p = sets["card"][name], sets["cpu"][name]
+        check(c.features.shape == shapes[name] == p.features.shape, f"4k {name}: shape {c.features.shape}")
+        check(list(c.labels) == list(p.labels) and c.label_names == p.label_names, f"4k {name}: labels")
+        d = float(np.abs(c.features.astype(np.float64) - p.features).max())
+        if name in ("tfidf", "bow", "char"):
+            check(ex_card._vectorizer.vocabulary_ == ex_cpu._vectorizer.vocabulary_, f"4k {name}: vocabularies")
+            check(ex_card._vectorizer.device.type == "cuda", f"4k {name}: the weighting is not on the card")
+        if name in ("bow", "tokens"):
+            check(d == 0.0, f"4k {name}: card vs CPU {d:.3e}, must be equal")
+        elif name == "lsa_subset":
+            check(ex_card._lsa[1].components.device.type == "cuda", "4k: the LSA did not run on the card")
+            check(d <= LSA_TOL, f"4k {name}: card vs CPU {d:.3e}")
+        else:
+            check(d <= TFIDF_TOL, f"4k {name}: card vs CPU {d:.3e}")
+        print(f"[4k] {e['extractor']} ({c.features.shape[0]} x {c.features.shape[1]}): card vs CPU max|d| {d:.3e}"
+              + (f", vocabularies equal ({len(ex_card._vectorizer.vocabulary_)} terms)" if name in ("tfidf", "bow", "char")
+                 else ""))
+
+    # the weighting and the LSA timed, and the LSA's spectrum against an exact decomposition
+    tfidf_card, tfidf_cpu = card_ex[0]._vectorizer, cpu_ex[0]._vectorizer
+    check(tfidf_card.idf_.device.type == "cuda", "4k: the IDF is not on the card")
+    counts = tfidf_card.counts(docs)
+    weigh_ms = cuda_ms(lambda: tfidf_card.weigh(counts), iters=10)
+    weigh_cpu_ms = host_ms(lambda: tfidf_cpu.weigh(counts))
+    vec, svd = card_ex[-1]._lsa
+    X = vec.transform(docs, dtype=torch.float64)
+    exact = torch.linalg.eigvalsh(X @ X.T).flip(0)[:10].clamp_min(0).sqrt()
+    sv_rel = float(((svd.singular_values[:10] - exact).abs() / exact).max())
+    print(f"[4k] LSA on the card: TF-IDF {tuple(X.shape)} float64, {svd.components.shape[0]} components; top 10 "
+          f"singular values {[round(v, 4) for v in exact.tolist()]}, randomized vs exact max rel {sv_rel:.3e} "
+          f"(tol {SV_REL_TOL:g})")
+    check(svd.singular_values.device.type == "cuda" and sv_rel <= SV_REL_TOL, "4k: the LSA's singular values")
+    lsa_ms = cuda_ms(lambda: truncated_svd(X, svd.components.shape[0]), iters=3, warmup=1)
+    vec_sub = TfidfVectorizer(max_features=20000, ngram_range=(1, 2), device="cpu")
+    X_sub = vec_sub.fit_transform([docs[i] for i in sub], dtype=torch.float64)
+    lsa_sub_cpu_ms = host_ms(lambda: truncated_svd(X_sub, 384), reps=1)
+    lsa_sub_ms = cuda_ms(lambda: truncated_svd(X_sub.to(dev), 384), iters=3, warmup=1)
+    print(f"[4k] times ({card}): TF-IDF weighting of {counts.n_rows} x {counts.n_cols} (nnz {len(counts.data)}) "
+          f"{weigh_ms:.3f} ms on the card, {weigh_cpu_ms:.1f} ms on the CPU; LSA of {X.shape[0]} x {X.shape[1]} -> "
+          f"{svd.components.shape[0]} {lsa_ms:.1f} ms on the card; of {X_sub.shape[0]} x {X_sub.shape[1]} -> 384 "
+          f"{lsa_sub_ms:.1f} ms on the card, {lsa_sub_cpu_ms:.1f} ms on the CPU")
+
+    # the text_folder, text_json and text_csv trees of the same documents
+    folder, js, small = write_text_trees(root / "small", docs, labels)
+    small_exps = [{"name": f"bow_{loader}", "extractor": "text_bow", "loader": loader, "dataset": str(ds),
+                   "label_col": "label", "extractor_params": {"min_df": 1}}
+                  for loader, ds in (("text_folder", folder), ("text_json", js), ("text_csv", small))]
+    cli_side(tmp, "text_small", small_exps, None)
+    smalls = [pipeline.FeaturePipeline.load(tmp / "text_small" / e["name"]) for e in small_exps]
+    same = all(np.array_equal(s.features, smalls[0].features) and list(s.labels) == list(smalls[0].labels)
+               for s in smalls)
+    print(f"[4k] text_folder, text_json and text_csv trees of the same {len(smalls[0].features)} documents: "
+          f"text_bow {smalls[0].features.shape}, equal {same}")
+    check(same and smalls[0].features.shape[0] == TEXT_SMALL[0] * TEXT_SMALL[1], "4k: the three text loaders differ")
+
+    mlp_s, mlp_gap = train_and_serve(tmp, "text_mlp", tmp / "text_card" / "tfidf", "mlp", 2)
+    lda_s, lda_gap = train_and_serve(tmp, "text_lda", tmp / "text_card" / "lsa", "lda", None)
+    print(f"[4k] the train CLI on the card ({card}): mlp 2 epochs on the tfidf set {mlp_s:.2f} s, served logits "
+          f"card vs CPU max|d| {mlp_gap:.3e} (tol {LOGIT_TOL:g}); lda on the LSA set {lda_s:.2f} s, decisions card "
+          f"vs CPU {lda_gap:.3e} of their largest (tol {LOGIT_TOL:g})")
+    check(mlp_gap <= LOGIT_TOL and lda_gap <= LOGIT_TOL, "4k: a served text model differs card vs CPU")
+    print(f"[4k] phase 4k in {time.perf_counter() - t_start:.2f} s ({card})")
+
+
+def adult_frame(rng: np.random.Generator):
+    """ADULT_ROWS seeded rows with UCI Adult's schema (ADULT_COLUMNS): six
+    numeric columns in Adult's ranges, eight categorical ones with Adult's
+    99 categories (each present), missing cells where Adult has '?'
+    (ADULT_MISSING), and an income label that depends on the features."""
+    import pandas as pd
+
+    n = ADULT_ROWS
+    cols: dict = {}
+    for name, cats in ADULT_CATEGORIES.items():
+        p = 1.0 / np.arange(1, len(cats) + 1) ** 1.5
+        idx = rng.choice(len(cats), n, p=p / p.sum())
+        idx[: len(cats)] = np.arange(len(cats))             # every category present
+        col = np.array(cats, dtype=object)[idx]
+        if name in ADULT_MISSING:
+            col[len(cats):][rng.random(n - len(cats)) < ADULT_MISSING[name]] = np.nan
+        cols[name] = col
+    edu = {c: i + 1 for i, c in enumerate(ADULT_CATEGORIES["education"])}
+    cols["age"] = np.clip(rng.normal(38.6, 13.6, n), 17, 90).astype(np.int64)
+    cols["fnlwgt"] = np.clip(rng.lognormal(12.0, 0.5, n), 12285, 1484705).astype(np.int64)
+    cols["education-num"] = np.array([edu[c] for c in cols["education"]], np.int64)
+    cols["capital-gain"] = np.where(rng.random(n) < 0.083, np.clip(rng.lognormal(8.5, 1.0, n), 114, 99999), 0).astype(np.int64)
+    cols["capital-loss"] = np.where(rng.random(n) < 0.047, rng.integers(155, 4357, n), 0).astype(np.int64)
+    cols["hours-per-week"] = np.clip(rng.normal(40.4, 12.3, n), 1, 99).astype(np.int64)
+    score = (0.04 * (cols["age"] - 38) + 0.3 * (cols["education-num"] - 8) + 0.03 * (cols["hours-per-week"] - 40)
+             + 0.0004 * cols["capital-gain"] + rng.normal(0, 1, n))
+    cols["income"] = np.where(score > np.quantile(score, 0.76), ">50K", "<=50K")
+    return pd.DataFrame({c: cols[c] for c in ADULT_COLUMNS})
+
+
+def phase_4l(dev, tmp: Path, card: str) -> None:
+    """Phase 4l: the tabular modality. A seeded CSV with UCI Adult's schema
+    (``adult_frame``: 32,561 rows, 6 numeric and 8 categorical columns, 99
+    categories) through the extraction CLI, tabular_classical (6 + 99 = 105
+    columns) and tabular_polynomial (27 + 99 = 126) each with the standard,
+    minmax and robust scalers, on the card and on the CPU: card vs CPU within
+    TABULAR_TOL of each column's largest value, the statistics on the card;
+    the sqlite and jsonl copies of its first ADULT_SUBSET rows through the
+    same CLI as the CSV of those rows; the train CLI's mlp (2 epochs) on the
+    standard classical set served card vs CPU; the transform timed at 32,561
+    rows."""
+    import sqlite3
+
+    import pandas as pd
+    import torch
+
+    from audio_edge_ml_pipeline_torch.features import pipeline
+    from audio_edge_ml_pipeline_torch.features.preprocess import ColumnStack
+    from audio_edge_ml_pipeline_torch.features.tabular import _expand_datetimes
+
+    t_start = time.perf_counter()
+    root = tmp / "tabular"
+    root.mkdir()
+    df = adult_frame(np.random.default_rng(31))
+    adult = root / "adult.csv"
+    df.to_csv(adult, index=False)
+    head = df.head(ADULT_SUBSET)
+    head.to_csv(root / "head.csv", index=False)
+    head.to_json(root / "head.jsonl", orient="records", lines=True)
+    with sqlite3.connect(root / "head.sqlite") as con:
+        head.to_sql("adult", con, index=False)
+    missing = {c: int(df[c].isna().sum()) for c in ADULT_MISSING}
+    print(f"[4l] Adult-schema table: {len(df)} rows, {len(ADULT_NUMERIC)} numeric and {len(ADULT_CATEGORIES)} "
+          f"categorical columns, missing cells {missing}, income >50K {float((df['income'] == '>50K').mean()):.3f}")
+
+    exps = [{"name": f"{ex.split('_')[1]}_{scaler}", "extractor": ex, "loader": "tabular", "dataset": str(adult),
+             "label_col": "income", "extractor_params": {"scaler": scaler}}
+            for ex in ("tabular_classical", "tabular_polynomial") for scaler in ("standard", "minmax", "robust")]
+    card_s, card_ex = cli_side(tmp, "tab_card", exps, None)
+    cpu_s, _ = cli_side(tmp, "tab_cpu", exps, "cpu")
+    print(f"[4l] the extraction CLI, 6 experiments of {ADULT_ROWS} rows: card {card_s:.2f} s, CPU {cpu_s:.2f} s ({card})")
+    for e, ex in zip(exps, card_ex):
+        c = pipeline.FeaturePipeline.load(tmp / "tab_card" / e["name"])
+        p = pipeline.FeaturePipeline.load(tmp / "tab_cpu" / e["name"])
+        width = 105 if e["extractor"] == "tabular_classical" else 126
+        check(c.features.shape == p.features.shape == (ADULT_ROWS, width), f"4l {e['name']}: shape {c.features.shape}")
+        check(list(c.labels) == list(p.labels), f"4l {e['name']}: labels")
+        scale = np.abs(p.features).max(axis=0)
+        gap = float((np.abs(c.features - p.features) / np.where(scale > 0, scale, 1.0)).max())
+        stats = ex._transformer.num_imputer.statistics_
+        check(stats.device.type == "cuda" and ex._transformer.scaler.scale_.device.type == "cuda",
+              f"4l {e['name']}: the statistics are not on the card")
+        check(gap <= TABULAR_TOL, f"4l {e['name']}: card vs CPU {gap:.3e} of a column's largest")
+        print(f"[4l] {e['extractor']} scaler {e['extractor_params']['scaler']}: {c.features.shape}, card vs CPU "
+              f"{gap:.3e} of each column's largest (tol {TABULAR_TOL:g}); medians {[round(v, 1) for v in stats.tolist()]}")
+
+    small = [{"name": f"classical_{fmt}", "extractor": "tabular_classical", "loader": "tabular",
+              "dataset": str(root / f"head.{fmt}"), "label_col": "income"} for fmt in ("csv", "sqlite", "jsonl")]
+    cli_side(tmp, "tab_small", small, None)
+    heads = [pipeline.FeaturePipeline.load(tmp / "tab_small" / e["name"]) for e in small]
+    same = all(np.abs(h.features - heads[0].features).max() <= TABULAR_TOL and list(h.labels) == list(heads[0].labels)
+               for h in heads)
+    print(f"[4l] the first {ADULT_SUBSET} rows as csv, sqlite and jsonl through the CLI: {heads[0].features.shape}, "
+          f"equal {same}")
+    check(same and heads[0].features.shape[0] == ADULT_SUBSET, "4l: the csv, sqlite and jsonl copies differ")
+
+    mlp_s, mlp_gap = train_and_serve(tmp, "tab_mlp", tmp / "tab_card" / "classical_standard", "mlp", 2)
+    print(f"[4l] the train CLI's mlp, 2 epochs on the classical set on the card: {mlp_s:.2f} s ({card}); served "
+          f"logits card vs CPU max|d| {mlp_gap:.3e} (tol {LOGIT_TOL:g})")
+    check(mlp_gap <= LOGIT_TOL, "4l: the served mlp differs card vs CPU")
+
+    frame = _expand_datetimes(pd.read_csv(adult).drop(columns=["income"]))   # the rows the extractor sees
+    num, cat = list(ADULT_NUMERIC), list(ADULT_CATEGORIES)
+
+    def transform(device):
+        return lambda: ColumnStack(num, cat, "median", "most_frequent", "standard", None,
+                                   torch.device(device)).fit_transform(frame).cpu()
+
+    ms_card, ms_cpu = host_ms(transform(dev)), host_ms(transform("cpu"))
+    print(f"[4l] times ({card}): the classical transform (impute, scale, one-hot) of {ADULT_ROWS} rows, host "
+          f"coding included: {ms_card:.1f} ms on the card, {ms_cpu:.1f} ms on the CPU; phase 4l in "
+          f"{time.perf_counter() - t_start:.2f} s")
+
+
+# ---------------------------------------------------------------------------
 # 5h: the serving loop with the REST tracking backend
 # ---------------------------------------------------------------------------
 
@@ -3214,6 +3640,14 @@ def main() -> int:
         t4h = phase_4h(dev, tmp, fsc22, split_rows["train"])
         t4i = phase_4i(dev, tmp)
         phase_4j(dev, tmp)
+
+        # 4k-4l. the text and tabular modalities: no kernel of the port on their path
+        mel_before = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_unfolded.counter.launches,
+                      mel_unfolded.counter_dense.launches)
+        phase_4k(dev, tmp, card)
+        phase_4l(dev, tmp, card)
+        check((mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_unfolded.counter.launches,
+               mel_unfolded.counter_dense.launches) == mel_before, "4k-4l launched a mel kernel")
 
         # 5. serving
         trainer = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, device=dev)

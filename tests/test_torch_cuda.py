@@ -514,3 +514,85 @@ def test_audio_processor_on_the_card_matches_the_cpu(cuda_device, tmp_path):
     for i in range(3):
         card, cpu = np.load(tmp_path / "card" / f"{i}.npy"), np.load(tmp_path / "cpu" / f"{i}.npy")
         assert card.shape == (40, 501) and float(np.abs(card - cpu).max()) <= 1e-5
+
+
+def _zipf_docs(seed: int, n_docs: int = 240, vocab: int = 3000) -> tuple[list[str], list[str]]:
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{i}q" for i in range(vocab)])
+    p = 1.0 / np.arange(1, vocab + 1) ** 1.1
+    docs = [" ".join(rng.choice(words, int(rng.integers(20, 120)), p=p / p.sum())) + f" topic{i % 6}"
+            for i in range(n_docs)]
+    return docs, [f"c{i % 6}" for i in range(n_docs)]
+
+
+@pytest.mark.cuda
+def test_tfidf_weighting_and_lsa_on_the_card_match_the_cpu(cuda_device):
+    """ops/textops.py and ops/lsa.py: the TF-IDF rows within 1e-12 in
+    float64, the randomized SVD's singular values and rows within 1e-8, each
+    tensor on the card."""
+    from audio_edge_ml_pipeline_torch.features.vectorize import TfidfVectorizer
+    from audio_edge_ml_pipeline_torch.ops.lsa import truncated_svd
+
+    docs, _ = _zipf_docs(1)
+    rows = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        vec = TfidfVectorizer(max_features=2000, ngram_range=(1, 2), sublinear_tf=True, device=dev)
+        x = vec.fit_transform(docs, dtype=torch.float64)
+        assert x.device.type == vec.idf_.device.type == dev.type
+        svd, out = truncated_svd(x, 60)
+        assert svd.components.device.type == out.device.type == dev.type
+        rows[dev.type] = (x.cpu(), svd.singular_values.cpu(), out.cpu())
+    (x_card, s_card, r_card), (x_cpu, s_cpu, r_cpu) = rows["cuda"], rows["cpu"]
+    assert float((x_card - x_cpu).abs().max()) <= 1e-12
+    assert float(((s_card - s_cpu).abs() / s_cpu).max()) <= 1e-8
+    assert float((r_card - r_cpu).abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["text_tfidf", "text_bow", "text_char_ngram", "text_sentence_embed",
+                                  "text_bert_tokens"])
+def test_text_extractors_on_the_card_match_the_cpu(cuda_device, name):
+    """bow and token ids equal, tfidf and char rows within 1e-7, LSA rows
+    within 1e-5, the same vocabulary."""
+    from audio_edge_ml_pipeline_torch import features
+
+    docs, labels = _zipf_docs(2)
+    loader = [(None, labels[i], {"text": d}) for i, d in enumerate(docs)]
+    card, cpu = features.get(name)(device=cuda_device), features.get(name)(device="cpu")
+    fs_card, fs_cpu = card.extract_dataset(loader), cpu.extract_dataset(loader)
+    assert fs_card.features.shape == fs_cpu.features.shape and list(fs_card.labels) == list(fs_cpu.labels)
+    gap = float(np.abs(fs_card.features.astype(np.float64) - fs_cpu.features).max())
+    assert gap <= {"text_bow": 0.0, "text_bert_tokens": 0.0, "text_sentence_embed": 1e-5}.get(name, 1e-7)
+    if name in ("text_tfidf", "text_bow", "text_char_ngram"):
+        assert card._vectorizer.vocabulary_ == cpu._vectorizer.vocabulary_
+        assert card._vectorizer.device.type == "cuda"
+    if name == "text_sentence_embed":
+        assert card._lsa[1].components.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tabular_classical", "tabular_polynomial"])
+@pytest.mark.parametrize("scaler", ["standard", "minmax", "robust"])
+def test_tabular_extractors_on_the_card_match_the_cpu(cuda_device, name, scaler):
+    """Within 1e-6 of each column's largest value, the statistics on the
+    card."""
+    from audio_edge_ml_pipeline_torch import features
+
+    rng = np.random.default_rng(3)
+    loader = []
+    for i in range(500):
+        row = {"age": int(rng.integers(17, 90)), "hours": float(rng.normal(40, 12)), "gain": float(rng.lognormal(8, 1)),
+               "work": str(rng.choice(["private", "state", "self"])), "sex": str(rng.choice(["f", "m"]))}
+        if i % 7 == 0:
+            row["hours"] = float("nan")
+        if i % 11 == 0:
+            row["work"] = float("nan")
+        loader.append((None, f"c{i % 2}", row))
+    card = features.get(name)(scaler=scaler, device=cuda_device)
+    cpu = features.get(name)(scaler=scaler, device="cpu")
+    fs_card, fs_cpu = card.extract_dataset(loader), cpu.extract_dataset(loader)
+    assert card._transformer.num_imputer.statistics_.device.type == "cuda"
+    assert card._transformer.scaler.scale_.device.type == "cuda"
+    scale = np.abs(fs_cpu.features).max(axis=0)
+    gap = np.abs(fs_card.features - fs_cpu.features) / np.where(scale > 0, scale, 1.0)
+    assert fs_card.features.shape == fs_cpu.features.shape and float(gap.max()) <= 1e-6

@@ -51,15 +51,20 @@ def test_importing_every_port_module_leaves_jax_out():
 
 def test_post_training_clis_load_no_jax_ml_dtypes_sklearn_or_joblib():
     """The H100 machine has none of them (nor matplotlib or requests): the
-    post-training, serving and compile CLIs import them at no point of their
-    import."""
+    post-training, serving and compile CLIs, the text and tabular extractors
+    and what they stand on, and the extraction CLI import them at no point of
+    their import."""
     mods = ["audio_edge_ml_pipeline_torch.optimize.optimize", "audio_edge_ml_pipeline_torch.train.select",
             "audio_edge_ml_pipeline_torch.deploy.deploy", "audio_edge_ml_pipeline_torch.deploy.export_svm",
             "audio_edge_ml_pipeline_torch.compilation.generate_c_header",
             "audio_edge_ml_pipeline_torch.serve.api", "audio_edge_ml_pipeline_torch.serve.audio_processor",
             "audio_edge_ml_pipeline_torch.serve.dashboard", "audio_edge_ml_pipeline_torch.serve.edge_simulator",
             "audio_edge_ml_pipeline_torch.train.dataset", "audio_edge_ml_pipeline_torch.compilation.compile_xla",
-            "audio_edge_ml_pipeline_torch.data.native_wavio", "audio_edge_ml_pipeline_torch.utils.tracking"]
+            "audio_edge_ml_pipeline_torch.data.native_wavio", "audio_edge_ml_pipeline_torch.utils.tracking",
+            "audio_edge_ml_pipeline_torch.features.text", "audio_edge_ml_pipeline_torch.features.tabular",
+            "audio_edge_ml_pipeline_torch.features.vectorize", "audio_edge_ml_pipeline_torch.features.preprocess",
+            "audio_edge_ml_pipeline_torch.ops.textops", "audio_edge_ml_pipeline_torch.ops.lsa",
+            "audio_edge_ml_pipeline_torch.data.loaders", "audio_edge_ml_pipeline_torch.features.pipeline"]
     absent = (*FORBIDDEN, "ml_dtypes", "sklearn", "joblib", "matplotlib", "requests")
     code = (
         "import importlib, sys\n"
@@ -147,12 +152,15 @@ def pipeline_exp(tmp_path):
 
 
 def test_unported_names_raise_not_yet_ported(tmp_path):
-    from audio_edge_ml_pipeline_torch.data.loaders import build_loader
-    from audio_edge_ml_pipeline_torch.features.registry import get
+    """Every extractor and loader name of the JAX package is ported now: the
+    text and tabular ones resolve, an unknown name is still a KeyError."""
+    from audio_edge_ml_pipeline_torch.data.loaders import TabularLoader, build_loader
+    from audio_edge_ml_pipeline_torch.features.registry import NOT_YET_PORTED, get
+    from audio_edge_ml_pipeline_torch.features.text import TextTFIDFExtractor
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get("text_tfidf")
+    assert not NOT_YET_PORTED
+    assert get("text_tfidf") is TextTFIDFExtractor
     with pytest.raises(KeyError):
         get("no_such_extractor")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_loader("tabular", str(tmp_path), "train")
+    (tmp_path / "rows.csv").write_text("a,label\n1,x\n")
+    assert isinstance(build_loader("tabular", str(tmp_path / "rows.csv"), "train", label_col="label"), TabularLoader)
