@@ -1,7 +1,9 @@
-"""Registered audio extractors, batched on one device.
+"""Registered audio extractors, batched on the device(s).
 
 Same names, parameters, defaults and numerical contracts as the JAX
-package's ``features/audio.py``, plus a ``device`` argument:
+package's ``features/audio.py``, plus ``device`` and ``devices`` arguments
+(``BatchedAudioExtractor._set_devices``: a batch splits over every visible
+card unless the caller pins a device):
 ``audio_mel_spec``, ``audio_waveform``, ``audio_cqt``, ``audio_mfcc_seq``
 and ``audio_classical``.
 """
@@ -14,7 +16,6 @@ import torch
 
 from ..ops import audio_features, dsp, mel_kernel
 from ..ops.golden.librosa_ref import _ALL_CLASSICAL
-from ..utils.device import resolve_device
 from .base import BatchedAudioExtractor
 from .registry import register
 
@@ -35,6 +36,7 @@ class AudioMelSpectrogram(BatchedAudioExtractor):
         duration: Optional[float] = None,
         backend: str = "xla",
         device: torch.device | str | None = None,
+        devices: Optional[list] = None,
     ) -> None:
         if backend not in ("xla", "pallas"):
             raise ValueError(f"backend must be 'xla' or 'pallas', got {backend!r}")
@@ -48,7 +50,7 @@ class AudioMelSpectrogram(BatchedAudioExtractor):
         # kernel on a CUDA tensor, its plain version on a CPU tensor. The
         # argument stays so that existing YAML configs load.
         self.backend = backend
-        self.device = resolve_device(device)
+        self._set_devices(device, devices)
 
     def min_samples(self) -> int:
         return self.n_fft
@@ -72,10 +74,11 @@ class AudioWaveform(BatchedAudioExtractor):
 
     def __init__(
         self, sample_rate: int = 16000, duration: Optional[float] = 1.0, device: torch.device | str | None = None,
+        devices: Optional[list] = None,
     ) -> None:
         self.sample_rate = sample_rate
         self.duration = duration
-        self.device = resolve_device(device)
+        self._set_devices(device, devices)
 
     def batch_feature(self, waves: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
         return dsp.waveform_feature(waves, lengths)
@@ -100,6 +103,7 @@ class AudioCQT(BatchedAudioExtractor):
         fmin: Optional[float] = None,
         duration: Optional[float] = None,
         device: torch.device | str | None = None,
+        devices: Optional[list] = None,
     ) -> None:
         self.sample_rate = sample_rate
         self.hop_length = hop_length
@@ -107,7 +111,7 @@ class AudioCQT(BatchedAudioExtractor):
         self.bins_per_octave = bins_per_octave
         self.fmin = fmin
         self.duration = duration
-        self.device = resolve_device(device)
+        self._set_devices(device, devices)
 
     def min_samples(self) -> int:
         return self.hop_length * 2
@@ -137,13 +141,14 @@ class AudioMFCCSequence(BatchedAudioExtractor):
         hop_length: int = 512,
         duration: Optional[float] = None,
         device: torch.device | str | None = None,
+        devices: Optional[list] = None,
     ) -> None:
         self.sample_rate = sample_rate
         self.n_mfcc = n_mfcc
         self.n_fft = n_fft
         self.hop_length = hop_length
         self.duration = duration
-        self.device = resolve_device(device)
+        self._set_devices(device, devices)
 
     def min_samples(self) -> int:
         return self.n_fft
@@ -178,6 +183,7 @@ class AudioClassicalExtractor(BatchedAudioExtractor):
         features: Optional[list[str]] = None,
         aggregations: Optional[list[str]] = None,
         device: torch.device | str | None = None,
+        devices: Optional[list] = None,
     ) -> None:
         self.sample_rate = sample_rate
         self.n_mfcc = n_mfcc
@@ -202,7 +208,7 @@ class AudioClassicalExtractor(BatchedAudioExtractor):
             if not aggregations:
                 raise ValueError("aggregations must contain at least one value.")
             self.aggregations = [a for a in ["mean", "std"] if a in set(aggregations)]
-        self.device = resolve_device(device)
+        self._set_devices(device, devices)
 
     @property
     def feature_dim(self) -> int:

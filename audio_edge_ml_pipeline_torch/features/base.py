@@ -4,11 +4,13 @@ Same public surface as the JAX package's ``features/base.py`` (FeatureSet /
 BaseFeatureExtractor / BaseDatasetLoader / BatchedAudioExtractor, and the
 batched image and video path: ``auto_device_batch``, ``pad_stack``,
 ``_device_batched_dataset``). The batched paths decode on a host thread
-pool while the previous chunk runs on one device, in fixed-shape chunks.
+pool while the previous chunk runs on the device, in fixed-shape chunks;
+an audio chunk splits over the extractor's cards (``_device_batch``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from abc import ABC, abstractmethod
 from concurrent.futures import ThreadPoolExecutor
@@ -18,6 +20,9 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import cards, split_parts
+from ..utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -326,13 +331,36 @@ class BatchedAudioExtractor(BaseFeatureExtractor):
         y = self._load_clip(sample_path, start_time, end_time)
         return self._device_batch(y[None, :], None)[0].astype(np.float32)
 
+    def _set_devices(self, device, devices=None) -> None:
+        """``device`` and the ``devices`` a batch splits over: the given list
+        (its first the ``device``), else ``[device]`` when the caller pins
+        one, else every visible card (the JAX package shards the batch over
+        every device)."""
+        if devices is not None:
+            self.devices = [torch.device(d) for d in devices]
+            self.device = self.devices[0]
+            return
+        self.device = resolve_device(device)
+        self.devices = cards() if device is None else [self.device]
+
     # -- batched dataset path -------------------------------------------
     def _device_batch(self, waves: np.ndarray, lengths: Optional[np.ndarray]) -> np.ndarray:
-        """Copy one host batch to the device, run batch_feature, fetch."""
-        waves_d = torch.from_numpy(np.ascontiguousarray(waves, dtype=np.float32)).to(self.device)
-        lengths_d = None if lengths is None else torch.from_numpy(np.asarray(lengths, np.int64)).to(self.device)
+        """Copy one host batch to the device, run batch_feature, fetch; with
+        several ``devices``, contiguous rows a device, each part computed
+        under its own card (its own mel kernel launch), every part issued
+        before any is fetched, the rows concatenated in order."""
+        devices = getattr(self, "devices", None) or [self.device]
+        # row ranges, sliced (views, no copy of the host batch)
+        bounds = [(p[0], p[-1] + 1) for p in split_parts(len(waves), len(devices))] or [(0, 0)]
+        outs = []
         with torch.inference_mode():
-            return self.batch_feature(waves_d, lengths_d).cpu().numpy()
+            for (lo, hi), dev in zip(bounds, [self.device] if len(bounds) == 1 else devices):
+                waves_d = torch.from_numpy(np.ascontiguousarray(waves[lo:hi], dtype=np.float32)).to(dev)
+                lengths_d = None if lengths is None else torch.from_numpy(np.asarray(lengths, np.int64)[lo:hi]).to(dev)
+                with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                    outs.append(self.batch_feature(waves_d, lengths_d))
+            outs = [o.cpu().numpy() for o in outs]
+            return outs[0] if len(outs) == 1 else np.concatenate(outs)
 
     def _exact_length_groups(self, good: list) -> list[np.ndarray]:
         """One unmasked device batch per distinct clip length in ``good``,

@@ -221,19 +221,27 @@ def _apg_eager(step, a, z, th, iters: int):
 def _apg_captured(step, a, z, th, iters: int):
     """``iters`` steps on a card: one step captured in a CUDA graph that
     writes its result back into its own inputs, replayed ``iters`` times.
-    The same kernels on the same shapes as ``_apg_eager``."""
+    The same kernels on the same shapes as ``_apg_eager``. The streams and
+    the capture are those of the tensors' card, whichever card is current
+    (a CV fold part may live on another one)."""
+    if not a.is_cuda:
+        raise RuntimeError(f"the captured APG loop is a CUDA graph: its tensors are on {a.device}, not a card")
     state = [a.clone(), z.clone(), th.clone()]
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):   # warm-up outside the capture (cuBLAS workspaces); leaves state as it was
-        step(*state)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for buf, new in zip(state, step(*state)):
-            buf.copy_(new)
-    for _ in range(iters):
-        graph.replay()
+    with torch.cuda.device(a.device):
+        current = torch.cuda.current_stream(a.device)
+        side = torch.cuda.Stream(a.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):   # warm-up outside the capture (cuBLAS workspaces); leaves state as it was
+            step(*state)
+        current.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # the capture on this card's stream: torch.cuda.graph's own default stream is made once, on the card
+        # that was current at its first capture, and a capture there records nothing of this card's work
+        with torch.cuda.graph(graph, stream=side):
+            for buf, new in zip(state, step(*state)):
+                buf.copy_(new)
+        for _ in range(iters):
+            graph.replay()
     return state
 
 

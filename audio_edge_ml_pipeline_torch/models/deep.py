@@ -8,7 +8,10 @@ Counterpart of the JAX package's ``models/deep.py``: the flax modules
 in ``backbones.py``, the flax-semantics BatchNorm, LayerNorm and attention
 in ``layers.py``), the ``.npz`` bundle format, pretrained warm start, and the
 trainers: training (``fit``, with the semantics of ``FlaxTrainer.fit``),
-inference and ``save``. Data-parallel training is still to be ported.
+inference and ``save``. ``data_parallel=N`` trains on N ranks
+(``parallel/mesh.py::run_ranks``: N cards through NCCL, or N gloo
+processes on the CPU), DDP over the ranks, with the BatchNorm moments and
+the dropout masks of the global batch (``_fit_loop``).
 
 Training semantics carried over: input normalization stats over all axes
 but the last, computed in numpy; the weighted masked cross-entropy of
@@ -61,6 +64,7 @@ torch ``<families>.i`` (``Conv`` -> ``convs``, ``Dense`` -> ``denses``,
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
 import math
@@ -82,9 +86,10 @@ from ..train.evaluate import (
 )
 from ..utils.checkpoint import load_train_state, save_train_state
 from ..utils.device import resolve_device
+from ..utils.dropout import GlobalBatchNoise, dropout_noise, runtime_dropout
 from .backbones import EMBED_DIM, EfficientNetB0
 from .base import BaseTrainer, TrainResult
-from .layers import BatchNorm, LayerNorm, Projection, SelfAttention, conv_same, name_batch_norms
+from .layers import BatchNorm, LayerNorm, Projection, SelfAttention, conv_same, name_batch_norms, sync_batch_norms
 from .registry import register_model
 
 logger = logging.getLogger(__name__)
@@ -97,28 +102,17 @@ _KD_ALPHA = 0.7
 # ---------------------------------------------------------------------------
 
 
-def runtime_dropout(x: torch.Tensor, rate, training: bool) -> torch.Tensor:
-    """Inverted dropout at a rate given at run time (a float or a tensor; one
-    per trial under ``torch.func.vmap``), as the JAX package's ``_dropout``:
-    ``nn.Dropout``'s rate is fixed module state, and the batched trial
-    trainer (``train/tune_batched.py``) trains trials of different rates as
-    one program."""
-    if not training:
-        return x
-    keep = 1.0 - rate if torch.is_tensor(rate) else torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
-    return torch.where(torch.rand_like(x) < keep, x / keep.clamp_min(1e-6), 0.0)
-
-
 class _RuntimeDropoutModule(nn.Module):
-    """``_drop``: the module's own ``nn.Dropout``, or ``runtime_dropout`` at
-    the rate a forward call gives. Every family's ``forward(x, dropout_rate=
+    """``_drop``: ``runtime_dropout`` at the rate a forward call gives, else
+    at the module's own rate (its ``nn.Dropout``'s ``p``; the masks' noise
+    from the ``dropout_noise`` source in effect). Every family's ``forward(x, dropout_rate=
     None, stats=None)`` takes ``stats``, a dict that its train-mode
     BatchNorm layers fill with their updated running statistics under their
     state_dict names (``layers.BatchNorm``); the families without a
     BatchNorm that updates leave it empty."""
 
     def _drop(self, x: torch.Tensor, rate) -> torch.Tensor:
-        return self.dropout(x) if rate is None else runtime_dropout(x, rate, self.training)
+        return runtime_dropout(x, self.dropout.p if rate is None else rate, self.training)
 
 
 class CNNModule(_RuntimeDropoutModule):
@@ -555,7 +549,9 @@ class TorchTrainer(BaseTrainer):
 
     Subclasses set ``name`` and implement ``_arch(input_shape, n_classes)``
     returning the architecture dict consumed by _MODULE_FACTORY, and may
-    override ``_prepare_input``.
+    override ``_prepare_input``. ``dtype`` is a verification hook that no
+    CLI or config sets: float64 holds a data-parallel fit to the
+    one-process fit over many steps.
     """
 
     model_type = "deep"
@@ -563,14 +559,27 @@ class TorchTrainer(BaseTrainer):
     def __init__(self, epochs: int = 50, batch_size: int = 32, dropout: float = 0.3,
                  learning_rate: float = 1e-3, seed: int = 0,
                  data_parallel: Optional[int] = None, device: torch.device | str | None = None,
-                 **kwargs):
+                 data_parallel_devices: Optional[list] = None, data_parallel_backend: Optional[str] = None,
+                 dtype: torch.dtype | str = torch.float32, **kwargs):
         self.epochs = epochs
         self.batch_size = batch_size
         self.dropout = dropout
         self.learning_rate = learning_rate
         self.seed = seed
+        # data_parallel=N trains on N ranks (N cards, or N gloo processes when
+        # device is the CPU); the CLI's --param data_parallel=N.
+        # data_parallel_devices / _backend name the ranks' devices and the
+        # backend outright (e.g. two gloo ranks sharing one card)
         self.data_parallel = int(data_parallel) if data_parallel else 0
+        self.data_parallel_devices = data_parallel_devices
+        self.data_parallel_backend = data_parallel_backend
+        # a verification hook, set by no CLI or config: what the module, its inputs and Adam compute in.
+        # float32, as JAX trains; float64 holds two runs that sum in other orders (a data-parallel fit and
+        # the one-process one) to each other over many steps, as TrialGroup's dtype does (in float32 Adam
+        # lifts roundoff on near-zero gradients to fractions of a step)
+        self.dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         self.device = resolve_device(device)
+        self._ddp: Optional[nn.Module] = None
         self._extra = dict(kwargs)
         self._arch_dict: Optional[dict] = None
         self._net: Optional[nn.Module] = None
@@ -590,9 +599,9 @@ class TorchTrainer(BaseTrainer):
     # -- internals ----------------------------------------------------------
     def _build(self, arch: dict, norm_mean, norm_var) -> None:
         self._arch_dict = arch
-        self._net = _MODULE_FACTORY[arch["type"]](arch).to(self.device).eval()
-        self._norm_mean = torch.as_tensor(np.asarray(norm_mean, np.float32)).to(self.device)
-        self._norm_var = torch.as_tensor(np.asarray(norm_var, np.float32)).to(self.device)
+        self._net = _MODULE_FACTORY[arch["type"]](arch).to(self.device, self.dtype).eval()
+        self._norm_mean = torch.as_tensor(np.asarray(norm_mean, np.float32)).to(self.device, self.dtype)
+        self._norm_var = torch.as_tensor(np.asarray(norm_var, np.float32)).to(self.device, self.dtype)
 
     def _normalize(self, x: torch.Tensor) -> torch.Tensor:
         return (x - self._norm_mean) / torch.sqrt(self._norm_var + 1e-6)
@@ -601,7 +610,7 @@ class TorchTrainer(BaseTrainer):
         outs = []
         with torch.inference_mode():
             for s in range(0, len(X), self.batch_size):
-                xb = torch.from_numpy(np.ascontiguousarray(X[s : s + self.batch_size])).to(self.device)
+                xb = torch.from_numpy(np.ascontiguousarray(X[s : s + self.batch_size])).to(self.device, self.dtype)
                 outs.append(self._net(self._normalize(xb)).cpu().numpy())
         return np.concatenate(outs)
 
@@ -639,29 +648,37 @@ class TorchTrainer(BaseTrainer):
         return F.cross_entropy(logits, y, reduction="none")
 
     def _batch_loss(self, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, idx: torch.Tensor | None = None,
-                    stats: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                    stats: dict | None = None, wsum: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """(loss, accuracy) of one padded batch (rows ``idx`` of the training
         set): ``_row_losses`` and hits weighted by ``w`` (0 on wrap-around
-        padding rows) over max(sum w, 1). BatchNorm sees every row, padded or
-        not, and puts its updated statistics in ``stats``."""
-        logits = self._net(self._normalize(x), stats=stats)
-        wsum = torch.clamp_min(w.sum(), 1.0)
+        padding rows) over max(sum w, 1), ``wsum`` when given (the global
+        batch's sum of a data-parallel rank's rows). BatchNorm sees every
+        row, padded or not, and puts its updated statistics in ``stats``."""
+        logits = (self._ddp or self._net)(self._normalize(x), stats=stats)
+        wsum = torch.clamp_min(w.sum() if wsum is None else wsum, 1.0)
         loss = (self._row_losses(logits, y, idx) * w).sum() / wsum
         acc = ((logits.detach().argmax(-1) == y).to(w.dtype) * w).sum() / wsum
         return loss, acc
 
     def train_step(self, optimizer: torch.optim.Optimizer, X: torch.Tensor, y: torch.Tensor,
-                   idx: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                   idx: torch.Tensor, w: torch.Tensor, wsum: torch.Tensor | None = None,
+                   noise=None, ranks: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step on rows ``idx`` of the device-resident (X, y),
         weighted by ``w``; then the BatchNorm statistics of the step's forward
         pass replace the running ones (flax's mutable ``batch_stats``).
         Returns the batch's (loss, accuracy) on the device. The step is a
-        ``train_step`` range in an ``AEP_PROFILE_DIR`` trace."""
+        ``train_step`` range in an ``AEP_PROFILE_DIR`` trace. In ``fit``:
+        ``noise`` draws the dropout masks (``GlobalBatchNoise``), and on one
+        of ``ranks`` data-parallel ranks ``wsum`` is the global batch's
+        weight and the loss is scaled by ``ranks`` before DDP averages the
+        gradients, so that they are the global loss's."""
         with torch.profiler.record_function("train_step"):
             optimizer.zero_grad(set_to_none=True)
             stats: dict[str, torch.Tensor] = {}
-            loss, acc = self._batch_loss(X.index_select(0, idx), y.index_select(0, idx), w, idx, stats)
-            loss.backward()
+            with dropout_noise(noise):
+                loss, acc = self._batch_loss(X.index_select(0, idx), y.index_select(0, idx), w, idx, stats, wsum)
+            (loss * ranks if ranks > 1 else loss).backward()
             optimizer.step()
             if stats:
                 buffers = dict(self._net.named_buffers())
@@ -696,13 +713,57 @@ class TorchTrainer(BaseTrainer):
         mlflow_run,
         epoch_callback=None,
     ) -> TrainResult:
+        ranks = None
         if self.data_parallel > 1:
-            raise NotImplementedError(
-                "data_parallel > 1 is not yet ported to audio_edge_ml_pipeline_torch (multi-GPU DDP)")
+            from ..parallel.mesh import data_parallel_devices
+
+            # N cards (or explicit devices) are required before any work: no CPU fallback
+            ranks = data_parallel_devices(self.data_parallel, self.device, self.data_parallel_devices,
+                                          self.data_parallel_backend)
         X_train = self._prepare_input(np.asarray(X_train)).astype(np.float32)
         X_val = self._prepare_input(np.asarray(X_val)).astype(np.float32)
         y_train = np.asarray(y_train).astype(np.int32)
         y_val = np.asarray(y_val).astype(np.int32)
+        if ranks is None:
+            return self._fit_loop(X_train, y_train, X_val, y_val, label_names, run_name, output_dir, mlflow_run,
+                                  epoch_callback)
+        from ..parallel.mesh import run_ranks
+
+        devices, backend = ranks
+        logger.info("[%s] data-parallel training over %d devices", self.name, self.data_parallel)
+        peer = self._peer_copy()
+        return run_ranks(
+            _fit_peer, (peer, X_train, y_train, label_names), devices, backend,
+            root=lambda rank: self._fit_loop(X_train, y_train, X_val, y_val, label_names, run_name, output_dir,
+                                             mlflow_run, epoch_callback, rank))
+
+    def _peer_copy(self) -> "TorchTrainer":
+        """What a data-parallel peer rank needs of this trainer, picklable:
+        its settings (a shallow copy) without the built module, the teacher's
+        logits on the host."""
+        peer = copy.copy(self)
+        peer._extra = dict(self._extra)
+        peer._net = peer._ddp = peer._norm_mean = peer._norm_var = None
+        if getattr(self, "_teacher_logits", None) is not None:
+            peer._teacher_logits = self._teacher_logits.cpu()
+        return peer
+
+    def _fit_loop(self, X_train, y_train, X_val, y_val, label_names, run_name, output_dir, mlflow_run,
+                  epoch_callback, rank=None) -> Optional[TrainResult]:
+        """The training loop on prepared arrays: one process (``rank``
+        None), or one rank of a data-parallel group. Every rank builds the
+        same epoch batches and takes its contiguous rows of each step; DDP
+        reduces the gradients, the BatchNorm moments and the dropout masks
+        are the global batch's. Validation, early stopping, the LR plateau,
+        checkpoints, tracking, ``epoch_callback`` and the bundle are rank 0's;
+        its decisions reach the other ranks by broadcast, and they return
+        None."""
+        world = rank.world if rank is not None else 1
+        root = rank is None or rank.rank == 0
+        if rank is not None:
+            self.device = rank.device
+            if getattr(self, "_teacher_logits", None) is not None:
+                self._teacher_logits = self._teacher_logits.to(self.device)
         self.prepare_fit(X_train, len(label_names))
         net = self._net
         trained = [(k, p) for k, p in net.named_parameters() if p.requires_grad]
@@ -710,7 +771,10 @@ class TorchTrainer(BaseTrainer):
 
         n = len(X_train)
         bs = min(self.batch_size, max(n, 1))
+        # minibatches split evenly over the ranks
+        bs = -(-bs // world) * world
         steps = max(1, -(-n // bs))
+        local = slice(rank.rank * (bs // world), (rank.rank + 1) * (bs // world)) if rank is not None else slice(None)
         best_val_loss = float("inf")
         best_state = {k: v.detach().clone() for k, v in net.state_dict().items()}
         patience_es, patience_lr = 10, 5
@@ -742,65 +806,91 @@ class TorchTrainer(BaseTrainer):
                 logger.info("[%s] resumed from %s at epoch %d", self.name, ckpt_path, start_epoch)
 
         # the training set moves to the device once; steps gather on device
-        X_train_d = torch.from_numpy(X_train).to(self.device)
+        X_train_d = torch.from_numpy(X_train).to(self.device, self.dtype)
         y_train_d = torch.from_numpy(y_train.astype(np.int64)).to(self.device)
+        # the dropout masks of each global batch, drawn alike on every rank
+        noise = GlobalBatchNoise(torch.Generator(self.device).manual_seed(self.seed + start_epoch), world,
+                                 rank.rank if rank is not None else 0)
+        if world > 1:
+            import torch.distributed as dist
 
-        for epoch in range(start_epoch, self.epochs):
-            perm = np_rng.permutation(n)
-            for group in optimizer.param_groups:
-                group["lr"] = current_lr
-            idx_mat, w_mat = self._epoch_batches(perm, steps, bs)
-            idx_d = torch.from_numpy(idx_mat.astype(np.int64)).to(self.device)
-            w_d = torch.from_numpy(w_mat).to(self.device)
-            net.train()
-            stats = torch.stack([torch.stack(self.train_step(optimizer, X_train_d, y_train_d, idx_d[s], w_d[s]))
-                                 for s in range(steps)])
-            net.eval()
-            ep_loss, ep_acc = (float(v) for v in stats.mean(dim=0).cpu())
+            from ..parallel.mesh import ddp
 
-            val_logits = self._batched_logits(X_val)
-            shifted = val_logits - val_logits.max(axis=-1, keepdims=True)
-            log_probs = shifted - np.log(np.exp(shifted).sum(axis=-1, keepdims=True))
-            val_loss = float(np.mean(-np.take_along_axis(log_probs, y_val[:, None], axis=1)))
-            val_acc = float((val_logits.argmax(-1) == y_val).mean())
+            sync_batch_norms(net, dist.group.WORLD)
+            self._ddp = ddp(net, self.device)
+        try:
+            for epoch in range(start_epoch, self.epochs):
+                perm = np_rng.permutation(n)
+                for group in optimizer.param_groups:
+                    group["lr"] = current_lr
+                idx_mat, w_mat = self._epoch_batches(perm, steps, bs)
+                idx_d = torch.from_numpy(idx_mat[:, local].astype(np.int64)).to(self.device)
+                w_d = torch.from_numpy(w_mat[:, local]).to(self.device, self.dtype)
+                wsum = torch.from_numpy(w_mat.sum(axis=1)).to(self.device, self.dtype) if world > 1 else [None] * steps
+                net.train()
+                stats = torch.stack([torch.stack(self.train_step(optimizer, X_train_d, y_train_d, idx_d[s], w_d[s],
+                                                                 wsum[s], noise, world))
+                                     for s in range(steps)])
+                net.eval()
+                if world > 1:   # a rank's (loss, acc) is its rows' share of the global batch's
+                    dist.all_reduce(stats)
+                ep_loss, ep_acc = (float(v) for v in stats.mean(dim=0).cpu())
 
-            log_epoch = epoch + getattr(self, "_log_epoch_offset", 0)
-            logs = {"loss": ep_loss, "accuracy": ep_acc, "val_loss": val_loss, "val_accuracy": val_acc}
-            if mlflow_run is not None:
-                for k, v in logs.items():
-                    mlflow_run.log_metric(k, v, step=log_epoch)
-            lr_tag = f"  lr={current_lr:.2e}v" if current_lr < prev_lr - 1e-12 else ""
-            prev_lr = current_lr
-            logger.info(
-                "[%s] Epoch %3d/%d  loss=%.4f  acc=%.4f  val_loss=%.4f  val_acc=%.4f%s",
-                self.name, epoch + 1, self.epochs, ep_loss, ep_acc, val_loss, val_acc, lr_tag,
-            )
+                stop = False
+                if root:
+                    val_logits = self._batched_logits(X_val)
+                    shifted = val_logits - val_logits.max(axis=-1, keepdims=True)
+                    log_probs = shifted - np.log(np.exp(shifted).sum(axis=-1, keepdims=True))
+                    val_loss = float(np.mean(-np.take_along_axis(log_probs, y_val[:, None], axis=1)))
+                    val_acc = float((val_logits.argmax(-1) == y_val).mean())
 
-            # EarlyStopping(restore_best) + ReduceLROnPlateau, host-side. The
-            # best state is a copy: Adam updates the live tensors in place.
-            if val_loss < best_val_loss - 1e-12:
-                best_val_loss = val_loss
-                best_state = {k: v.detach().clone() for k, v in net.state_dict().items()}
-                es_wait = lr_wait = 0
-            else:
-                es_wait += 1
-                lr_wait += 1
-                if lr_wait >= patience_lr and current_lr > 1e-6:
-                    current_lr = max(current_lr * 0.5, 1e-6)
-                    lr_wait = 0
-                if es_wait >= patience_es:
-                    stopped_epoch = epoch + 1
-                    logger.info("[%s] Early stopped at epoch %d/%d", self.name, epoch + 1, self.epochs)
+                    log_epoch = epoch + getattr(self, "_log_epoch_offset", 0)
+                    logs = {"loss": ep_loss, "accuracy": ep_acc, "val_loss": val_loss, "val_accuracy": val_acc}
+                    if mlflow_run is not None:
+                        for k, v in logs.items():
+                            mlflow_run.log_metric(k, v, step=log_epoch)
+                    lr_tag = f"  lr={current_lr:.2e}v" if current_lr < prev_lr - 1e-12 else ""
+                    prev_lr = current_lr
+                    logger.info(
+                        "[%s] Epoch %3d/%d  loss=%.4f  acc=%.4f  val_loss=%.4f  val_acc=%.4f%s",
+                        self.name, epoch + 1, self.epochs, ep_loss, ep_acc, val_loss, val_acc, lr_tag,
+                    )
+
+                    # EarlyStopping(restore_best) + ReduceLROnPlateau, host-side. The
+                    # best state is a copy: Adam updates the live tensors in place.
+                    if val_loss < best_val_loss - 1e-12:
+                        best_val_loss = val_loss
+                        best_state = {k: v.detach().clone() for k, v in net.state_dict().items()}
+                        es_wait = lr_wait = 0
+                    else:
+                        es_wait += 1
+                        lr_wait += 1
+                        if lr_wait >= patience_lr and current_lr > 1e-6:
+                            current_lr = max(current_lr * 0.5, 1e-6)
+                            lr_wait = 0
+                        if es_wait >= patience_es:
+                            stopped_epoch, stop = epoch + 1, True
+                            logger.info("[%s] Early stopped at epoch %d/%d", self.name, epoch + 1, self.epochs)
+                    if not stop and ckpt_path is not None and (epoch + 1) % checkpoint_every == 0:
+                        save_train_state(ckpt_path, {"params": net.state_dict(), "best": best_state}, optimizer,
+                                         dict(net.named_parameters()),
+                                         {"epoch": epoch, "lr": current_lr, "best_val_loss": best_val_loss,
+                                          "es_wait": es_wait, "lr_wait": lr_wait})
+                    if not stop and epoch_callback is not None and epoch_callback(log_epoch, logs):
+                        stopped_epoch, stop = epoch + 1, True
+                        logger.info("[%s] Pruned at epoch %d/%d", self.name, epoch + 1, self.epochs)
+                if world > 1:   # rank 0's decisions: stop, and the next epoch's learning rate
+                    flags = torch.tensor([float(stop), current_lr], dtype=torch.float64, device=self.device)
+                    dist.broadcast(flags, 0)
+                    stop, current_lr = bool(flags[0]), float(flags[1])
+                if stop:
                     break
-            if ckpt_path is not None and (epoch + 1) % checkpoint_every == 0:
-                save_train_state(ckpt_path, {"params": net.state_dict(), "best": best_state}, optimizer,
-                                 dict(net.named_parameters()),
-                                 {"epoch": epoch, "lr": current_lr, "best_val_loss": best_val_loss,
-                                  "es_wait": es_wait, "lr_wait": lr_wait})
-            if epoch_callback is not None and epoch_callback(log_epoch, logs):
-                stopped_epoch = epoch + 1
-                logger.info("[%s] Pruned at epoch %d/%d", self.name, epoch + 1, self.epochs)
-                break
+        finally:
+            if world > 1:
+                sync_batch_norms(net, None)
+                self._ddp = None
+        if not root:
+            return None
 
         net.load_state_dict(best_state)
         net.eval()
@@ -871,6 +961,13 @@ class TorchTrainer(BaseTrainer):
                 raise ValueError(f"missing/mismatched param {key} in bundle {path}")
         inst._net.load_state_dict(state, strict=True)
         return inst
+
+
+def _fit_peer(rank, trainer: TorchTrainer, X_train: np.ndarray, y_train: np.ndarray, label_names: list[str]) -> None:
+    """A data-parallel peer rank (``TorchTrainer.fit`` runs rank 0 in the
+    calling process): the training loop on this rank's rows, no validation
+    and nothing written."""
+    trainer._fit_loop(X_train, y_train, None, None, label_names, None, None, None, None, rank)
 
 
 def load_any_model(path: Path, device: torch.device | str | None = None) -> BaseTrainer:

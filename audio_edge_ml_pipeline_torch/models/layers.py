@@ -8,7 +8,11 @@
   copies them into the buffers; a trial group under ``torch.func.vmap``
   keeps them as stacked state). flax's update differs from
   ``nn.BatchNorm2d``'s: the running variance takes the *biased* batch
-  variance, and the momentum is the weight of the old value.
+  variance, and the momentum is the weight of the old value. With a
+  process ``group`` (``sync_batch_norms``: data-parallel training), the
+  train-mode moments cover the global batch, as JAX's global-view jit
+  computes them: one differentiable all-reduce of the stacked per-channel
+  (sum x, sum x^2) and the row count.
 - ``LayerNorm``: flax ``nn.LayerNorm`` over the last axis.
 - ``SelfAttention``: flax ``nn.MultiHeadDotProductAttention`` applied as
   ``attn(x, x)``, with its parameters in flax's shapes (``query``, ``key``,
@@ -50,10 +54,19 @@ def conv_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return conv(F.pad(x, (left, right, top, bottom)))
 
 
-def _moments(x: torch.Tensor, dims: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
-    """flax ``_compute_stats`` with ``use_fast_variance``: (mean, var)."""
-    mean = x.mean(dims)
-    return mean, torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+def _moments(x: torch.Tensor, dims: tuple[int, ...], group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """flax ``_compute_stats`` with ``use_fast_variance``: (mean, var);
+    with a process ``group``, of the rows of every rank in it."""
+    if group is None:
+        mean = x.mean(dims)
+        return mean, torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+    from ..parallel.mesh import all_reduce_sum
+
+    s1 = x.sum(dims)
+    count = torch.full_like(s1, x.numel() / s1.numel())
+    sums = all_reduce_sum(torch.stack([s1, (x * x).sum(dims), count]), group)
+    mean = sums[0] / sums[2]
+    return mean, torch.clamp_min(sums[1] / sums[2] - mean * mean, 0.0)
 
 
 class BatchNorm(nn.Module):
@@ -69,12 +82,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
         self.momentum, self.eps = momentum, eps
         self.path = ""
+        self.group = None   # a process group: train-mode moments over its ranks' rows
 
     def forward(self, x: torch.Tensor, train: bool, stats: dict | None = None) -> torch.Tensor:
         """``train``: normalise by the batch's statistics (over N, H, W) and
         put the updated running ones in ``stats``; else by the running ones."""
         if train:
-            mean, var = _moments(x, (0, 2, 3))
+            mean, var = _moments(x, (0, 2, 3), self.group)
             if stats is not None:
                 m = self.momentum
                 stats[self.path + "mean"] = (m * self.mean + (1.0 - m) * mean).detach()
@@ -90,6 +104,14 @@ def name_batch_norms(root: nn.Module) -> None:
     for name, mod in root.named_modules():
         if isinstance(mod, BatchNorm):
             mod.path = f"{name}." if name else ""
+
+
+def sync_batch_norms(root: nn.Module, group) -> None:
+    """Compute the train-mode moments of every BatchNorm under ``root``
+    over the ranks of ``group`` (None: this process's rows alone)."""
+    for mod in root.modules():
+        if isinstance(mod, BatchNorm):
+            mod.group = group
 
 
 class LayerNorm(nn.Module):

@@ -15,17 +15,19 @@ on the device:
 - the OvO fold layout depends only on (y, folds): it is built and placed on
   the device once per search.
 
-The folds run on one device. JAX shards the fold axis over several devices
-when asked (``devices > 1``); here that raises where more than one card is
-visible (multi-card sharding is not ported yet), and never quietly uses one.
+With ``devices`` > 1 the fold axis splits over min(devices, cards, folds)
+cards, as JAX shards it (``parallel/mesh.py::part_devices``; a list of
+devices names them outright): each part holds X and its folds' weights and
+OvO layout on its card and runs the cell's program there (the svm's solve a
+captured CUDA graph on that card), every part issued before any is
+fetched, and the decisions are concatenated in fold order. On the CPU, or
+with one card, the folds run as one part.
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
-from typing import Optional
-
 import numpy as np
 import torch
 
@@ -150,22 +152,29 @@ def _fold_ovo_arrays(y: np.ndarray, fold_of: np.ndarray, n_classes: int):
     return pairs, idx, ypm, cw
 
 
-def check_single_card(what: str, devices: int, device: torch.device) -> None:
-    """Sharding over several cards is not ported: refuse it where it would
-    apply (``devices > 1`` with more than one card visible) rather than
-    quietly running on one card."""
-    if devices > 1 and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"{what} over {devices} cards is not yet ported to audio_edge_ml_pipeline_torch: it needs "
-            "multi-card sharding (torch.distributed), which the port lacks; set tune_parallel to 1")
+class _FoldPart:
+    """The folds ``folds`` of a CV engine on one device: X, their weights and
+    the labels' one-hot placed there once; the OvO layout and the PCA
+    features cached there."""
+
+    def __init__(self, engine: "_CVEngine", folds: np.ndarray, device: torch.device) -> None:
+        self.folds, self.device = folds, device
+        self.X = cc._tensor(engine.X, device)
+        self.W = cc._tensor(engine.W[folds], device)
+        self.onehot = cc._tensor(np.eye(engine.n_classes, dtype=np.float32)[engine.y], device)
+        self.pca: dict[int, torch.Tensor] = {}   # ncomp -> its folds' Z (f, N, k)
+        self.ovo = None   # (idx, ypm) of its folds
 
 
 class _CVEngine:
     """Evaluates one grid cell for one model family, fold-batched, on
-    ``device``. ``X`` and the fold weights are placed there once."""
+    ``device``, or with the folds split over ``devices`` (a count or a
+    list; module docstring). ``X`` and the fold weights are placed once."""
 
     def __init__(self, X: np.ndarray, y: np.ndarray, fold_of: np.ndarray,
-                 n_classes: int, device=None):
+                 n_classes: int, device=None, devices=1):
+        from ..parallel.mesh import part_devices, split_parts
+
         self.device = resolve_device(device)
         self.X = np.asarray(X, np.float32)
         self.y = np.asarray(y, np.int32)
@@ -173,11 +182,10 @@ class _CVEngine:
         self.cv = int(fold_of.max()) + 1
         self.n_classes = n_classes
         self.W = np.stack([(fold_of != f) for f in range(self.cv)]).astype(np.float32)
-        self._X_dev = cc._tensor(self.X, self.device)
-        self._W_dev = cc._tensor(self.W, self.device)
-        self._onehot_dev = cc._tensor(np.eye(n_classes, dtype=np.float32)[self.y], self.device)
-        self._pca_cache: dict[int, torch.Tensor] = {}  # ncomp -> per-fold Z on the device
-        self._ovo = None  # cached (pairs, idx_dev, ypm_dev, cw): C-independent
+        devs = part_devices(devices, self.device, self.cv)
+        self.parts = [_FoldPart(self, folds, d) for folds, d in zip(split_parts(self.cv, len(devs)), devs)]
+        self.device = self.parts[0].device
+        self._ovo = None  # cached (pairs, cw): C-independent; each part keeps its folds' idx / ypm
 
     # -- per-family cell evaluation (returns per-fold val scores) ---------
 
@@ -191,15 +199,34 @@ class _CVEngine:
         return out
 
     def _ovo_cached(self):
-        """(pairs, idx_dev, ypm_dev, cw): the OvO fold layout depends only on
-        (y, folds), so it is built and placed on the device ONCE per search,
-        not per cell."""
+        """(pairs, cw): the OvO fold layout depends only on (y, folds), so it
+        is built, and each part's folds' idx / ypm placed on its device, ONCE
+        per search, not per cell."""
         if self._ovo is None:
             pairs, idx, ypm, cw = _fold_ovo_arrays(self.y, self.fold_of, self.n_classes)
-            self._ovo = (pairs, cc._tensor(idx, self.device, torch.int64), cc._tensor(ypm, self.device), cw)
+            for part in self.parts:
+                part.ovo = (cc._tensor(idx[part.folds], part.device, torch.int64),
+                            cc._tensor(ypm[part.folds], part.device))
+            self._ovo = (pairs, cw)
         return self._ovo
 
-    def svm_decisions(self, cell: dict, Z: Optional[torch.Tensor] = None) -> np.ndarray:
+    def _parts_of(self, Z) -> list:
+        """Per-fold features as one entry a part: None (the shared X), a list
+        (one a part, as ``_pca_parts`` gives), or one (F, N, k) tensor, cut
+        by each part's folds onto its device."""
+        if Z is None or isinstance(Z, (list, tuple)):
+            return [None] * len(self.parts) if Z is None else list(Z)
+        if len(self.parts) == 1:
+            return [Z]
+        return [Z[torch.as_tensor(p.folds, device=Z.device)].to(p.device) for p in self.parts]
+
+    @staticmethod
+    def _fetch(outs: list[torch.Tensor]) -> np.ndarray:
+        """The parts' results on the host in fold order: every part was
+        issued before this first fetch."""
+        return np.concatenate([cc._np(o) for o in outs])
+
+    def svm_decisions(self, cell: dict, Z=None) -> np.ndarray:
         """The cell's fold-batched decision values (F, N, P) on the host."""
         C = float(cell.get("C", 1.0))
         kernel = str(cell.get("kernel", "rbf"))
@@ -207,15 +234,19 @@ class _CVEngine:
             raise ValueError(f"svm kernel must be one of {_SVM_KERNELS}, got {kernel!r}")
         gamma = cell.get("gamma", "scale")
         gamma_mode, gval = (str(gamma), 0.0) if gamma in ("scale", "auto") else ("value", float(np.float32(gamma)))
-        _, idx, ypm, cw = self._ovo_cached()
-        u = cc._tensor((C * cw).astype(np.float32), self.device)
+        _, cw = self._ovo_cached()
         # honor a gridded solver budget: a pinned _DEFAULT_ITERS would score
         # every iters cell identically and pick an arbitrary winner
         iters = int(cell.get("iters", _DEFAULT_ITERS))
-        Xin = self._X_dev if Z is None else Z
-        return cc._np(cc.svm_cv(Xin, self._W_dev, idx, ypm, u, gval, kernel, gamma_mode, iters))
+        outs = []
+        for part, Zp in zip(self.parts, self._parts_of(Z)):
+            u = cc._tensor((C * cw[part.folds]).astype(np.float32), part.device)
+            idx, ypm = part.ovo
+            outs.append(cc.svm_cv(part.X if Zp is None else Zp, part.W, idx, ypm, u, gval, kernel, gamma_mode,
+                                  iters))
+        return self._fetch(outs)
 
-    def eval_svm(self, cell: dict, scoring: str, Z: Optional[torch.Tensor] = None) -> list[float]:
+    def eval_svm(self, cell: dict, scoring: str, Z=None) -> list[float]:
         dec = self.svm_decisions(cell, Z)  # (F, N, P)
         pairs = self._ovo_cached()[0]
         scores = []
@@ -225,33 +256,42 @@ class _CVEngine:
             scores.append(_score(self.y[val], votes.argmax(1), scoring))
         return scores
 
-    def eval_lda(self, cell: dict, scoring: str, Z: Optional[torch.Tensor] = None) -> list[float]:
-        Xin = self._X_dev if Z is None else Z
-        dec = cc._np(cc.lda_cv(Xin, self._onehot_dev, self._W_dev))
-        return self._per_fold_scores(dec, scoring)
+    def eval_lda(self, cell: dict, scoring: str, Z=None) -> list[float]:
+        outs = [cc.lda_cv(part.X if Zp is None else Zp, part.onehot, part.W)
+                for part, Zp in zip(self.parts, self._parts_of(Z))]
+        return self._per_fold_scores(self._fetch(outs), scoring)
 
-    def eval_knn(self, cell: dict, scoring: str, Z: Optional[torch.Tensor] = None) -> list[float]:
+    def eval_knn(self, cell: dict, scoring: str, Z=None) -> list[float]:
         n_neighbors = int(cell.get("n_neighbors", 5))
         metric = str(cell.get("metric", "minkowski"))
         if metric not in _KNN_METRICS:
             raise ValueError(f"knn metric must be one of {_KNN_METRICS}, got {metric!r}")
-        Xin = self._X_dev if Z is None else Z
         min_fold = int(self.W.sum(1).min()) or 1
-        counts = cc._np(cc.knn_cv(Xin, self._W_dev, self._onehot_dev, min(n_neighbors, min_fold), metric))
-        return self._per_fold_scores(counts, scoring)
+        outs = [cc.knn_cv(part.X if Zp is None else Zp, part.W, part.onehot, min(n_neighbors, min_fold), metric)
+                for part, Zp in zip(self.parts, self._parts_of(Z))]
+        return self._per_fold_scores(self._fetch(outs), scoring)
 
-    def pca_features(self, cell: dict) -> torch.Tensor:
-        """The per-fold PCA features (F, N, k) of a pca_* cell, computed once
-        per n_components and kept on the device for the cells sharing it."""
+    def _pca_parts(self, cell: dict) -> list[torch.Tensor]:
+        """Each part's per-fold PCA features (f, N, k) of a pca_* cell,
+        computed once per n_components and kept on its device for the cells
+        sharing it."""
         # n_components_pca is the pca_lda trainer's knob name; honor it here too
         ncomp = int(cell.get("n_components_pca", cell.get("n_components", 50)))
         ncomp = min(ncomp, self.X.shape[1], int(self.W.sum(1).min()))
-        if ncomp not in self._pca_cache:
-            self._pca_cache[ncomp] = cc.pca_cv(self._X_dev, self._W_dev, ncomp)
-        return self._pca_cache[ncomp]
+        for part in self.parts:
+            if ncomp not in part.pca:
+                part.pca[ncomp] = cc.pca_cv(part.X, part.W, ncomp)
+        return [part.pca[ncomp] for part in self.parts]
+
+    def pca_features(self, cell: dict) -> torch.Tensor:
+        """The per-fold PCA features (F, N, k) of a pca_* cell: the cached
+        tensor with one part, else the parts' gathered on the first part's
+        device."""
+        zs = self._pca_parts(cell)
+        return zs[0] if len(zs) == 1 else torch.cat([z.to(self.device) for z in zs])
 
     def eval_cell(self, model_name: str, cell: dict, scoring: str) -> list[float]:
-        Z = self.pca_features(cell) if model_name.startswith("pca_") else None
+        Z = self._pca_parts(cell) if model_name.startswith("pca_") else None
         tail = model_name.split("_")[-1]
         if tail == "svm":
             return self.eval_svm(cell, scoring, Z)
@@ -263,22 +303,24 @@ class _CVEngine:
 
 
 def grid_search_cv_device(model_name: str, param_grid: dict, X, y, cv: int = 5,
-                          scoring: str = "f1_macro", seed: int = 42, devices: int = 1, device=None):
+                          scoring: str = "f1_macro", seed: int = 42, devices=1, device=None):
     """Fold-batched grid search over the classical core's models on
     ``device`` (the first CUDA card unless the caller passes
-    ``device="cpu"``). Returns (best_trainer, best_params, best_score), the
+    ``device="cpu"``), the folds split over ``devices`` (a count or a list;
+    module docstring). Returns (best_trainer, best_params, best_score), the
     contract of search.grid_search_cv, with the best cell refit on ALL of
-    (X, y) by its trainer on the same device."""
+    (X, y) by its trainer on ``device``."""
     if model_name not in DEVICE_TUNABLE:
         raise ValueError(f"{model_name!r} is not tunable on the device; use search.grid_search_cv")
     device = resolve_device(device)
-    check_single_card("fold-batched grid CV", devices, device)
     validate_grid(model_name, param_grid or {})
     X = np.asarray(X, np.float32)
     y = np.asarray(y, np.int64)
     n_classes = int(y.max()) + 1
     fold_of = stratified_fold_ids(y, cv, seed)
-    engine = _CVEngine(X, y, fold_of, n_classes, device=device)
+    engine = _CVEngine(X, y, fold_of, n_classes, device=device, devices=devices)
+    if len(engine.parts) > 1:
+        logger.info("[grid-device %s] %d folds split over %d devices", model_name, cv, len(engine.parts))
 
     best_cell, best_score = None, -np.inf
     for cell in _expand_grid(param_grid):

@@ -22,7 +22,9 @@ raises is marked FAIL, a failed winner refit only warns (as in JAX).
 
 Everything runs on the first CUDA card unless ``--device`` names another
 device; ``cpu`` tunes there. With no card and no ``--device`` it raises
-before any run starts.
+before any run starts. With ``tune_parallel`` > 1 and several cards, a
+grid cell's folds and a round's trials split over min(tune_parallel,
+cards) of them (``search_cv.py``, ``tune_batched.py``), as JAX shards them.
 
 CLI: python -m audio_edge_ml_pipeline_torch.train.tune --config tuning.yaml [--device cpu]
 """
@@ -183,8 +185,9 @@ def _tune_classical(run_cfg: dict, default_cfg: dict, device: torch.device) -> O
         # every fold of a cell in ONE batch on the device; the OvO layout and
         # each n_components' PCA are built once per search
         tune_parallel = int(_cfg(run_cfg, default_cfg, "tune_parallel", 1) or 1)
-        logger.info("[%s] grid-device: %d combination(s), %d folds batched on %s",
-                    run_label, n_combos, cv, device)
+        logger.info("[%s] grid-device: %d combination(s), %d folds batched on %s%s",
+                    run_label, n_combos, cv, device,
+                    f" across {tune_parallel} devices" if tune_parallel > 1 else "")
         best_estimator, best_params, cv_best_score = search_cv.grid_search_cv_device(
             model_name, param_grid, X_train, y_train, cv=cv, scoring=scoring,
             devices=tune_parallel, device=device,

@@ -11,8 +11,8 @@ Counterpart of the JAX package's ``train/tune_batched.py``:
   k trials' parameters are stacked on a leading trial axis and trained as
   one program (``TrialGroup``). The cnn, mlp, ds_cnn and transformer run
   the k trials through ``torch.func.vmap`` over ``functional_call``, with
-  dropout at each trial's rate (``models/deep.py::runtime_dropout``) and
-  different masks a trial; cuDNN's LSTM has no vmap batching rule, so the
+  dropout at each trial's rate (``utils/dropout.py::runtime_dropout``) and
+  each trial's masks from its own generator; cuDNN's LSTM has no vmap batching rule, so the
   rnn runs its k trials one after another inside each step. Either way one
   backward pass and one Adam update (optax's ``scale_by_adam``, then
   ``-lr * update``, written over the stacked tensors) serve the whole
@@ -26,11 +26,15 @@ Counterpart of the JAX package's ``train/tune_batched.py``:
   CLI, so its artifacts are those of the sequential path.
 
 Initial weights come from one ``torch.Generator`` a trial, seeded ``seed +
-i`` (flax's initializers, ``models/deep.py::init_weights_``); JAX's
-``jax.random`` init is not reproduced. Every trial trains on one card: JAX
-shards the trial axis over several devices when asked; here that raises
-where more than one card is visible (multi-card sharding is not ported
-yet).
+i`` (flax's initializers, ``models/deep.py::init_weights_``), and so do
+the dropout masks (``train_trial_group`` seeds trial i's generator seed + 1
++ i, on the trial's device); JAX's ``jax.random`` streams are not reproduced. With
+``devices`` > 1 the trials split over min(devices, cards, k) cards, as JAX
+shards its trial axis (``parallel/mesh.py::part_devices``; a list of
+devices names them outright): each part is a ``TrialGroup`` on its card,
+every part's epoch issued before any is fetched. A trial's weights and
+masks follow the trial, not the card, so a split group trains each trial
+as the whole group does.
 
 Divergence from the sequential path (as in JAX): trial VALUES come from the
 final sweep epoch without early stopping; the winner's metrics come from
@@ -50,9 +54,9 @@ import torch.nn.functional as F
 from torch.func import functional_call, vmap
 
 from ..models.deep import _MODULE_FACTORY, init_weights_
+from ..utils.dropout import dropout_noise
 from ..utils.device import resolve_device
 from .evaluate import f1_macro
-from .search_cv import check_single_card
 
 logger = logging.getLogger(__name__)
 
@@ -91,29 +95,56 @@ class _Runner:
         self.module = _MODULE_FACTORY[arch["type"]](arch).to(device)
         self.trainable = {n for n, p in self.module.named_parameters() if p.requires_grad}
         self.looped = arch["type"] in _LOOPED
-        self._batched = vmap(self._one, in_dims=(0, 0, None), randomness="different")
+        self._batched = vmap(self._one, in_dims=(0, 0, None, 0))
+        self._shapes: dict[tuple, list[torch.Size]] = {}   # input shape -> the shapes its dropout masks take
 
-    def _one(self, params: dict, rate: torch.Tensor, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    def _one(self, params: dict, rate: torch.Tensor, x: torch.Tensor, noise: list) -> tuple[torch.Tensor, dict]:
         stats: dict[str, torch.Tensor] = {}
-        logits = functional_call(self.module, params, (x,), {"dropout_rate": rate, "stats": stats})
+        pending = iter(noise)
+        with dropout_noise(lambda t: next(pending)):
+            logits = functional_call(self.module, params, (x,), {"dropout_rate": rate, "stats": stats})
         return logits, stats
 
-    def forward(self, params: dict, rates: torch.Tensor, x: torch.Tensor,
-                train: bool) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """(k, B, n_classes) logits of every trial on the shared batch x, and
-        in train mode the trials' updated BatchNorm statistics, (k, ...) a
-        buffer (none for the families without BatchNorm)."""
-        self.module.train(train)
+    def noise_shapes(self, params: dict, rates: torch.Tensor, x: torch.Tensor) -> list[torch.Size]:
+        """The shapes of one trial's dropout masks, in the order its forward
+        draws them, on a train-mode batch shaped like x: recorded once per
+        input shape by a forward of the first trial."""
+        key = tuple(x.shape)
+        if key not in self._shapes:
+            seen: list[torch.Size] = []
+
+            def record(t: torch.Tensor) -> torch.Tensor:
+                seen.append(t.shape)
+                return torch.zeros_like(t)
+
+            self.module.train(True)
+            with torch.no_grad(), dropout_noise(record):
+                functional_call(self.module, {n: p[0] for n, p in params.items()}, (x,),
+                                {"dropout_rate": rates[0], "stats": {}})
+            self._shapes[key] = seen
+        return self._shapes[key]
+
+    def forward(self, params: dict, rates: torch.Tensor, x: torch.Tensor, noise: list[torch.Tensor] | None
+                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """(k, B, n_classes) logits of every trial on the shared batch x. In
+        train mode ``noise`` is the trials' dropout noise, (k, *shape) a mask
+        in ``noise_shapes``' order (``TrialGroup._noise``), and the trials'
+        updated BatchNorm statistics come back too, (k, ...) a buffer (none
+        for the families without BatchNorm); None is evaluation (no
+        dropout)."""
+        self.module.train(noise is not None)
+        noise = [] if noise is None else noise
         if not self.looped:
-            return self._batched(params, rates, x)
+            return self._batched(params, rates, x, noise)
         with warnings.catch_warnings():   # cuDNN: the sliced weights are not one flattened buffer
             warnings.simplefilter("ignore", UserWarning)
-            outs = [self._one({n: p[i] for n, p in params.items()}, rates[i], x) for i in range(len(rates))]
+            outs = [self._one({n: p[i] for n, p in params.items()}, rates[i], x, [u[i] for u in noise])
+                    for i in range(len(rates))]
         return torch.stack([o[0] for o in outs]), {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]}
 
-    def logits(self, params: dict, rates: torch.Tensor, x: torch.Tensor, train: bool) -> torch.Tensor:
-        """(k, B, n_classes) logits of every trial on the shared batch x."""
-        return self.forward(params, rates, x, train)[0]
+    def logits(self, params: dict, rates: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """(k, B, n_classes) evaluation logits of every trial on the shared batch x."""
+        return self.forward(params, rates, x, None)[0]
 
 
 # runners cached by architecture and device: a shape group seen in a later
@@ -147,10 +178,11 @@ class TrialGroup:
     float32, as the trainers train; float64 holds two devices to each other
     over many steps (in float32 Adam lifts roundoff on near-zero gradients
     to whole steps, and an epoch diverges from itself under a 1e-7 change
-    of its input)."""
+    of its input). ``noise_seeds``: one a trial, the seed of the generator
+    its dropout masks come from (a trial at rate 0 draws none)."""
 
     def __init__(self, arch: dict, states: list[dict[str, torch.Tensor]], lrs, rates, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, *, noise_seeds):
         self.device = resolve_device(device)
         self.runner = _get_runner(json.dumps(arch, sort_keys=True), self.device)
         self.k = len(states)
@@ -161,6 +193,24 @@ class TrialGroup:
         self._mu = {n: torch.zeros_like(p) for n, p in self.params.items() if p.requires_grad}
         self._nu = {n: torch.zeros_like(mu) for n, mu in self._mu.items()}
         self._count = 0
+        if len(noise_seeds) != self.k:
+            raise ValueError(f"{len(noise_seeds)} noise seeds for {self.k} trials")
+        self._gens = [torch.Generator(self.device).manual_seed(int(sd)) if float(r) > 0 else None
+                      for sd, r in zip(noise_seeds, np.asarray(rates))]
+
+    def _noise(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """Each trial's dropout noise for a step on batch x, from its own
+        generator (zeros, which mask nothing, for a trial at rate 0):
+        (k, *shape) a mask."""
+        shapes = self.runner.noise_shapes(self.params, self.rates, x)
+        sizes = [s.numel() for s in shapes]
+        if not sizes:
+            return []
+        if not any(self._gens):
+            return [x.new_zeros((self.k, *shape)) for shape in shapes]
+        per_trial = [(torch.rand(sum(sizes), generator=g, device=self.device, dtype=x.dtype) if g is not None
+                      else x.new_zeros(sum(sizes))).split(sizes) for g in self._gens]
+        return [torch.stack([parts[j] for parts in per_trial]).view(self.k, *shape) for j, shape in enumerate(shapes)]
 
     def _adam(self) -> None:
         """optax ``scale_by_adam()`` (bias-corrected moments) followed by
@@ -179,7 +229,7 @@ class TrialGroup:
     def step(self, xb: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
         """One Adam step of every trial on the shared batch; (k,) losses, the
         mean cross-entropy of each trial's batch, left on the device."""
-        logits, stats = self.runner.forward(self.params, self.rates, xb, train=True)   # (k, B, C)
+        logits, stats = self.runner.forward(self.params, self.rates, xb, self._noise(xb))  # (k, B, C)
         losses = F.cross_entropy(logits.flatten(0, 1), yb.repeat(self.k), reduction="none").view(self.k, -1).mean(1)
         losses.sum().backward()   # each trial's loss reaches only its own slice
         self._adam()
@@ -192,11 +242,15 @@ class TrialGroup:
         idx_d = torch.from_numpy(np.asarray(idx_mat, np.int64)).to(self.device)
         return torch.stack([self.step(X.index_select(0, idx), y.index_select(0, idx)) for idx in idx_d]).mean(0)
 
+    def device_logits(self, X: torch.Tensor) -> torch.Tensor:
+        """(k, N, n_classes) evaluation logits (no dropout), left on the device."""
+        with torch.no_grad():
+            return torch.cat([self.runner.logits(self.params, self.rates, X[s : s + _EVAL_ROWS])
+                              for s in range(0, len(X), _EVAL_ROWS)], dim=1)
+
     def logits(self, X: torch.Tensor) -> np.ndarray:
         """(k, N, n_classes) evaluation logits (no dropout) on the host."""
-        with torch.no_grad():
-            return torch.cat([self.runner.logits(self.params, self.rates, X[s : s + _EVAL_ROWS], train=False)
-                              for s in range(0, len(X), _EVAL_ROWS)], dim=1).cpu().numpy()
+        return self.device_logits(X).cpu().numpy()
 
 
 def train_trial_group(
@@ -209,13 +263,14 @@ def train_trial_group(
     n_classes: int,
     sweep_epochs: int,
     seed: int = 42,
-    devices: int = 1,
+    devices=1,
     epoch_cb: Optional[Callable[[int, int, float], bool]] = None,
     device=None,
 ) -> list[dict]:
     """Train all ``draws`` (same shape signature) as one TrialGroup on
     ``device`` (the first CUDA card unless the caller passes
-    ``device="cpu"``).
+    ``device="cpu"``), or split over ``devices`` (a count or a list; module
+    docstring), one TrialGroup a part.
 
     epoch_cb(trial_index, epoch, val_accuracy) is a pure observation hook
     (its return value is ignored): the group always trains to sweep_epochs,
@@ -226,9 +281,11 @@ def train_trial_group(
     """
     from ..models import get_model
 
+    from ..parallel.mesh import part_devices, split_parts
+
     device = resolve_device(device)
-    check_single_card("trial-batched tuning (tune_parallel)", devices, device)
     k = len(draws)
+    parts = part_devices(devices, device, k)
     proto = get_model(model_name)(
         epochs=sweep_epochs, device=device, **{kk: v for kk, v in draws[0].items() if kk != "epochs"}
     )
@@ -243,29 +300,38 @@ def train_trial_group(
     # the module's own dropout is never used (every call passes a runtime
     # rate): pin it, so draws that differ only in dropout share one runner
     arch = {**proto._arch(X.shape[1:], n_classes), "dropout": 0.0}
-    group = TrialGroup(
-        arch, init_states(arch, k, seed),
-        [float(d.get("learning_rate", proto.learning_rate)) for d in draws],
-        [float(d.get("dropout", proto.dropout)) for d in draws], device,
-    )
+    states = init_states(arch, k, seed)
+    lrs = np.array([float(d.get("learning_rate", proto.learning_rate)) for d in draws])
+    rates = np.array([float(d.get("dropout", proto.dropout)) for d in draws])
+    members = split_parts(k, len(parts))
+    if len(members) > 1:
+        logger.info("trial batch of %d (%d real) sharded over %d devices", k, k, len(members))
+    groups = [TrialGroup(arch, [states[i] for i in m], lrs[m], rates[m], d, noise_seeds=[seed + 1 + i for i in m])
+              for m, d in zip(members, parts)]
+    # the data once a device
+    data = {str(g.device): tuple(torch.from_numpy(a).to(g.device) for a in (X, y, Xv)) for g in groups}
+
+    def logits() -> np.ndarray:
+        """(k, Nv, n_classes): every part issued before the first fetch."""
+        outs = [g.device_logits(data[str(g.device)][2]) for g in groups]
+        return np.concatenate([o.cpu().numpy() for o in outs])
 
     n = len(X)
     bs = min(proto.batch_size, n)
     steps = max(1, n // bs)
-    Xd, yd = torch.from_numpy(X).to(device), torch.from_numpy(y).to(device)
-    Xvd = torch.from_numpy(Xv).to(device)
     np_rng = np.random.default_rng(seed)
     history: list[np.ndarray] = []
     for epoch in range(sweep_epochs):
         perm = np_rng.permutation(n)
-        group.epoch(Xd, yd, perm[: steps * bs].reshape(steps, bs))
-        accs = (group.logits(Xvd).argmax(-1) == yv[None, :]).mean(axis=1)
+        for g in groups:
+            g.epoch(*data[str(g.device)][:2], perm[: steps * bs].reshape(steps, bs))
+        accs = (logits().argmax(-1) == yv[None, :]).mean(axis=1)
         history.append(accs)
         if epoch_cb is not None:
             for i in range(k):
                 epoch_cb(i, epoch, float(accs[i]))
 
-    preds = group.logits(Xvd).argmax(-1)   # (k, Nv); the untrained init when sweep_epochs == 0
+    preds = logits().argmax(-1)   # (k, Nv); the untrained init when sweep_epochs == 0
     hist = np.stack(history) if history else np.zeros((0, k))  # (epochs, k)
     return [{
         "val_accuracy": float((preds[i] == yv).mean()),
@@ -286,7 +352,7 @@ def run_study_batched(
     sweep_epochs: int,
     batch_k: int,
     seed: int = 42,
-    devices: int = 1,
+    devices=1,
     device=None,
 ) -> dict[int, dict]:
     """Drive the Study with ask-tell rounds of ``batch_k`` trials. Returns

@@ -224,6 +224,23 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      graph's and each torch.compile candidate's logits within 1e-5 of the
      eager forward; each candidate's latency, compile seconds, the
      allocator's bytes;
+  5j. the parallel layer (``parallel/mesh.py``), after 5g: the flagship
+     CNN and the ds_cnn (JAX's defaults) fitted in float64 with
+     data_parallel=2 by two gloo ranks sharing the card, against the same
+     fits in one process (losses 1e-5, state 1e-4 of each tensor's
+     largest), and the cnn so in float32 beside the float32 fit's own floor
+     (its state under a 1e-7 input change; printed, not gated); one
+     make_sharded_train_step step of waveform -> mel -> CNN on a 1-card
+     NCCL mesh against the plain step (1e-5), both timed at B=32 and 512
+     (the DDP wrapper's cost); an extraction batch, a pca_svm CV cell and a
+     4-trial cnn group each split in two parts on the card against the
+     unsplit call (bit for bit, 1e-4, float64 1e-4), one mel_rfft launch a
+     part. With 2 or more cards (N = min(4, cards)), through NCCL: the train
+     CLI with --param data_parallel=N against the 1-card run,
+     fsc22-27-classes-tuning.yaml (cut) through the tune CLI, an
+     extraction over the cards and dryrun_multichip(N); with one card it
+     says so. ``python3 chip_smoke.py --only 5j`` builds the kernels and
+     runs this phase alone;
   6. timing with CUDA events at B=512 five-second clips (at n_fft 512 each
      entry's FFT route beside its dense kernel, in turns, and the plain
      versions; a yardstick on no path, torch.stft -> abs()**2 -> mel
@@ -756,7 +773,7 @@ def phase_5e(dev) -> dict:
     cv_gap = float(np.abs(dec5e["card"] - dec5e["cpu"]).max() / np.abs(dec5e["cpu"]).max())
     eng_card = engines5e["card"][0]
     print(f"[5e] pca_svm cell {cell5e} fold-batched on {len(Xc_fit)} rows, {doc5e['cv']} folds x "
-          f"{eng_card._ovo_cached()[1].shape[1]} pairs (M {eng_card._ovo_cached()[1].shape[2]}), "
+          f"{eng_card.parts[0].ovo[0].shape[1]} pairs (M {eng_card.parts[0].ovo[0].shape[2]}), "
           f"{search_cv._DEFAULT_ITERS} iterations: card with both TF32 flags on ({engines5e['card'][1]:.2f} s) vs CPU "
           f"({engines5e['cpu'][1]:.2f} s), decision values of all rows and folds max|d|/max|dec| {cv_gap:.3e} "
           f"(tol {CV_TOL:g})")
@@ -778,7 +795,8 @@ def phase_5e(dev) -> dict:
     # by 6e-12 when it moves 1e-14 (scripts/torch_tune_sensitivity.py), so the two devices are held to each other
     groups5e, losses5e = {}, {}
     for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
-        g5 = tune_batched.TrialGroup(arch5e, states5e, lrs5e, [0.0] * BATCHED_K, where, torch.float64)
+        g5 = tune_batched.TrialGroup(arch5e, states5e, lrs5e, [0.0] * BATCHED_K, where, torch.float64,
+                                      noise_seeds=[43 + i for i in range(BATCHED_K)])
         losses5e[side] = g5.epoch(Xg_d.to(where, torch.float64), yg_d.to(where), idx5e).cpu()
         groups5e[side] = g5
     group_loss_gap = float(((losses5e["card"] - losses5e["cpu"]).abs() / losses5e["cpu"].abs()).max())
@@ -812,9 +830,10 @@ def tuning_times(t5e: dict, card: str, in_turns) -> None:
     Xg_d, yg_d, idx5e = t5e["X"], t5e["y"], t5e["idx"]
     dev = Xg_d.device
     Z5e = eng_card.pca_features(cell5e)
-    _, idx5, ypm5, cw5 = eng_card._ovo_cached()
+    _, cw5 = eng_card._ovo_cached()
+    idx5, ypm5 = eng_card.parts[0].ovo
     u5 = torch.from_numpy((cell5e["C"] * cw5).astype(np.float32)).to(dev)
-    W5 = eng_card._W_dev
+    W5 = eng_card.parts[0].W
     n_folds5 = W5.shape[0]
 
     def cv_cell():
@@ -827,13 +846,14 @@ def tuning_times(t5e: dict, card: str, in_turns) -> None:
 
     by_fold_gap = float((cv_by_fold() - cv_cell()).abs().max() / cv_cell().abs().max())
     (ms_cv_cell, ms_cv_by_fold), cv_turns = in_turns(cv_cell, cv_by_fold, timer=lambda fn: host_ms(fn, reps=1))
-    ms_pca_cv = {k: host_ms(lambda k=k: classical_core.pca_cv(eng_card._X_dev, W5, k), reps=3)
+    ms_pca_cv = {k: host_ms(lambda k=k: classical_core.pca_cv(eng_card.parts[0].X, W5, k), reps=3)
                  for k in t5e["n_components"]}
 
     def group_epoch(members):
         def run():
+            # as train_trial_group builds its groups: trial i's masks from its generator, seeded 43 + i
             g = tune_batched.TrialGroup(arch5e, [states5e[i] for i in members], [lrs5e[i] for i in members],
-                                        [0.3] * len(members), dev)
+                                        [0.3] * len(members), dev, noise_seeds=[43 + i for i in members])
             return g.epoch(Xg_d, yg_d, idx5e)
         return run
 
@@ -3247,6 +3267,361 @@ def native_reader_checks(audio_dir: Path, names: list[str], tmp: Path) -> None:
           "4c: the native reader's failures")
 
 
+DP_PER_CLASS, DP_EPOCHS, DP_BATCH = 4, 2, 32   # the data-parallel fits: 27 x 4 seeded mel rows, 2 epochs, batch 32
+DP_LOSS_TOL, DP_PARAM_TOL = 1e-5, 1e-4         # a data-parallel fit vs one process: losses relative; parameters
+                                               # and BatchNorm statistics over each tensor's largest
+MESH_LOSS_TOL, MESH_PARAM_TOL = 1e-5, 1e-5     # the 1-card NCCL mesh step vs the plain step
+SPLIT_CV_TOL = 1e-4                            # a CV cell split in fold parts vs unsplit, over the largest decision
+DS_CNN_DEFAULTS = {"filters": [32, 32, 64], "first_stride": 2, "pool": "avg", "batch_norm": True}   # JAX's
+
+
+def dp_mel_set(rng: np.random.Generator, per_class: int):
+    """Seeded mel-shaped rows (40, 501) in [0, 1], a class-dependent band
+    each, 27 classes: (X, y)."""
+    y = np.repeat(np.arange(N_CLASSES), per_class).astype(np.int32)
+    X = rng.uniform(0.0, 0.4, (len(y), N_MELS, 1 + CLIP // HOP)).astype(np.float32)
+    for c in range(N_CLASSES):
+        X[y == c, c % N_MELS, :] += 0.5
+    return X, y
+
+
+def dp_fit(model: str, params: dict, dev, out: Path, X, y, Xv, yv, names: list[str], **kw):
+    """(trainer, epoch logs, seconds) of one fit for 5j's comparisons."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.models import get_model
+
+    logs: list = []
+    tr = get_model(model)(**params, epochs=DP_EPOCHS, batch_size=DP_BATCH, dropout=0.0, seed=3, device=dev, **kw)
+    t0 = time.perf_counter()
+    tr.fit(X, y, Xv, yv, names, out.name, out, None, epoch_callback=lambda e, lg: logs.append(lg) and False)
+    torch.cuda.synchronize()
+    return tr, logs, time.perf_counter() - t0
+
+
+def fit_gap(one, two, logs1: list, logs2: list) -> tuple[float, float, str]:
+    """(the loss histories' largest relative gap, the state's largest gap
+    over each tensor's largest, that tensor)."""
+    loss_gap = max(abs(b[k] - a[k]) / abs(a[k]) for a, b in zip(logs1, logs2) for k in ("loss", "val_loss"))
+    s1, s2 = one._net.state_dict(), two._net.state_dict()
+    gap, worst = max((float((s2[k] - s1[k]).abs().max()) / max(float(s1[k].abs().max()), 1e-30), k) for k in s1)
+    return loss_gap, gap, worst
+
+
+def mesh_step_check(rank, batches: tuple[int, ...], card: str) -> dict:
+    """A rank of a 1-card NCCL group: one make_sharded_train_step step of
+    waveform -> mel (the mel kernel) -> the flagship CNN on a 1-card mesh
+    against the plain step (the same module and Adam, the same dropout
+    masks), then both timed, at each batch size."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from audio_edge_ml_pipeline_torch.entry import MelFront
+    from audio_edge_ml_pipeline_torch.models.deep import _MODULE_FACTORY, init_weights_
+    from audio_edge_ml_pipeline_torch.ops import mel_kernel
+    from audio_edge_ml_pipeline_torch.parallel import mesh as pm
+    from audio_edge_ml_pipeline_torch.utils.dropout import GlobalBatchNoise, dropout_noise
+
+    dev = rank.device
+    mesh = pm.get_mesh(1)
+    out = {}
+    for b in batches:
+        arch = {"type": "cnn", **CNN_PARAMS, "dropout": 0.3, "n_classes": N_CLASSES,
+                "input_shape": [1 + CLIP // HOP, N_MELS, 1]}
+        net = _MODULE_FACTORY["cnn"](arch)
+        init_weights_(net, torch.Generator().manual_seed(b))
+        plain = MelFront(copy.deepcopy(net)).to(dev).train()
+        plain_opt = torch.optim.Adam(plain.parameters(), lr=1e-3)
+        placed, opt = pm.place_train_state(MelFront(net), torch.optim.Adam(net.parameters(), lr=1e-3), mesh)
+        placed.train()
+        step = pm.make_sharded_train_step(placed, opt, mesh)
+        noise = GlobalBatchNoise(torch.Generator(dev).manual_seed(0))   # the step's masks: its generator is seeded 0
+        waves = torch.from_numpy(synth_clips(np.random.default_rng(b), 8)).to(dev).repeat(b // 8, 1)
+        labels = torch.arange(b, device=dev) % N_CLASSES
+
+        def plain_step():
+            plain_opt.zero_grad(set_to_none=True)
+            with dropout_noise(noise):
+                logits = plain(waves)
+            loss = F.cross_entropy(logits, labels)
+            loss.backward()
+            plain_opt.step()
+            return loss.detach()
+
+        mel_kernel.counter.reset()
+        loss_mesh, _ = step(waves, labels)
+        launches = mel_kernel.counter.launches
+        loss_plain = plain_step()
+        torch.cuda.synchronize()
+        sp = {k: v.detach() for k, v in placed.named_parameters()}
+        sq = {k: v.detach() for k, v in plain.named_parameters()}
+        param_gap = max(float((sp[k] - sq[k]).abs().max()) / max(float(sq[k].abs().max()), 1e-30) for k in sq)
+        loss_gap = abs(float(loss_mesh) - float(loss_plain)) / abs(float(loss_plain))
+        ms_mesh, ms_plain = cuda_ms(lambda: step(waves, labels), iters=10), cuda_ms(plain_step, iters=10)
+        ms_mesh2 = cuda_ms(lambda: step(waves, labels), iters=10)
+        out[b] = {"loss_gap": loss_gap, "param_gap": param_gap, "launches": launches, "ms_mesh": (ms_mesh + ms_mesh2) / 2,
+                  "ms_plain": ms_plain, "params": sum(p.numel() for p in net.parameters())}
+    return out
+
+
+def tuning_27_copy(mel_train: Path, mel_val: Path, classical_train: Path, out: Path) -> Path:
+    """configs/experiments/fsc22-27-classes-tuning.yaml with its FeatureSets
+    moved to this phase's and cut as phase 5e cuts configs/tuning.yaml: the
+    cnn study BATCHED_K trials (one round of its tune_parallel 4) of
+    TUNE_EPOCHS epochs, the pca_svm grid 2 cells (n_components 50, C 1,
+    gamma scale and auto); tune_parallel, cv, the pruner and the search
+    space as shipped."""
+    import yaml
+
+    doc = yaml.safe_load((REPO / "configs" / "experiments" / "fsc22-27-classes-tuning.yaml").read_text())
+    check(doc["tune_parallel"] == 4 and [r["model"] for r in doc["runs"]] == ["pca_svm", "cnn"],
+          "fsc22-27-classes-tuning.yaml's runs")
+    doc.update(output_dir=str(out / "tuned"), mlflow_uri=str(out / "mlruns"), n_trials=BATCHED_K,
+               sweep_epochs=TUNE_EPOCHS)
+    doc["runs"][0].update(features_dir=str(classical_train), grid={**doc["runs"][0]["grid"], "n_components": [50],
+                                                                    "C": [1.0]})
+    doc["runs"][1].update(features_dir=str(mel_train), features_test=str(mel_val))
+    out.mkdir(parents=True)
+    path = out / "fsc22-27-classes-tuning.yaml"
+    path.write_text(json.dumps(doc, indent=1))
+    return path
+
+
+def phase_5j(dev, card: str) -> dict:
+    """Phase 5j: the parallel layer. On one card: the flagship CNN and the
+    ds_cnn fitted in float64 with data_parallel=2 by two gloo ranks sharing
+    the card, each against the same fit in one process, and the cnn in
+    float32 beside its floor (not gated); one make_sharded_train_step
+    step on a 1-card NCCL mesh against the plain step, both timed at B=32
+    and 512; an extraction batch, a pca_svm CV cell and a 4-trial cnn group
+    split in two parts on the card against the unsplit calls, one mel_rfft
+    launch a part. On 2 or more cards (N = min(4, cards)), through NCCL: the
+    train CLI with --param data_parallel=N against the 1-card CLI run,
+    fsc22-27-classes-tuning.yaml (cut) through the tune CLI, an extraction
+    batch split over the cards, and dryrun_multichip(N)."""
+    import logging
+
+    import torch
+
+    from audio_edge_ml_pipeline_torch.features import get as get_extractor
+    from audio_edge_ml_pipeline_torch.ops import golden, mel_kernel
+    from audio_edge_ml_pipeline_torch.parallel import mesh as pm
+    from audio_edge_ml_pipeline_torch.train import search_cv, tune_batched
+
+    t_phase = time.perf_counter()
+    two_ranks = {"data_parallel": 2, "data_parallel_devices": [dev, dev], "data_parallel_backend": "gloo"}
+    rng = np.random.default_rng(15)
+    X, y = dp_mel_set(rng, DP_PER_CLASS)
+    Xv, yv = dp_mel_set(rng, 1)
+    names = [f"class{c:02d}" for c in range(N_CLASSES)]
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_5j_") as tmp:
+        tmp = Path(tmp)
+        # two gloo ranks on the card against one process, dropout 0, in float64: the two fits then part only by
+        # the order of their sums (in float32 Adam lifts roundoff on near-zero gradients to fractions of a step)
+        for model, params in (("cnn", CNN_PARAMS), ("ds_cnn", DS_CNN_DEFAULTS)):
+            fits = {tag: dp_fit(model, params, dev, tmp / model / tag, X, y, Xv, yv, names, dtype="float64", **dp)
+                    for tag, dp in (("one", {}), ("two", two_ranks))}
+            (one, logs1, s1), (two, logs2, s2) = fits["one"], fits["two"]
+            loss_gap, gap, worst = fit_gap(one, two, logs1, logs2)
+            counts[model] = sum(p.numel() for p in one._net.parameters())
+            print(f"[5j] {model} {params} in float64 (27 classes, {len(X)} seeded mel rows (40, 501), {DP_EPOCHS} "
+                  f"epochs, batch {DP_BATCH}, dropout 0): data_parallel=2 by two gloo ranks on one card vs one process: "
+                  f"losses max rel {loss_gap:.3e} (tol {DP_LOSS_TOL:g}), parameters and BatchNorm statistics "
+                  f"max|d|/max {gap:.3e} ({worst}; tol {DP_PARAM_TOL:g}); {s2:.2f} s vs {s1:.2f} s (the two-rank time "
+                  f"includes spawning the second rank; gloo stages CUDA tensors through the host, so this time says "
+                  f"nothing about NCCL) on {card}")
+            check(len(logs1) == len(logs2) == DP_EPOCHS, f"5j: {model} epochs {len(logs2)}")
+            check(loss_gap <= DP_LOSS_TOL, f"5j: the {model}'s data-parallel losses disagree with one process")
+            check(gap <= DP_PARAM_TOL, f"5j: the {model}'s data-parallel state disagrees with one process ({worst})")
+        # the same in float32, as users train, beside the float32 fit's own floor: its state under a 1e-7 input change
+        deterministic, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
+        f32 = {tag: dp_fit("cnn", CNN_PARAMS, dev, tmp / "f32" / tag, Xs, y, Xv, yv, names, **dp)
+               for tag, Xs, dp in (("one", X, {}), ("two", X, two_ranks), ("moved", X * np.float32(1 + 1e-7), {}))}
+        torch.backends.cudnn.deterministic = deterministic
+        loss32, gap32, worst32 = fit_gap(f32["one"][0], f32["two"][0], f32["one"][1], f32["two"][1])
+        _, floor32, floor_worst = fit_gap(f32["one"][0], f32["moved"][0], f32["one"][1], f32["moved"][1])
+        print(f"[5j] cnn in float32, cuDNN deterministic: data_parallel=2 (gloo, one card) vs one process: losses max rel "
+              f"{loss32:.3e}, state max|d|/max {gap32:.3e} ({worst32}); the one-process fit against itself with its "
+              f"input x (1 + 1e-7): {floor32:.3e} ({floor_worst}); not gated (the float64 fits above are) on {card}")
+        print(f"[5j] all-reduce bytes a step (float32 gradients, one DDP bucket each): flagship cnn {counts['cnn']} "
+              f"parameters, {4 * counts['cnn'] / 1e6:.3f} MB; ds_cnn at JAX's defaults {counts['ds_cnn']} parameters, "
+              f"{4 * counts['ds_cnn'] / 1e6:.3f} MB (the ds_cnn adds 5 BatchNorm all-reduces a forward, 3 floats a "
+              f"channel)")
+
+        # world size 1 through NCCL: the DDP wrapper against the plain step
+        mesh_out = pm.run_ranks(mesh_step_check, ((32, 512), card), [dev], backend="nccl")
+        mesh_launches = sum(r["launches"] for r in mesh_out.values())
+        for b, r in mesh_out.items():
+            print(f"[5j] make_sharded_train_step on a 1-card NCCL mesh, waveform -> mel -> flagship cnn "
+                  f"({r['params']} parameters), B={b} x 5 s: loss vs the plain step rel {r['loss_gap']:.3e} (tol "
+                  f"{MESH_LOSS_TOL:g}), parameters after the step max|d|/max {r['param_gap']:.3e} (tol "
+                  f"{MESH_PARAM_TOL:g}); mel_rfft launches {r['launches']}; step {r['ms_mesh']:.3f} ms vs plain "
+                  f"{r['ms_plain']:.3f} ms: DDP overhead {r['ms_mesh'] - r['ms_plain']:.3f} ms "
+                  f"({100 * (r['ms_mesh'] / r['ms_plain'] - 1):.1f} %) on {card}")
+            check(r["loss_gap"] <= MESH_LOSS_TOL and r["param_gap"] <= MESH_PARAM_TOL,
+                  f"5j: the 1-card mesh step disagrees with the plain step at B={b}")
+            check(r["launches"] == 1, f"5j: the mesh step launched mel_rfft {r['launches']} times")
+
+        # split paths on one card: 2 parts each
+        clips = synth_clips(rng, 8)
+        mel_kernel.counter.reset()
+        f_split = get_extractor("audio_mel_spec")(duration=5.0, devices=[dev, dev])._device_batch(clips, None)
+        split_launches = mel_kernel.counter.launches
+        mel_kernel.counter.reset()
+        f_one = get_extractor("audio_mel_spec")(duration=5.0, device=dev)._device_batch(clips, None)
+        one_launches = mel_kernel.counter.launches
+        gold = max(float(np.abs(f_split[i] - golden.mel_spec_feature(clips[i])).max()) for i in (0, 4, 7))
+        print(f"[5j] extraction of 8 clips split in 2 parts on the card: bit for bit the one-call features "
+              f"{bool(np.array_equal(f_split, f_one))}, 3 rows vs golden {gold:.3e} (tol {FEATURE_TOL:g}); mel_rfft "
+              f"launches {split_launches} split, {one_launches} in one call")
+        check(np.array_equal(f_split, f_one), "5j: the split extraction differs from the one call")
+        check(gold <= FEATURE_TOL, "5j: the split extraction misses the golden gate")
+        check(split_launches == 2 and one_launches == 1, "5j: not one mel_rfft launch a part")
+
+        X_fit, y_fit, _, _ = fsc22_classical(np.random.default_rng(22))
+        fold_of = search_cv.stratified_fold_ids(y_fit.astype(np.int64), 5, 42)
+        cell = {"n_components": 50, "C": 1.0, "kernel": "rbf"}
+        dec, cv_s = {}, {}
+        for tag, devs in (("one", 1), ("split", [dev, dev])):
+            eng = search_cv._CVEngine(X_fit, y_fit, fold_of, N_CLASSES, device=dev, devices=devs)
+            t0 = time.perf_counter()
+            dec[tag] = eng.svm_decisions(cell, eng._pca_parts(cell))
+            cv_s[tag], parts = time.perf_counter() - t0, [len(p.folds) for p in eng.parts]
+        cv_gap = float(np.abs(dec["split"] - dec["one"]).max() / np.abs(dec["one"]).max())
+        print(f"[5j] pca_svm cell {cell} on {len(X_fit)} rows, 5 folds split in parts of {parts} on the card vs "
+              f"unsplit: decisions max|d|/max {cv_gap:.3e} (tol {SPLIT_CV_TOL:g}); {cv_s['split']:.2f} s vs "
+              f"{cv_s['one']:.2f} s on {card}")
+        check(cv_gap <= SPLIT_CV_TOL, "5j: the split CV cell disagrees with the unsplit one")
+
+        Xg = (X[..., None] - X.mean()) / X.std()
+        arch = {"type": "cnn", **CNN_PARAMS, "dropout": 0.0, "n_classes": N_CLASSES, "input_shape": list(Xg.shape[1:])}
+        states = tune_batched.init_states(arch, BATCHED_K, 42)
+        lrs, rates, seeds = [3e-4, 1e-3, 3e-3, 9e-3], [0.3] * BATCHED_K, [43 + i for i in range(BATCHED_K)]
+        idx = np.random.default_rng(42).permutation(len(Xg))[: (len(Xg) // 32) * 32].reshape(-1, 32)
+        Xg_d, yg_d = torch.from_numpy(Xg).to(dev, torch.float64), torch.from_numpy(y.astype(np.int64)).to(dev)
+        whole = tune_batched.TrialGroup(arch, states, lrs, rates, dev, torch.float64, noise_seeds=seeds)
+        halves = [tune_batched.TrialGroup(arch, states[m], lrs[m], rates[m], dev, torch.float64, noise_seeds=seeds[m])
+                  for m in (slice(0, 2), slice(2, 4))]
+        loss_whole = whole.epoch(Xg_d, yg_d, idx).cpu()
+        loss_halves = torch.cat([h.epoch(Xg_d, yg_d, idx) for h in halves]).cpu()
+        trial_loss_gap = float(((loss_halves - loss_whole).abs() / loss_whole.abs()).max())
+        trial_gap = max(float((torch.cat([h.params[k].detach() for h in halves]) - p.detach()).abs().max())
+                        / max(float(p.detach().abs().max()), 1e-30) for k, p in whole.params.items())
+        msgs: list[str] = []
+        handler = logging.Handler(logging.INFO)
+        handler.emit = lambda record: msgs.append(record.getMessage())
+        port_log = logging.getLogger("audio_edge_ml_pipeline_torch")
+        port_log.addHandler(handler)
+        level, _ = port_log.level, port_log.setLevel(logging.INFO)
+        try:
+            draws = [{**CNN_PARAMS, "batch_size": 32, "learning_rate": lr, "dropout": 0.3} for lr in lrs]
+            res = tune_batched.train_trial_group("cnn", draws, X, y, Xv, yv, N_CLASSES, 1, seed=42, device=dev,
+                                                 devices=[dev, dev])
+        finally:
+            port_log.removeHandler(handler)
+            port_log.setLevel(level)
+        print(f"[5j] {BATCHED_K}-trial cnn group ({CNN_PARAMS}, dropout 0.3, masks from each trial's generator) "
+              f"split in 2 parts on the card vs unsplit, one epoch in float64: losses max rel {trial_loss_gap:.3e} "
+              f"(tol {GROUP_LOSS_TOL:g}), parameters max|d|/max {trial_gap:.3e} (tol {GROUP_PARAM_TOL:g}); "
+              f"train_trial_group split: {[round(r['val_accuracy'], 4) for r in res]}")
+        check(trial_loss_gap <= GROUP_LOSS_TOL and trial_gap <= GROUP_PARAM_TOL,
+              "5j: the split trial group disagrees with the unsplit one")
+        check(any("sharded over 2 devices" in m for m in msgs) and len(res) == BATCHED_K,
+              "5j: train_trial_group did not split its trials")
+
+        n_cards = torch.cuda.device_count()
+        if n_cards < 2:
+            print(f"[5j] NCCL across cards (the train CLI with data_parallel, the tune CLI on "
+                  f"fsc22-27-classes-tuning.yaml, the extraction over the cards, dryrun_multichip) needs >= 2 "
+                  f"cards; this machine has {n_cards}")
+        else:
+            multi_card(min(4, n_cards), n_cards, dev, card, tmp, X, y, Xv, yv, names)
+    print(f"[5j] phase time {time.perf_counter() - t_phase:.1f} s")
+    return {"mel_launches": mesh_launches + split_launches}
+
+
+def multi_card(n: int, n_cards: int, dev, card: str, tmp: Path, X, y, Xv, yv, names: list[str]) -> None:
+    """5j on n >= 2 cards through NCCL (``phase_5j``)."""
+    import logging
+    import os
+
+    from audio_edge_ml_pipeline_torch.entry import dryrun_multichip
+    from audio_edge_ml_pipeline_torch.features import get as get_extractor
+    from audio_edge_ml_pipeline_torch.features import pipeline
+    from audio_edge_ml_pipeline_torch.features.base import FeatureSet
+    from audio_edge_ml_pipeline_torch.models.deep import MODEL_FILENAME, load_model_bundle
+    from audio_edge_ml_pipeline_torch.ops import mel_kernel
+    from audio_edge_ml_pipeline_torch.train import train, tune
+
+    for tag, (Xs, ys) in (("mel_train", (X, y)), ("mel_val", (Xv, yv))):
+        pipeline.FeaturePipeline.save(FeatureSet(features=Xs, feature_type="audio_mel_spec", modality="audio",
+                                                 metadata=[{} for _ in ys], labels=ys, label_names=names), tmp / tag)
+    X_ct, y_ct = fsc22_classical_train(np.random.default_rng(22))
+    pipeline.FeaturePipeline.save(FeatureSet(features=X_ct, feature_type="classical", modality="audio",
+                                             metadata=[{} for _ in y_ct], labels=y_ct, label_names=names),
+                                  tmp / "classical_train")
+    msgs: list[str] = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda record: msgs.append(record.getMessage())
+    port_log = logging.getLogger("audio_edge_ml_pipeline_torch")
+    port_log.addHandler(handler)
+    level, _ = port_log.level, port_log.setLevel(logging.INFO)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        args = ["--features", str(tmp / "mel_train"), "--model", "cnn", "--experiment", "dp"] + sum(
+            (["--param", f"{k}={json.dumps(v, separators=(',', ':'))}"]
+             for k, v in {**CNN_PARAMS, "epochs": DP_EPOCHS, "dropout": 0.0, "batch_size": DP_BATCH}.items()), [])
+        gaps, secs = {}, {}
+        for dtype in ("float64", "float32"):
+            for tag, extra in (("one", []), ("dp", ["--param", f"data_parallel={n}"])):
+                t0 = time.perf_counter()
+                train.main([*args, "--param", f"dtype={dtype}", "--output", str(tmp / f"cli_{dtype}_{tag}"), *extra])
+                secs[dtype, tag] = time.perf_counter() - t0
+            _, flat1, _, _ = load_model_bundle(tmp / f"cli_{dtype}_one" / "cnn" / MODEL_FILENAME)
+            _, flatn, _, _ = load_model_bundle(tmp / f"cli_{dtype}_dp" / "cnn" / MODEL_FILENAME)
+            gaps[dtype] = max((float(np.abs(flatn[k] - flat1[k]).max() / max(np.abs(flat1[k]).max(), 1e-30)), k)
+                              for k in flat1)
+        print(f"[5j] train CLI --param data_parallel={n} on {n} cards (NCCL) vs 1 card: bundle max|d|/max in float64 "
+              f"{gaps['float64'][0]:.3e} ({gaps['float64'][1]}; tol {DP_PARAM_TOL:g}), in float32 {gaps['float32'][0]:.3e} "
+              f"({gaps['float32'][1]}; not gated, beside the float32 floor above); float32 {secs['float32', 'dp']:.2f} s "
+              f"vs {secs['float32', 'one']:.2f} s on {n} x {card}")
+        check(any(f"data-parallel training over {n} devices" in m for m in msgs), "5j: no data-parallel log line")
+        check(gaps["float64"][0] <= DP_PARAM_TOL, "5j: the data-parallel CLI run disagrees with the 1-card run")
+
+        cfg = tuning_27_copy(tmp / "mel_train", tmp / "mel_val", tmp / "classical_train", tmp / "tune27")
+        t0 = time.perf_counter()
+        tune.main(["--config", str(cfg)])
+        tune_s = time.perf_counter() - t0
+        shortlist = json.loads((tmp / "tune27" / "tuned" / "shortlist.json").read_text())
+        print(f"[5j] tune CLI on fsc22-27-classes-tuning.yaml (cut) across {n} cards: {tune_s:.2f} s; shortlist "
+              f"{[(c['model'], round(c['val_f1_macro'], 4)) for c in shortlist['candidates']]}; "
+              f"{[m for m in msgs if 'across' in m or 'split over' in m or 'sharded over' in m]}")
+        check(sorted(c["model"] for c in shortlist["candidates"]) == ["cnn", "pca_svm"], "5j: the 27-class shortlist")
+        check(any("across 4 devices" in m for m in msgs) and any(f"folds split over {n} devices" in m for m in msgs),
+              "5j: the CV folds did not split over the cards")
+    finally:
+        os.chdir(cwd)
+        port_log.removeHandler(handler)
+        port_log.setLevel(level)
+    clips = synth_clips(np.random.default_rng(3), 4 * n)
+    mel_kernel.counter.reset()
+    ex = get_extractor("audio_mel_spec")(duration=5.0)
+    f_cards = ex._device_batch(clips, None)
+    launches = mel_kernel.counter.launches
+    f_one = get_extractor("audio_mel_spec")(duration=5.0, device=dev)._device_batch(clips, None)
+    print(f"[5j] extraction over {len(ex.devices)} cards: {launches} mel_rfft launches, bit for bit the 1-card "
+          f"features {bool(np.array_equal(f_cards, f_one))}")
+    check(len(ex.devices) == n_cards and launches == n_cards and np.array_equal(f_cards, f_one),
+          "5j: the extraction over the cards")
+    t0 = time.perf_counter()
+    line = dryrun_multichip(n)
+    print(f"[5j] {line} ({time.perf_counter() - t0:.2f} s on {n} x {card})")
+
+
 def main() -> int:
     import torch
 
@@ -3270,6 +3645,7 @@ def main() -> int:
     from audio_edge_ml_pipeline_torch.serve.edge_simulator import EdgeDeviceSimulator
     from audio_edge_ml_pipeline_torch.train import train
     from audio_edge_ml_pipeline_torch.utils import tracking
+    from audio_edge_ml_pipeline_torch.utils.dropout import GlobalBatchNoise
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -3290,6 +3666,10 @@ def main() -> int:
     for kname in kernels:
         ptxas = ptxas_report(_build.library_path(kname).with_suffix(".log").read_text())
         print(f"[2] {kname} ptxas: {' | '.join(ptxas)}")
+    if sys.argv[1:] == ["--only", "5j"]:   # the parallel phase alone, e.g. its NCCL part on a machine of several cards
+        phase_5j(dev, card)
+        print(f"[7] the run took {time.perf_counter() - t_all:.1f} s")
+        return 0
 
     # 3. kernel against its plain version, feature against the float64 golden copy
     rng = np.random.default_rng(0)
@@ -3894,6 +4274,9 @@ def main() -> int:
     # 5g. the ds_cnn, the transformer, and the KD recipe (teacher, then student) through the train CLI on the card
     t5g = phase_5g(dev, mel108, mfcc108, t5e)
 
+    # 5j. the parallel layer: data-parallel fits, the mesh step, the splits (NCCL across cards where there are >= 2)
+    t5j = phase_5j(dev, card)
+
     # 6. timing at B=512 five-second clips
     batch = 512
     waves = torch.from_numpy(np.tile(synth_clips(rng, 8), (batch // 8, 1))).to(dev)
@@ -3974,6 +4357,8 @@ def main() -> int:
     print(f"[6] waveform -> mel -> CNN at B={batch}: {ms_e2e:.3f} ms, {batch / ms_e2e * 1e3:.0f} clips/s on {card}")
     print(f"[6] stages alone at B={batch}: dB + min-max epilogue {ms_epilogue:.3f} ms, CNN forward {ms_cnn:.3f} ms on {card}")
     step_ms = {}
+    # each step as fit calls it: its dropout masks from the fit's generator
+    fit_noise = GlobalBatchNoise(torch.Generator(dev).manual_seed(0))
     for b in (32, 512):
         tr = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, batch_size=b, device=dev)
         Xb = np.random.default_rng(b).random((b, N_MELS, 1 + CLIP // HOP, 1), dtype=np.float32)
@@ -3983,7 +4368,7 @@ def main() -> int:
         X_d = torch.from_numpy(Xb).to(dev)
         y_d = torch.from_numpy(np.arange(b) % N_CLASSES).to(dev)
         idx, w = torch.arange(b, device=dev), torch.ones(b, device=dev)
-        step_ms[b] = cuda_ms(lambda: tr.train_step(opt, X_d, y_d, idx, w), iters=20)
+        step_ms[b] = cuda_ms(lambda: tr.train_step(opt, X_d, y_d, idx, w, noise=fit_noise), iters=20)
         print(f"[6] train step (forward + backward + Adam, dropout 0.3) of the flagship CNN at B={b}: "
               f"{step_ms[b]:.3f} ms, {b / step_ms[b] * 1e3:.0f} clips/s on {card}")
     for model, params, shape in (("mlp", {"hidden_units": [256, 128]}, (302,)),
@@ -3997,7 +4382,8 @@ def main() -> int:
             X_d = torch.from_numpy(Xb).to(dev)
             y_d = torch.from_numpy(np.arange(b) % N_CLASSES).to(dev)
             idx, w = torch.arange(b, device=dev), torch.ones(b, device=dev)
-            step_ms[f"{model} B={b}"] = cuda_ms(lambda: tr.train_step(opt, X_d, y_d, idx, w), iters=20)
+            step_ms[f"{model} B={b}"] = cuda_ms(lambda: tr.train_step(opt, X_d, y_d, idx, w, noise=fit_noise),
+                                                 iters=20)
             print(f"[6] train step (forward + backward + Adam, dropout 0.3) of the {model} {params} on {shape} "
                   f"inputs at B={b}: {step_ms[f'{model} B={b}']:.3f} ms, "
                   f"{b / step_ms[f'{model} B={b}'] * 1e3:.0f} clips/s on {card}")
@@ -4181,7 +4567,7 @@ def main() -> int:
         "replaces": "audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:119",
         "launches": (extract_launches + shipped_f32 + t4e["mel_launches"] + t4f["mel_launches"] + t4g["mel_launches"]
                      + serve_launches + trained_launches + t5e["mel_launches"] + t5f["mel_launches"]
-                     + t5g["mel_launches"] + t5h["mel_launches"]),
+                     + t5g["mel_launches"] + t5h["mel_launches"] + t5j["mel_launches"]),
         "max_abs_err": worst_abs,
         "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "plain_products": "float64", "dense_ms": ms_dense,

@@ -101,7 +101,7 @@ def group_shift(dtype: torch.dtype, rel: float) -> list[float]:
     idx = np.random.default_rng(42).permutation(n)[: (n // 32) * 32].reshape(-1, 32)
     groups = []
     for x in (X, X * (1 + rel * rng.standard_normal(X.shape))):
-        g = tb.TrialGroup(arch, states, [3e-4, 1e-3, 3e-3, 9e-3], [0.0] * 4, "cpu", dtype)
+        g = tb.TrialGroup(arch, states, [3e-4, 1e-3, 3e-3, 9e-3], [0.0] * 4, "cpu", dtype, noise_seeds=range(4))
         g.epoch(torch.from_numpy(x).to(dtype), torch.from_numpy(y), idx)
         groups.append(g)
     a, b = groups

@@ -134,13 +134,15 @@ def test_initialize_is_seeded_and_saves_flax_layout(tmp_path):
     assert json.loads(json.dumps(arch)) == arch
 
 
-def test_unported_trainer_names_raise(tmp_path):
-    """Every deep family of the JAX package loads in the port now; multi-card
-    data parallelism is what still raises."""
+def test_unported_trainer_names_raise(tmp_path, monkeypatch):
+    """Every deep family of the JAX package loads in the port now, and
+    data parallelism is ported: on a card it raises only when fewer cards
+    than ``data_parallel`` are visible (no CPU fallback)."""
     path = tmp_path / "transformer.npz"
     tr = tdeep.TransformerTrainer(num_heads=2, ff_dim=8, n_blocks=1, device="cpu")
     tr.initialize((5, 6), 3, torch.Generator().manual_seed(0))
     tr.save(path)
     assert isinstance(tdeep.load_any_model(path, device="cpu"), tdeep.TransformerTrainer)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdeep.CNNTrainer(device="cpu", data_parallel=2).fit(None, None, None, None, [], "r", tmp_path, None)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 CUDA cards but 1 are visible"):
+        tdeep.CNNTrainer(device="cuda:0", data_parallel=2).fit(None, None, None, None, [], "r", tmp_path, None)

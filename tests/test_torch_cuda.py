@@ -340,7 +340,7 @@ def test_batched_trial_group_on_the_card_matches_the_cpu(cuda_device, name):
     lrs = [1e-3, 3e-3, 1e-2]
     groups, losses = {}, {}
     for dev in ("cpu", cuda_device):
-        g = tb.TrialGroup(arch, states, lrs, [0.0] * 3, dev, torch.float64)
+        g = tb.TrialGroup(arch, states, lrs, [0.0] * 3, dev, torch.float64, noise_seeds=range(3))
         losses[str(dev)] = g.epoch(torch.from_numpy(X).to(dev), torch.from_numpy(y).to(dev), idx_mat).cpu()
         groups[str(dev)] = g
     card, cpu = groups[str(cuda_device)], groups["cpu"]
@@ -596,3 +596,144 @@ def test_tabular_extractors_on_the_card_match_the_cpu(cuda_device, name, scaler)
     scale = np.abs(fs_cpu.features).max(axis=0)
     gap = np.abs(fs_card.features - fs_cpu.features) / np.where(scale > 0, scale, 1.0)
     assert fs_card.features.shape == fs_cpu.features.shape and float(gap.max()) <= 1e-6
+
+
+# -- the parallel layer (NCCL tests need 2 cards; gloo shares one) ---------------
+
+
+@pytest.fixture()
+def two_cards(cuda_device):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards: NCCL refuses two ranks on one card")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def _svm_problem(device, seed=0):
+    from audio_edge_ml_pipeline_torch.models import classical_core as cc
+
+    r = np.random.default_rng(seed)
+    X = np.concatenate([r.standard_normal((30, 6)) + k for k in range(3)]).astype(np.float32)
+    y = np.repeat(np.arange(3), 30)
+    gamma, _, idx, ypm, u = cc.svm_problem(X, y, 3, 1.0)
+    args = [torch.from_numpy(a).to(device) for a in (X, idx.astype(np.int64), ypm, u)]
+    return cc, args, gamma
+
+
+@pytest.mark.cuda
+def test_captured_solve_on_a_card_that_is_not_current_equals_the_current_card(two_cards):
+    cc, args0, gamma = _svm_problem(two_cards[0])
+    torch.cuda.set_device(two_cards[0])
+    ref = [t.cpu() for t in cc.svm_fit(*args0, gamma, "rbf", 100, capture=True)]
+    args1 = [a.to(two_cards[1]) for a in args0]
+    out = cc.svm_fit(*args1, gamma, "rbf", 100, capture=True)
+    torch.cuda.synchronize(two_cards[1])
+    assert all(t.device == two_cards[1] for t in out)
+    for a, b in zip(out, ref):
+        assert float((a.cpu() - b).abs().max()) <= 1e-6 * max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+def test_captured_solve_uses_the_streams_of_its_tensors_card(cuda_device, monkeypatch):
+    """One card: the current device pinned, every stream the capture makes
+    or waits on is the tensors' card's."""
+    cc, args, gamma = _svm_problem(torch.device("cuda", 0))
+    torch.cuda.set_device(0)
+    made, captures, real, real_graph = [], [], torch.cuda.Stream, torch.cuda.graph
+
+    def stream(*a, **kw):
+        s = real(*a, **kw)
+        made.append(s.device)
+        return s
+
+    def graph(g, *a, stream=None, **kw):
+        captures.append(None if stream is None else stream.device)
+        return real_graph(g, *a, stream=stream, **kw)
+
+    monkeypatch.setattr(torch.cuda, "Stream", stream)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    eager = [t.cpu() for t in cc.svm_fit(*args, gamma, "rbf", 50, capture=False)]
+    captured = [t.cpu() for t in cc.svm_fit(*args, gamma, "rbf", 50, capture=True)]
+    assert made and all(d == args[0].device for d in made)
+    assert captures == [args[0].device]   # captured on a stream of the tensors' card, not torch's default one
+    assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_sharing_a_card_fit_as_one_process(cuda_device, tmp_path):
+    from audio_edge_ml_pipeline_torch.models import get_model
+
+    r = np.random.default_rng(1)
+    y = (np.arange(48) % 3).astype(np.int32)
+    X = r.uniform(0, 0.4, (48, 12, 16)).astype(np.float32)
+    for c in range(3):
+        X[y == c, c * 3 : c * 3 + 3] += 0.5
+    kw = dict(filters=[4, 8], epochs=2, batch_size=8, seed=1, dropout=0.0, device="cuda:0")
+    one = get_model("ds_cnn")(**kw)
+    one.fit(X[:40], y[:40], X[40:], y[40:], list("abc"), "one", tmp_path / "one", None)
+    two = get_model("ds_cnn")(**kw, data_parallel=2, data_parallel_devices=["cuda:0", "cuda:0"],
+                              data_parallel_backend="gloo")
+    two.fit(X[:40], y[:40], X[40:], y[40:], list("abc"), "two", tmp_path / "two", None)
+    s1, s2 = one._net.state_dict(), two._net.state_dict()
+    for k in s1:
+        assert float((s2[k] - s1[k]).abs().max()) <= 1e-4 * max(float(s1[k].abs().max()), 1e-30), k
+
+
+@pytest.mark.cuda
+def test_extraction_split_on_one_card_equals_one_call(cuda_device):
+    from audio_edge_ml_pipeline_torch.features import get
+
+    x = (0.3 * np.random.default_rng(2).standard_normal((5, 16000))).astype(np.float32)
+    before = mel_kernel.counter.launches
+    split = get("audio_mel_spec")(duration=1.0, devices=["cuda:0", "cuda:0"])._device_batch(x, None)
+    assert mel_kernel.counter.launches == before + 2   # one launch a part
+    np.testing.assert_array_equal(split, get("audio_mel_spec")(duration=1.0, device="cuda:0")._device_batch(x, None))
+
+
+@pytest.mark.cuda
+def test_data_parallel_fit_over_two_cards_equals_one_card(two_cards, tmp_path):
+    from audio_edge_ml_pipeline_torch.models import get_model
+
+    r = np.random.default_rng(4)
+    y = (np.arange(48) % 3).astype(np.int32)
+    X = r.uniform(0, 0.4, (48, 12, 16)).astype(np.float32)
+    kw = dict(filters=[4, 8], first_stride=2, epochs=2, batch_size=8, seed=1, dropout=0.0, device="cuda:0")
+    one = get_model("cnn")(**kw)
+    one.fit(X[:40], y[:40], X[40:], y[40:], list("abc"), "one", tmp_path / "one", None)
+    two = get_model("cnn")(**kw, data_parallel=2)
+    two.fit(X[:40], y[:40], X[40:], y[40:], list("abc"), "two", tmp_path / "two", None)
+    s1, s2 = one._net.state_dict(), two._net.state_dict()
+    for k in s1:
+        assert float((s2[k] - s1[k]).abs().max()) <= 1e-4 * max(float(s1[k].abs().max()), 1e-30), k
+
+
+@pytest.mark.cuda
+def test_splits_over_two_cards_equal_one_card(two_cards):
+    from audio_edge_ml_pipeline_torch.features import get
+    from audio_edge_ml_pipeline_torch.train import search_cv, tune_batched
+
+    r = np.random.default_rng(0)
+    Xc = np.concatenate([r.standard_normal((24, 8)) + k for k in range(4)]).astype(np.float32)
+    yc = np.repeat(np.arange(4), 24).astype(np.int32)
+    fold_of = search_cv.stratified_fold_ids(yc, 4, seed=0)
+    one = search_cv._CVEngine(Xc, yc, fold_of, 4, device=two_cards[0])
+    split = search_cv._CVEngine(Xc, yc, fold_of, 4, device=two_cards[0], devices=2)
+    assert [p.device for p in split.parts] == two_cards
+    d1, d2 = one.svm_decisions({"C": 1.0}), split.svm_decisions({"C": 1.0})
+    assert float(np.abs(d2 - d1).max() / np.abs(d1).max()) <= 1e-4
+    Xd = r.standard_normal((64, 16, 8)).astype(np.float32)
+    yd = (np.arange(64) % 4).astype(np.int32)
+    draws = [{"filters": [4], "batch_size": 16, "learning_rate": 1e-3 * (i + 1), "dropout": 0.1} for i in range(4)]
+    whole = tune_batched.train_trial_group("cnn", draws, Xd, yd, Xd[:16], yd[:16], 4, 1, seed=0, device=two_cards[0])
+    parts = tune_batched.train_trial_group("cnn", draws, Xd, yd, Xd[:16], yd[:16], 4, 1, seed=0, device=two_cards[0],
+                                           devices=2)
+    assert [t["history"] for t in parts] == [t["history"] for t in whole]
+    x = (0.3 * r.standard_normal((6, 16000))).astype(np.float32)
+    np.testing.assert_array_equal(get("audio_mel_spec")(duration=1.0)._device_batch(x, None),
+                                  get("audio_mel_spec")(duration=1.0, device="cuda:0")._device_batch(x, None))
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_two_cards(two_cards):
+    from audio_edge_ml_pipeline_torch.entry import dryrun_multichip
+
+    assert dryrun_multichip(2).startswith("dryrun_multichip OK: mesh=(1 data x 2 model) on cuda (nccl)")

@@ -108,10 +108,10 @@ def test_lda_cv_matches_jax(engines, per_fold):
     if per_fold:
         Z = np.asarray(je.k.pca_cv(8)(je.X, je._w_dev()))
         theirs = np.asarray(je.k.lda_cv(False)(Z, je.onehot, je._w_dev()))
-        ours = cc._np(cc.lda_cv(torch.from_numpy(Z.copy()), te._onehot_dev, te._W_dev))
+        ours = cc._np(cc.lda_cv(torch.from_numpy(Z.copy()), te.parts[0].onehot, te.parts[0].W))
     else:
         theirs = np.asarray(je.k.lda_cv(True)(je.X, je.onehot, je._w_dev()))
-        ours = cc._np(cc.lda_cv(te._X_dev, te._onehot_dev, te._W_dev))
+        ours = cc._np(cc.lda_cv(te.parts[0].X, te.parts[0].onehot, te.parts[0].W))
     assert rel(ours, theirs) <= 1e-4
 
 
@@ -206,12 +206,31 @@ def test_grid_search_picks_jax_cell_and_its_refit_loads_in_jax(data, tmp_path):
         sc.grid_search_cv_device("decision_tree", {}, X, y, device=CPU)
 
 
-def test_sharding_over_several_cards_raises(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-card sharding"):
-        sc.check_single_card("fold-batched grid CV", 2, torch.device("cuda", 0))
-    sc.check_single_card("fold-batched grid CV", 2, torch.device("cpu"))   # the CPU is one device: no sharding to refuse
-    sc.check_single_card("fold-batched grid CV", 1, torch.device("cuda", 0))
+@pytest.mark.parametrize("model,cell", [("svm", {"C": 1.0, "iters": 200}), ("pca_svm", {"n_components": 8}),
+                                        ("pca_lda", {"n_components": 8}), ("knn", {"n_neighbors": 3})])
+def test_folds_split_over_devices_equal_the_unsplit_cell(engines, data, model, cell):
+    """The 4 folds split over 3 devices (parts of 2, 1 and 1 folds): each
+    part's program on its device gives the unsplit cell's decisions (within
+    1e-4 of their largest, float32 sums in batches of another size) and its
+    fold scores."""
+    X, y = data
+    _, te, fold_of = engines
+    split = sc._CVEngine(X, y.astype(np.int32), fold_of, 6, device=CPU, devices=[CPU] * 3)
+    assert [len(p.folds) for p in split.parts] == [2, 1, 1]
+    if model.endswith("svm"):
+        Zs, Zt = (e.pca_features(cell) if model.startswith("pca_") else None for e in (split, te))
+        assert rel(split.svm_decisions(cell, Zs), te.svm_decisions(cell, Zt)) <= 1e-4
+    assert split.eval_cell(model, cell, "accuracy") == pytest.approx(te.eval_cell(model, cell, "accuracy"), abs=1e-12)
+
+
+def test_grid_search_splits_folds_over_the_devices_it_is_given(data, caplog):
+    X, y = data
+    caplog.set_level("INFO")
+    one = sc.grid_search_cv_device("lda", {}, X, y, cv=4, device=CPU)
+    split = sc.grid_search_cv_device("lda", {}, X, y, cv=4, device=CPU, devices=[CPU] * 2)
+    assert "4 folds split over 2 devices" in caplog.text
+    assert split[1] == one[1] and split[2] == pytest.approx(one[2], abs=1e-12)
+    assert len(sc._CVEngine(X, y.astype(np.int32), sc.stratified_fold_ids(y, 4), 6, device=CPU, devices=4).parts) == 1
 
 
 def test_no_card_and_no_device_raises(data, monkeypatch):

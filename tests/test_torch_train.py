@@ -214,11 +214,10 @@ def test_best_weights_are_restored_not_aliased(tmp_path):
 
 
 def test_unported_training_options_raise(tmp_path):
-    """data_parallel > 1 still raises; checkpoint_dir trains and writes its
-    train state (tests/test_torch_checkpoint.py holds it to JAX's resume)."""
+    """checkpoint_dir trains and writes its train state
+    (tests/test_torch_checkpoint.py holds it to JAX's resume); data_parallel
+    is ported (tests/test_torch_parallel.py)."""
     X, y = _dataset(0)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tdeep.CNNTrainer(device="cpu", data_parallel=2).fit(X, y, X, y, list("abcd"), "r", tmp_path, None)
     tdeep.CNNTrainer(device="cpu", epochs=1, checkpoint_dir=str(tmp_path / "ckpt"), **ARCH).fit(
         X, y, X, y, list("abcd"), "r", tmp_path / "run", None)
     assert (tmp_path / "ckpt" / "train_state.npz").exists()

@@ -64,6 +64,29 @@ def test_single_run_writes_bundle_info_and_test_evaluation(workdir, capsys):
     assert (workdir / "mlruns" / rec.experiment_id / rec.run_id / "artifacts" / "model.flax.npz").exists()
 
 
+def test_data_parallel_run_logs_jax_line_and_writes_one_bundle_jax_reads(workdir, capsys):
+    """``--param data_parallel=2 --device cpu``: two gloo processes train the
+    run; one bundle and one tracking run come out (rank 0's), and the JAX
+    package loads the bundle with the port's logits (as
+    tests/test_train_cli.py's data-parallel run)."""
+    ttrain.main(["--features", "feats_train", "--model", "cnn", "--output", "models", "--experiment", "port-dp",
+                 "--device", "cpu", *CNN, "--param", "data_parallel=2"])
+    assert "[cnn] data-parallel training over 2 devices" in capsys.readouterr().err
+    run_dir = workdir / "models" / "cnn"
+    assert sorted(p.name for p in run_dir.glob("*.npz")) == ["model.flax.npz"]
+    info = json.loads((run_dir / "model_info.json").read_text())
+    assert info["model_name"] == "cnn" and np.isfinite(info["val_accuracy"])
+    jtracking.set_tracking_uri(str(workdir / "mlruns"))
+    assert len(jtracking.search_runs("port-dp")) == 1
+    from audio_edge_ml_pipeline_torch.models.deep import load_any_model
+
+    X = np.random.default_rng(3).uniform(0, 1, (6, 16, 32)).astype(np.float32)
+    ours = load_any_model(run_dir / "model.flax.npz", device="cpu")
+    theirs = jdeep.load_any_model(run_dir / "model.flax.npz")
+    np.testing.assert_allclose(np.asarray(theirs._batched_logits(theirs._prepare_input(X))),
+                               ours._batched_logits(ours._prepare_input(X)), rtol=0, atol=1e-5)
+
+
 def test_yaml_sweep_with_cv_writes_shortlist(workdir, capsys):
     cfg = workdir / "training.yaml"
     cfg.write_text(

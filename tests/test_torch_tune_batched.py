@@ -126,7 +126,7 @@ def test_group_epoch_matches_jax_vm_epoch(name):
     each package's roundoff into steps of its own."""
     arch, X, y, idx_mat = _inputs(name)
     before, after, jax_losses = _jax_epoch(arch, X, y, idx_mat)
-    group = ttb.TrialGroup(arch, _states(before), LRS, np.zeros(3), CPU)
+    group = ttb.TrialGroup(arch, _states(before), LRS, np.zeros(3), CPU, noise_seeds=range(3))
     losses = group.epoch(torch.from_numpy(X), torch.from_numpy(y.astype(np.int64)), idx_mat).numpy()
     np.testing.assert_allclose(losses, jax_losses, rtol=1e-5, atol=0)
     expected = _states(after)
@@ -152,12 +152,12 @@ def test_four_trial_group_equals_the_trials_alone_in_float64(name):
     states = ttb.init_states(arch, 4, seed=11)
     lrs = np.array([3e-4, 1e-3, 3e-3, 9e-3])
     Xt, yt = torch.from_numpy(X).double(), torch.from_numpy(y.astype(np.int64))
-    group = ttb.TrialGroup(arch, states, lrs, np.zeros(4), CPU, torch.float64)
+    group = ttb.TrialGroup(arch, states, lrs, np.zeros(4), CPU, torch.float64, noise_seeds=range(4))
     losses = group.epoch(Xt, yt, idx_mat).numpy()
     if name == "ds_cnn":
         assert any(k.endswith(".var") for k in group.params)
     for i in range(4):
-        alone = ttb.TrialGroup(arch, [states[i]], lrs[i : i + 1], np.zeros(1), CPU, torch.float64)
+        alone = ttb.TrialGroup(arch, [states[i]], lrs[i : i + 1], np.zeros(1), CPU, torch.float64, noise_seeds=[i])
         loss_alone = alone.epoch(Xt, yt, idx_mat).numpy()[0]
         assert abs(losses[i] - loss_alone) <= 1e-5 * abs(loss_alone)
         for key, p in alone.params.items():
@@ -173,10 +173,10 @@ def test_each_trial_of_a_group_equals_the_trial_alone(name):
     states = ttb.init_states(arch, 3, seed=7)
     rates = np.array([0.0, 0.0, 0.0], np.float32)
     Xt, yt = torch.from_numpy(X), torch.from_numpy(y.astype(np.int64))
-    group = ttb.TrialGroup(arch, states, LRS, rates, CPU)
+    group = ttb.TrialGroup(arch, states, LRS, rates, CPU, noise_seeds=range(3))
     group.epoch(Xt, yt, idx_mat)
     for i in range(3):
-        alone = ttb.TrialGroup(arch, [states[i]], LRS[i : i + 1], rates[i : i + 1], CPU)
+        alone = ttb.TrialGroup(arch, [states[i]], LRS[i : i + 1], rates[i : i + 1], CPU, noise_seeds=[i])
         alone.epoch(Xt, yt, idx_mat)
         for key, p in alone.params.items():
             t = p.detach()[0]
@@ -187,16 +187,16 @@ def test_each_trial_of_a_group_equals_the_trial_alone(name):
 
 def test_runtime_dropout_is_per_trial_and_off_in_eval():
     arch = ARCHS["mlp"]
-    group = ttb.TrialGroup(arch, ttb.init_states(arch, 3, seed=0), LRS, [0.0, 0.5, 0.9], CPU)
+    group = ttb.TrialGroup(arch, ttb.init_states(arch, 3, seed=0), LRS, [0.0, 0.5, 0.9], CPU, noise_seeds=range(3))
     x = torch.ones((64, 20))
     with torch.no_grad():
-        train = group.runner.logits(group.params, group.rates, x, train=True)
-        train2 = group.runner.logits(group.params, group.rates, x, train=True)
-        evals = group.runner.logits(group.params, group.rates, x, train=False)
+        train = group.runner.forward(group.params, group.rates, x, group._noise(x))[0]
+        train2 = group.runner.forward(group.params, group.rates, x, group._noise(x))[0]
+        evals = group.runner.logits(group.params, group.rates, x)
     assert torch.equal(train[0], evals[0])              # rate 0: no mask
     assert not torch.equal(train[1], train2[1])         # rate 0.5: a new mask each call
     assert not torch.equal(train[1], evals[1])
-    assert torch.equal(evals, group.runner.logits(group.params, group.rates, x, train=False))
+    assert torch.equal(evals, group.runner.logits(group.params, group.rates, x))
 
 
 def test_train_trial_group_applies_each_trials_lr(data):
@@ -247,17 +247,44 @@ def test_a_failed_group_marks_its_trials_fail(data, monkeypatch, caplog):
     assert "trial group failed: out of memory" in caplog.text
 
 
-def test_several_cards_raise_instead_of_one(data, monkeypatch):
+@pytest.mark.parametrize("name", ["cnn", "rnn"])
+def test_trials_split_over_devices_equal_the_unsplit_group(data, name, caplog):
+    """4 trials with dropout on, split over 3 devices (parts of 2, 1 and 1
+    trials): each trial's history and predictions equal the unsplit group's,
+    its weights and masks following the trial, not the part."""
     X, y, Xv, yv, K = data
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="multi-card sharding"):
-        ttb.train_trial_group("cnn", [{"filters": [8]}], X, y, Xv, yv, K, 1, devices=4,
-                              device=torch.device("cuda", 0))
+    if name == "rnn":
+        X, Xv = X[:, :6, :5], Xv[:, :6, :5]
+    knobs = {"cnn": {"filters": [8, 16], "first_stride": 2}, "rnn": {"units": 4}}[name]
+    draws = [{**knobs, "batch_size": 32, "learning_rate": lr, "dropout": 0.3}
+             for lr in (3e-3, 1e-3, 3e-4, 9e-3)]
+    caplog.set_level("INFO")
+    whole = ttb.train_trial_group(name, draws, X, y, Xv, yv, K, sweep_epochs=2, seed=1, device=CPU)
+    split = ttb.train_trial_group(name, draws, X, y, Xv, yv, K, sweep_epochs=2, seed=1, device=CPU,
+                                  devices=[CPU] * 3)
+    assert "trial batch of 4 (4 real) sharded over 3 devices" in caplog.text
+    for a, b in zip(whole, split):
+        np.testing.assert_allclose(b["history"], a["history"], rtol=0, atol=1e-12)
+        assert b["val_f1_macro"] == pytest.approx(a["val_f1_macro"], abs=1e-12)
+
+
+def test_trial_masks_follow_the_trial():
+    """A group's dropout masks come from each trial's own generator: trial i
+    of a group draws what it draws alone."""
+    arch = {**ARCHS["mlp"], "dropout": 0.0}
+    states = ttb.init_states(arch, 3, seed=0)
+    x = torch.ones((8, 20))
+    group = ttb.TrialGroup(arch, states, LRS, [0.5, 0.5, 0.5], CPU, noise_seeds=[10, 11, 12])
+    noise = group._noise(x)
+    alone = ttb.TrialGroup(arch, states[1:2], LRS[1:2], [0.5], CPU, noise_seeds=[11])
+    assert [n.shape[0] for n in noise] == [3] * len(noise) and len(noise) == 2   # the hidden layer's two masks
+    for n, m in zip(noise, alone._noise(x)):
+        assert torch.equal(n[1], m[0]) and not torch.equal(n[0], n[1])
 
 
 def test_modules_without_a_runtime_rate_keep_nn_dropout():
     """The sequential trainer's path: no dropout_rate, the module's own
-    nn.Dropout (a new mask a call in train mode, none in eval)."""
+    nn.Dropout's rate (a new mask a call in train mode, none in eval)."""
     from audio_edge_ml_pipeline_torch.models.deep import _MODULE_FACTORY
 
     net = _MODULE_FACTORY["mlp"]({**ARCHS["mlp"], "dropout": 0.5}).train()
