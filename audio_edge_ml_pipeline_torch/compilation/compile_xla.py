@@ -15,18 +15,24 @@ candidates (eager, the CUDA graph, ``torch.compile`` in its ``default`` and
 largest logit difference from the eager forward, keeps the fastest, and a
 candidate that fails is recorded with its error. ``memory_analysis`` holds the
 argument, output and temporary bytes from the CUDA allocator's peak around
-one eager call (empty on the CPU). ``--tflite`` (the TFLite baseline) is not
-yet ported: it needs the port of ``to_tflite``.
+one eager call (empty on the CPU). ``--tflite`` times an existing ``.tflite``
+file through TensorFlow's interpreter on the first ``B`` rows
+(``to_tflite.evaluate_tflite``; TensorFlow must be installed) and fills
+``tflite_latency_ms_per_sample`` and ``speedup_vs_tflite``; a path that
+does not exist is skipped, as in JAX. The whole timed section runs under
+the bundle's card (``--device``), whichever card is current.
 
 CLI:
     python -m audio_edge_ml_pipeline_torch.compilation.compile_xla \
         --model model.flax.npz --features <featureset dir> \
-        [--output xla_report.json] [--batch 32] [--tune-flags] [--device cpu]
+        [--output xla_report.json] [--batch 32] [--tune-flags] [--tflite model.tflite] \
+        [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import time
@@ -88,6 +94,12 @@ def capture_graph(forward: Callable[[torch.Tensor], torch.Tensor], xb: torch.Ten
     the graph reads and writes their addresses but keeps no reference, so a
     freed input would be reused by the next allocation.
 
+    The warm-up, the capture and every replay run under ``xb``'s card, on
+    that card's streams, whichever card is current: ``torch.cuda.graph``'s
+    own default capture stream is made once, on the card that was current
+    at its first capture, and a capture there records nothing of another
+    card's work.
+
     cuBLAS keeps a workspace a stream, and every capture runs on the same
     capture stream, so a graph would otherwise take the workspace that an
     earlier capture allocated in that capture's memory pool. The cached
@@ -95,22 +107,25 @@ def capture_graph(forward: Callable[[torch.Tensor], torch.Tensor], xb: torch.Ten
     graph trees do: the capture allocates its own in its own pool, and a later
     clear (``torch.compile``'s reduce-overhead mode clears them whenever it
     records) cannot free memory that this graph's kernels use."""
-    static_x = xb.clone()
-    side = torch.cuda.Stream(xb.device)
-    side.wait_stream(torch.cuda.current_stream(xb.device))
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            forward(static_x)
-    torch.cuda.current_stream(xb.device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    torch._C._cuda_clearCublasWorkspaces()
-    with torch.cuda.graph(graph):
-        static_y = forward(static_x)
-    torch._C._cuda_clearCublasWorkspaces()
+    device = xb.device
+    with torch.cuda.device(device):
+        static_x = xb.clone()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                forward(static_x)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        torch._C._cuda_clearCublasWorkspaces()
+        with torch.cuda.graph(graph, stream=side):
+            static_y = forward(static_x)
+        torch._C._cuda_clearCublasWorkspaces()
     buffers = (static_x, static_y)
 
     def replay() -> torch.Tensor:
-        graph.replay()
+        with torch.cuda.device(device):
+            graph.replay()
         return buffers[1]
 
     return replay
@@ -192,29 +207,37 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None,
                    help="torch device (default: the first CUDA card; 'cpu' runs the forward eagerly)")
     args = p.parse_args(argv)
-    if args.tflite:
-        raise NotImplementedError(
-            "the TFLite baseline (--tflite) is not yet ported to audio_edge_ml_pipeline_torch: it needs "
-            "compilation/to_tflite.py; use audio_edge_ml_pipeline_tpu for it")
     device = resolve_device(args.device)
+    # the whole timed section on the bundle's card: its streams, its graph, its allocator
+    with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
+        trainer, forward, xb = load_forward(args.model, args.features, args.batch, device)
+        B = len(xb)
+        search_record = None
+        t0 = time.perf_counter()
+        if args.tune_flags:
+            compiled, search_record = flag_search(forward, xb, B)
+        elif device.type == "cuda":
+            compiled = capture_graph(forward, xb)
+        else:
+            compiled = lambda: forward(xb)  # noqa: E731
+        compiled()
+        _sync(device)
+        compile_s = time.perf_counter() - t0
+        mem = memory_analysis(trainer, forward, xb)
 
-    trainer, forward, xb = load_forward(args.model, args.features, args.batch, device)
-    B = len(xb)
-    search_record = None
-    t0 = time.perf_counter()
-    if args.tune_flags:
-        compiled, search_record = flag_search(forward, xb, B)
-    elif device.type == "cuda":
-        compiled = capture_graph(forward, xb)
-    else:
-        compiled = lambda: forward(xb)  # noqa: E731
-    compiled()
-    _sync(device)
-    compile_s = time.perf_counter() - t0
-    mem = memory_analysis(trainer, forward, xb)
-
-    per_sample_ms = _bench(compiled, device) * 1000.0 / B
+        per_sample_ms = _bench(compiled, device) * 1000.0 / B
     logger.info("compiled: compile=%.2fs  latency=%.4f ms/sample (batch %d)", compile_s, per_sample_ms, B)
+
+    baseline_ms = None
+    if args.tflite and Path(args.tflite).exists():
+        from .to_tflite import evaluate_tflite
+
+        fs = FeaturePipeline.load(args.features)
+        X = trainer._prepare_input(fs.features.astype(np.float32))
+        y = fs.labels[:B] if fs.labels is not None else np.zeros(B, np.int32)
+        baseline = evaluate_tflite(Path(args.tflite), X[:B], y)
+        baseline_ms = baseline["latency_ms"]
+        logger.info("TFLite baseline: %.4f ms/sample", baseline_ms)
 
     report = {
         "model": str(args.model),
@@ -222,8 +245,8 @@ def main(argv=None) -> None:
         "batch": B,
         "compile_seconds": compile_s,
         "xla_latency_ms_per_sample": per_sample_ms,
-        "tflite_latency_ms_per_sample": None,
-        "speedup_vs_tflite": None,
+        "tflite_latency_ms_per_sample": baseline_ms,
+        "speedup_vs_tflite": (baseline_ms / per_sample_ms) if baseline_ms else None,
         "memory_analysis": mem,
         "flag_search": search_record,
         "timestamp": datetime.now().isoformat(timespec="seconds"),

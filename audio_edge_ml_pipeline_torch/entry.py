@@ -16,6 +16,8 @@ batch split over the n devices. Too few cards raises unless
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 from torch import nn
@@ -64,28 +66,64 @@ class MelFront(nn.Module):
         return self.net(mel.transpose(1, 2)[..., None])
 
 
-def sharded_step(rank, arch: dict, state: dict, X: np.ndarray, y: np.ndarray, model_parallel: int = 1,
-                 dcn_replicas: int = 1, optimizer: str = "sgd", lr: float = 0.1, mel: bool = False):
-    """A rank of ``run_ranks``: one ``make_sharded_train_step`` step of the
-    module ``arch`` (``models.deep``'s factory; behind ``MelFront`` when
-    ``mel``) from the numpy state_dict ``state``, on the global batch (X, y)
-    over an n-rank mesh (model_parallel, dcn_replicas). Rank 0 returns
-    (loss, accuracy, the whole new state as numpy, the mesh's dims)."""
+def _placed_step(rank, arch: dict, state: dict, model_parallel: int, dcn_replicas: int, optimizer: str, lr: float,
+                 mel: bool, dtype: str):
+    """(mesh, the module as built, step) of ``sharded_step``'s placed module."""
     from .parallel import mesh as pm
 
     mesh = pm.get_mesh(rank.world, model_parallel=model_parallel, dcn_replicas=dcn_replicas)
-    net = _MODULE_FACTORY[arch["type"]](arch)
+    net = _MODULE_FACTORY[arch["type"]](arch).to(getattr(torch, dtype))
     net.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in state.items()})
     module = MelFront(net) if mel else net
     opt = (torch.optim.SGD(module.parameters(), lr=lr) if optimizer == "sgd"
            else torch.optim.Adam(module.parameters(), lr=lr))
     module, opt = pm.place_train_state(module, opt, mesh)
     module.train()
-    step = pm.make_sharded_train_step(module, opt, mesh)
-    loss, acc = step(pm.shard_batch(X, mesh), pm.shard_batch(torch.from_numpy(np.asarray(y, np.int64)), mesh))
+    return mesh, net, pm.make_sharded_train_step(module, opt, mesh)
+
+
+def sharded_step(rank, arch: dict, state: dict, X: np.ndarray, y: np.ndarray, model_parallel: int = 1,
+                 dcn_replicas: int = 1, optimizer: str = "sgd", lr: float = 0.1, mel: bool = False,
+                 dtype: str = "float32"):
+    """A rank of ``run_ranks``: one ``make_sharded_train_step`` step of the
+    module ``arch`` (``models.deep``'s factory; behind ``MelFront`` when
+    ``mel``) from the numpy state_dict ``state``, on the global batch (X, y)
+    over an n-rank mesh (model_parallel, dcn_replicas), in ``dtype``. Rank 0
+    returns (loss, accuracy, the whole new state as numpy, the mesh's
+    dims)."""
+    from .parallel import mesh as pm
+
+    mesh, net, step = _placed_step(rank, arch, state, model_parallel, dcn_replicas, optimizer, lr, mel, dtype)
+    loss, acc = step(pm.shard_batch(X, mesh).to(getattr(torch, dtype)),
+                     pm.shard_batch(torch.from_numpy(np.asarray(y, np.int64)), mesh))
     new = pm.gathered_state(net)
     dims = dict(zip(mesh.mesh_dim_names, mesh.shape))
     return float(loss), float(acc), {k: v.cpu().numpy() for k, v in new.items()}, dims
+
+
+def timed_sharded_step(rank, arch: dict, state: dict, X: np.ndarray, y: np.ndarray, model_parallel: int,
+                       dtype: str = "float32", repeats: int = 5):
+    """``sharded_step`` (SGD 0.1), then ``repeats`` more steps timed one by
+    one on the rank's device clock. Rank 0 returns (loss, the state after
+    the first step as numpy, the mesh's dims, [ms a step])."""
+    from .parallel import mesh as pm
+
+    mesh, net, step = _placed_step(rank, arch, state, model_parallel, 1, "sgd", 0.1, False, dtype)
+    x = pm.shard_batch(X, mesh).to(getattr(torch, dtype))
+    y = pm.shard_batch(torch.from_numpy(np.asarray(y, np.int64)), mesh)
+    loss, _ = step(x, y)
+    new = {k: v.cpu().numpy() for k, v in pm.gathered_state(net).items()}
+    cuda = rank.device.type == "cuda"
+    times = []
+    for _ in range(repeats):
+        if cuda:
+            torch.cuda.synchronize(rank.device)
+        t0 = time.perf_counter()
+        step(x, y)
+        if cuda:
+            torch.cuda.synchronize(rank.device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(loss), new, dict(zip(mesh.mesh_dim_names, mesh.shape)), times
 
 
 def _dry_devices(n_devices: int, device) -> list[torch.device]:

@@ -131,13 +131,33 @@ class LayerNorm(nn.Module):
 
 class Projection(nn.Module):
     """flax ``DenseGeneral``'s parameters: ``kernel`` of ``shape`` and
-    ``bias`` of ``bias_shape``; ``fan_in`` for its lecun-normal init."""
+    ``bias`` of ``bias_shape``; ``fan_in`` for its lecun-normal init. The
+    call contracts the trailing ``kernel.dim() - bias.dim()`` axes of its
+    input with the kernel's leading ones and adds the bias: (..., d) ->
+    (..., heads, head_dim) for a query, key or value, (..., heads,
+    head_dim) -> (..., d) for the output."""
 
     def __init__(self, shape: tuple[int, ...], bias_shape: tuple[int, ...], fan_in: int) -> None:
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(shape))
         self.bias = nn.Parameter(torch.zeros(bias_shape))
         self.fan_in = fan_in
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return project(x, self.kernel, self.bias)
+
+
+def project(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None,
+            contract: int | None = None) -> torch.Tensor:
+    """``Projection``'s call on its tensors: the trailing ``contract`` axes
+    of ``x`` (default ``kernel.dim() - bias.dim()``) against the kernel's
+    leading ones, then ``bias`` (None: none) on the kernel's trailing axes."""
+    contract = kernel.dim() - bias.dim() if contract is None else contract
+    out_shape = kernel.shape[contract:]
+    y = x.flatten(-contract) @ kernel.reshape(-1, math.prod(out_shape))
+    if bias is not None:
+        y = y + bias.reshape(-1)
+    return y.unflatten(-1, out_shape) if len(out_shape) > 1 else y
 
 
 class SelfAttention(nn.Module):
@@ -153,13 +173,8 @@ class SelfAttention(nn.Module):
             setattr(self, name, Projection((d, heads, head_dim), (heads, head_dim), d))
         self.out = Projection((heads, head_dim, d), (d,), heads * head_dim)
 
-    def _project(self, x: torch.Tensor, proj: Projection) -> torch.Tensor:
-        qkv = self.heads * self.head_dim
-        return (x @ proj.kernel.reshape(-1, qkv) + proj.bias.reshape(qkv)).unflatten(-1, (self.heads, self.head_dim))
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q = self._project(x, self.query) / math.sqrt(self.head_dim)
-        k, v = self._project(x, self.key), self._project(x, self.value)
+        q = self.query(x) / math.sqrt(self.head_dim)
+        k, v = self.key(x), self.value(x)
         weights = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", weights, v).flatten(-2)
-        return o @ self.out.kernel.reshape(-1, self.out.kernel.shape[-1]) + self.out.bias
+        return self.out(torch.einsum("bhqk,bkhd->bqhd", weights, v))

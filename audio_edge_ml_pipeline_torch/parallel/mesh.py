@@ -15,10 +15,12 @@ collectives. Here each rank of a mesh is a process (SPMD):
   ``("data", "model")``, or ``("replica", "data", "model")``;
   ``batch_sharding`` / ``replicated`` / ``param_shardings`` give DTensor
   placements; ``shard_batch`` gives a rank its contiguous rows of a batch;
-- ``place_train_state`` shards each Conv2d / Linear whose flax kernel's
-  last axis (the torch weight's output dim 0) divides by the model axis:
-  the layer becomes a ``ColumnParallel`` that computes its rank's output
-  channels and all-gathers them; biases and all else stay replicated;
+- ``place_train_state`` shards each Conv2d (grouped and depthwise too),
+  Linear and attention ``Projection`` whose flax kernel's last axis (the
+  torch weight's output dim 0, a projection kernel's last axis) divides by
+  the model axis: the layer becomes a ``ColumnParallel`` that computes its
+  rank's output channels and all-gathers them; an ``nn.LSTM`` stays whole
+  on every model rank; vectors and all else stay replicated;
 - ``make_sharded_train_step`` is one step of that module: DDP over the
   data (x replica) ranks reduces the gradients of every tensor, sharded or
   replicated, over data x replica only: the model ranks compute identical
@@ -33,6 +35,7 @@ every part is issued before any is fetched.
 from __future__ import annotations
 
 import os
+import re
 import tempfile
 import threading
 import time
@@ -386,12 +389,27 @@ def shard_batch(x, mesh) -> torch.Tensor:
     return rows.to(_RANK.device if _RANK is not None else "cpu")
 
 
+_LSTM_WEIGHT = re.compile(r"weight_(ih|hh)_l\d+(_reverse)?")
+
+
 def _flax_last_dim(name: str, t: torch.Tensor) -> int:
     """The torch dim of a tensor that is the last axis of its flax
     counterpart: a Conv2d / Linear ``weight`` (4-D OIHW, 2-D (out, in))
-    keeps the output features in dim 0, flax's HWIO / (in, out) last;
-    tensors kept in flax's shapes (3-D attention kernels) have it last."""
-    return 0 if name.rsplit(".", 1)[-1] == "weight" and t.dim() in (2, 4) else t.dim() - 1
+    keeps the output features in dim 0, flax's HWIO / (in, out) last, and so
+    does an ``nn.LSTM``'s stacked gate weight (4 x units, in), whose flax
+    cells hold (in, units) kernels; tensors kept in flax's shapes (3-D
+    attention kernels, their 2-D biases) have it last."""
+    leaf = name.rsplit(".", 1)[-1]
+    if (leaf == "weight" and t.dim() in (2, 4)) or _LSTM_WEIGHT.fullmatch(leaf):
+        return 0
+    return t.dim() - 1
+
+
+def _flax_last_size(name: str, t: torch.Tensor) -> int:
+    """The length of the flax kernel's last axis: an LSTM's units (a quarter
+    of its stacked weight's dim 0), else the size of ``_flax_last_dim``."""
+    size = t.shape[_flax_last_dim(name, t)]
+    return size // 4 if _LSTM_WEIGHT.fullmatch(name.rsplit(".", 1)[-1]) else size
 
 
 def param_shardings(params, mesh) -> dict[str, tuple]:
@@ -405,8 +423,8 @@ def param_shardings(params, mesh) -> dict[str, tuple]:
     m = mesh.size(mesh.mesh_dim_names.index("model"))
     out = {}
     for name, t in named.items():
-        dim = _flax_last_dim(name, t)
-        sharded = t.dim() >= 2 and t.shape[dim] % m == 0 and t.shape[dim] >= m
+        dim, size = _flax_last_dim(name, t), _flax_last_size(name, t)
+        sharded = t.dim() >= 2 and size % m == 0 and size >= m
         out[name] = tuple(Shard(dim) if axis == "model" and sharded else Replicate() for axis in mesh.mesh_dim_names)
     return out
 
@@ -432,6 +450,17 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Differentiable sum of ``x`` over the ranks of ``group``."""
     return _AllReduceSum.apply(x, group)
+
+
+def all_gather(t: torch.Tensor, group, parts: int) -> list[torch.Tensor]:
+    """Every rank's ``t`` over ``group`` (of ``parts`` ranks), in rank
+    order, on ``t``'s device. Gloo gathers no CUDA tensor: its ranks (two
+    processes sharing a card) gather host copies."""
+    host = t.is_cuda and dist.get_backend(group) == "gloo"
+    src = t.detach().cpu() if host else t.contiguous()
+    pieces = [torch.empty_like(src) for _ in range(parts)]
+    dist.all_gather(pieces, src.contiguous(), group=group)
+    return [p.to(t.device) for p in pieces] if host else pieces
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -460,74 +489,136 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, dim, group, index, parts):
         ctx.dim, ctx.index, ctx.width = dim, index, y.shape[dim]
-        pieces = [torch.empty_like(y) for _ in range(parts)]
-        dist.all_gather(pieces, y.contiguous(), group=group)
-        return torch.cat(pieces, dim)
+        return torch.cat(all_gather(y, group, parts), dim)
 
     @staticmethod
     def backward(ctx, grad):
         return grad.narrow(ctx.dim, ctx.index * ctx.width, ctx.width).contiguous(), None, None, None, None
 
 
+def column_splits(layer: nn.Module, parts: int) -> Optional[dict[str, int]]:
+    """{parameter: the dim it splits on} of ``layer`` cut over ``parts``
+    model ranks by output channels, or None when the layer is not cut: a
+    Conv2d or Linear (weight dim 0; a grouped or depthwise conv when its
+    groups divide too), an attention ``Projection`` (kernel's last axis,
+    and a bias of 2 or more dims on its last). An ``nn.LSTM``, a grouped
+    conv whose groups do not divide, and any other layer stay whole."""
+    from ..models.layers import Projection
+
+    if isinstance(layer, (nn.Conv2d, nn.Linear)):
+        if isinstance(layer, nn.Conv2d) and layer.groups % parts:
+            return None
+        return {"weight": 0}
+    if isinstance(layer, Projection):
+        splits = {"kernel": layer.kernel.dim() - 1}
+        if layer.bias.dim() >= 2:
+            splits["bias"] = layer.bias.dim() - 1
+        return splits
+    return None
+
+
 class ColumnParallel(nn.Module):
-    """A Conv2d or Linear split over the model axis by output channels:
-    ``weight`` holds this rank's rows, ``bias`` stays whole (replicated)
-    and is added after the gather. Keeps the layer's ``kernel_size`` /
-    ``stride`` so that ``layers.conv_same`` pads it as it padded the
-    layer."""
+    """A Conv2d, Linear or attention ``Projection`` split over the model
+    axis by output channels (``column_splits``): the split tensors hold
+    this rank's slice, a whole bias (replicated) is added after the gather.
+    A grouped or depthwise conv also takes its rank's slice of the input
+    channels (its groups split with its outputs), and the gradient of the
+    input sums over the model ranks as for any split layer. Keeps a
+    conv's ``kernel_size`` / ``stride`` so that ``layers.conv_same`` pads it
+    as it padded the layer."""
 
     def __init__(self, layer: nn.Module, mesh) -> None:
         super().__init__()
-        if isinstance(layer, nn.Conv2d) and layer.groups != 1:
-            raise NotImplementedError("a grouped (depthwise) convolution has no column split over the model axis")
-        if not isinstance(layer, (nn.Conv2d, nn.Linear)):
-            raise NotImplementedError(f"no column split of a {type(layer).__name__} over the model axis")
         axis = mesh.mesh_dim_names.index("model")
         self.parts, self.index = mesh.size(axis), mesh.get_local_rank("model")
         self.group = mesh.get_group("model")
-        width = layer.weight.shape[0] // self.parts
-        self.conv = isinstance(layer, nn.Conv2d)
-        if self.conv:
+        self.splits = column_splits(layer, self.parts)
+        if self.splits is None:
+            raise NotImplementedError(f"no column split of this {type(layer).__name__} over {self.parts} model ranks")
+        self.kind = "conv" if isinstance(layer, nn.Conv2d) else "linear" if isinstance(layer, nn.Linear) else "proj"
+        if self.kind == "conv":
             self.kernel_size, self.stride = layer.kernel_size, layer.stride
             self.padding, self.dilation = layer.padding, layer.dilation
-        w = layer.weight.detach()[self.index * width : (self.index + 1) * width]
-        self.weight = nn.Parameter(w.clone())
-        self.bias = None if layer.bias is None else nn.Parameter(layer.bias.detach().clone())
+            self.groups = layer.groups // self.parts
+            self.in_width = layer.in_channels // self.parts if layer.groups > 1 else None
+        if self.kind == "proj":
+            self.contract = layer.kernel.dim() - layer.bias.dim()
+        self.bias = None   # a layer without one
+        for name, t in layer.named_parameters(recurse=False):
+            t = t.detach()
+            if name in self.splits:
+                width = t.shape[self.splits[name]] // self.parts
+                t = t.narrow(self.splits[name], self.index * width, width)
+            setattr(self, name, nn.Parameter(t.clone()))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.requires_grad:
             x = _CopyToModel.apply(x, self.group)
-        if self.conv:
-            y = F.conv2d(x, self.weight, None, self.stride, self.padding, self.dilation)
-            y = _GatherFromModel.apply(y, 1, self.group, self.index, self.parts)
-            return y if self.bias is None else y + self.bias[:, None, None]
-        y = _GatherFromModel.apply(F.linear(x, self.weight), -1, self.group, self.index, self.parts)
-        return y if self.bias is None else y + self.bias
+        split_bias = "bias" in self.splits
+        if self.kind == "conv":
+            if self.in_width is not None:
+                x = x.narrow(1, self.index * self.in_width, self.in_width)
+            y, dim = F.conv2d(x, self.weight, None, self.stride, self.padding, self.dilation, self.groups), 1
+        elif self.kind == "linear":
+            y, dim = F.linear(x, self.weight), -1
+        else:
+            from ..models.layers import project
 
-    def full_weight(self) -> torch.Tensor:
-        """The whole weight, gathered from the model ranks (collective)."""
-        pieces = [torch.empty_like(self.weight) for _ in range(self.parts)]
-        dist.all_gather(pieces, self.weight.detach().contiguous(), group=self.group)
-        return torch.cat(pieces, 0)
+            y, dim = project(x, self.kernel, self.bias if split_bias else None, self.contract), -1
+        y = _GatherFromModel.apply(y, dim, self.group, self.index, self.parts)
+        if self.bias is None or split_bias:
+            return y
+        return y + (self.bias[:, None, None] if self.kind == "conv" else self.bias)
+
+    def full(self, name: str, grad: bool = False) -> torch.Tensor:
+        """The whole tensor ``name`` (its gradient when ``grad``), gathered
+        from the model ranks when it is split (collective: every model rank
+        calls it)."""
+        t = getattr(self, name)
+        t = (t.grad if grad else t).detach()
+        return torch.cat(all_gather(t, self.group, self.parts), self.splits[name]) if name in self.splits else t
+
+
+def split_layer_check(rank: Rank, layer: nn.Module, x: torch.Tensor, cotangent: torch.Tensor):
+    """A ``run_ranks`` target: ``layer`` split over every rank of the group
+    as one model axis (``ColumnParallel``) and called on ``x``. Rank 0
+    returns (the output, the gradient of ``(output * cotangent).sum()``
+    for the input, and for each whole parameter), to be held against the
+    whole layer's."""
+    mesh = get_mesh(rank.world, model_parallel=rank.world)
+    split = ColumnParallel(layer, mesh)
+    x = x.clone().requires_grad_(True)
+    y = split(x)
+    (y * cotangent).sum().backward()
+    return y.detach(), x.grad, {name: split.full(name, grad=True) for name, _ in split.named_parameters()}
 
 
 def place_train_state(module: nn.Module, optimizer: torch.optim.Optimizer, mesh):
     """Shard ``module`` onto the mesh per ``param_shardings`` and move it to
-    this rank's device: each Conv2d / Linear whose weight is sharded
-    becomes a ``ColumnParallel``. Returns (module, an optimizer of
-    ``optimizer``'s class and settings over the placed parameters; its
-    moments start empty, as optax's init state). A sharded tensor of any
-    other layer raises."""
+    this rank's device: each layer with a sharded tensor that
+    ``column_splits`` cuts becomes a ``ColumnParallel`` (Conv2d, grouped
+    and depthwise convs, Linear, attention ``Projection``). The others stay
+    whole on every model rank, computing what each of the others computes:
+    an ``nn.LSTM`` (``param_shardings``, which follows JAX's rule, still
+    names its gate kernels sharded when the units divide: GSPMD's
+    placement of them changes no value, so a whole copy a rank computes the
+    same step), and a grouped conv whose groups do not divide. So every
+    module JAX places is placed, and none raises. Returns (module, an
+    optimizer of ``optimizer``'s class and settings over the placed
+    parameters; its moments start empty, as optax's init state)."""
     if any(optimizer.state.values()):
         raise ValueError("place_train_state takes an optimizer that has not stepped yet")
     rules = param_shardings(module, mesh)
+    parts = mesh.size(mesh.mesh_dim_names.index("model"))
     # a split over a model axis of one rank is the whole layer: it stays as it is
-    one = mesh.size(mesh.mesh_dim_names.index("model")) == 1
-    sharded = set() if one else {name.rsplit(".", 1)[0] for name, pl in rules.items() if any(p.is_shard() for p in pl)}
+    sharded = set() if parts == 1 else {name.rsplit(".", 1)[0] for name, pl in rules.items()
+                                        if any(p.is_shard() for p in pl)}
     for path in sorted(sharded):
         parent_path, _, leaf = path.rpartition(".")
         parent = module.get_submodule(parent_path) if parent_path else module
-        setattr(parent, leaf, ColumnParallel(getattr(parent, leaf), mesh))
+        layer = getattr(parent, leaf)
+        if column_splits(layer, parts) is not None:
+            setattr(parent, leaf, ColumnParallel(layer, mesh))
     module.to(_RANK.device if _RANK is not None else "cpu")
     return module, type(optimizer)(module.parameters(), **optimizer.defaults)
 
@@ -553,15 +644,21 @@ def make_sharded_train_step(apply_fn: nn.Module, optimizer: torch.optim.Optimize
     """One train step of the placed module ``apply_fn`` (x -> logits of
     this rank's rows): mean cross-entropy of the rank's rows, DDP over the
     mesh's data x replica ranks (which averages the gradients: the global
-    batch's mean loss, its shards being equal), then the optimizer. Dropout
-    masks are the global batch's, from a generator seeded 0 on every rank
-    (the model ranks that share rows must mask them alike). Returns
+    batch's mean loss, its shards being equal), then the optimizer.
+    Train-mode BatchNorm moments are the global batch's
+    (``sync_batch_norms`` over those ranks). Dropout masks are the global
+    batch's, from a generator seeded 0 on every rank (the model ranks that
+    share rows must mask them alike). Returns
     ``step(x, y) -> (loss, accuracy)`` of the global batch, for the rank's
     rows of it (``shard_batch``)."""
+    from ..models.layers import sync_batch_norms
+
     device = _RANK.device
     group = batch_group(mesh)
-    wrapped = ddp(apply_fn, device, group)
     n = data_axis_size(mesh)
+    if n > 1:   # the global batch's BatchNorm moments, as JAX's global-view step computes them
+        sync_batch_norms(apply_fn, group)
+    wrapped = ddp(apply_fn, device, group)
     noise = GlobalBatchNoise(torch.Generator(device).manual_seed(0), n, _batch_index(mesh))
 
     def step(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -580,11 +677,13 @@ def make_sharded_train_step(apply_fn: nn.Module, optimizer: torch.optim.Optimize
 
 def gathered_state(module: nn.Module) -> dict[str, torch.Tensor]:
     """The module's whole state_dict on every rank: a ``ColumnParallel``'s
-    weight gathered from the model ranks (collective: every rank calls it)."""
+    split tensors gathered from the model ranks (collective: every rank
+    calls it)."""
     state = {}
     for name, t in module.state_dict().items():
-        owner = module.get_submodule(name.rsplit(".", 1)[0]) if "." in name else module
-        if isinstance(owner, ColumnParallel) and name.endswith(".weight"):
-            t = owner.full_weight()
+        owner_path, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_path) if owner_path else module
+        if isinstance(owner, ColumnParallel):
+            t = owner.full(leaf)
         state[name] = t.detach().clone()
     return state

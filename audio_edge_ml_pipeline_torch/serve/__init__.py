@@ -1,5 +1,4 @@
 """Serving: the edge device simulator, the ingestion HTTP API
 (``api``), the ingestion-side mel preprocessor (``audio_processor``) and the
 fleet dashboard (``dashboard``), each the counterpart of the JAX package's
-module of the same name. The simulator's ``.tflite`` branch is not yet
-ported."""
+module of the same name."""

@@ -3,15 +3,16 @@
 Simulates a deployed device (contract of the JAX package's
 ``serve/edge_simulator.py``): repeatedly picks a random clip from a dataset
 directory, extracts its log-mel on the torch device (the folded-mel kernel
-on a CUDA card), runs the ``.npz`` model bundle, writes a telemetry JSONL
-event, and — when confidence falls below the upload threshold — POSTs the
-clip to the ingestion API (``serve/api.py``) for later re-labeling, through
-``urllib.request``. Aggregated stats land in
-data/device_stats/<device>_stats.json; both feed the dashboard. The
-``.tflite`` branch is not yet ported.
+on a CUDA card), runs the model (an ``.npz`` bundle, or a ``.tflite`` file
+through TensorFlow's interpreter with int8 quantize / dequantize at its I/O
+when the file is int8; TensorFlow must be installed for that), writes a
+telemetry JSONL event, and — when confidence falls below the upload
+threshold — POSTs the clip to the ingestion API (``serve/api.py``) for
+later re-labeling, through ``urllib.request``. Aggregated stats land in
+data/device_stats/<device>_stats.json; both feed the dashboard.
 
 CLI: python -m audio_edge_ml_pipeline_torch.serve.edge_simulator \
-        --model model.flax.npz --labels label_names.json \
+        --model model.flax.npz|model.tflite --labels label_names.json \
         --dataset <audio_folder> [--device-id sim0] [--n 20] [--interval 0]
         [--api-url http://localhost:8000] [--upload-threshold 0.6]
         [--torch-device cuda]
@@ -83,10 +84,27 @@ class EdgeDeviceSimulator:
 
     def _build_inference(self):
         if self.model_path.suffix == ".tflite":
-            raise NotImplementedError(
-                "the .tflite branch of the edge simulator is not yet ported to "
-                "audio_edge_ml_pipeline_torch; pass a .npz model bundle"
-            )
+            from ..compilation.tf_forward import tensorflow
+
+            interp = tensorflow().lite.Interpreter(model_path=str(self.model_path))
+            interp.allocate_tensors()
+            inp = interp.get_input_details()[0]
+            out = interp.get_output_details()[0]
+
+            def run(feat: np.ndarray) -> np.ndarray:
+                x = feat[None].astype(np.float32)
+                if inp["dtype"] == np.int8:
+                    scale, zp = inp["quantization"]
+                    x = np.clip(np.round(x / scale + zp), -128, 127).astype(np.int8)
+                interp.set_tensor(inp["index"], x)
+                interp.invoke()
+                o = interp.get_tensor(out["index"])[0]
+                if out["dtype"] == np.int8:
+                    scale, zp = out["quantization"]
+                    o = (o.astype(np.float32) - zp) * scale
+                return o
+
+            return run
         from ..models.deep import load_any_model
 
         trainer = load_any_model(self.model_path, device=self.torch_device)

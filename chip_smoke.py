@@ -223,7 +223,16 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      --batch 32, plain and with --tune-flags: JAX's report keys; the CUDA
      graph's and each torch.compile candidate's logits within 1e-5 of the
      eager forward; each candidate's latency, compile seconds, the
-     allocator's bytes;
+     allocator's bytes; with 2 or more cards, ``--device cuda:1`` while
+     cuda:0 is current, its graph within 1e-5 of eager there and its replay
+     launching kernels (the profiler's count); with one card it says so;
+  5k. stage 7a and the weight converter: ``to_tflite`` imports, and with
+     TensorFlow unimportable its CLI on 5b's bundle and compile_xla
+     --tflite on an existing file refuse with an ImportError naming it;
+     a seeded torchvision MobileNetV2 state_dict through
+     ``tools/convert_backbone_weights.py``, the embedder on the file card
+     vs CPU at B=32 x 224 (1e-4); its --prefix backbone --bundle file
+     warm-starting the teacher on the card; no mel kernel launched;
   5j. the parallel layer (``parallel/mesh.py``), after 5g: the flagship
      CNN and the ds_cnn (JAX's defaults) fitted in float64 with
      data_parallel=2 by two gloo ranks sharing the card, against the same
@@ -235,7 +244,10 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      (the DDP wrapper's cost); an extraction batch, a pca_svm CV cell and a
      4-trial cnn group each split in two parts on the card against the
      unsplit call (bit for bit, 1e-4, float64 1e-4), one mel_rfft launch a
-     part. With 2 or more cards (N = min(4, cards)), through NCCL: the train
+     part; the model axis of the ds_cnn, the rnn and the transformer on
+     get_mesh(2, model_parallel=2) in float64, two gloo ranks on the card
+     (and NCCL over two cards where there are two), against one process
+     (loss 1e-5, state 1e-4), each step's time. With 2 or more cards (N = min(4, cards)), through NCCL: the train
      CLI with --param data_parallel=N against the 1-card run,
      fsc22-27-classes-tuning.yaml (cut) through the tune CLI, an
      extraction over the cards and dryrun_multichip(N); with one card it
@@ -3197,7 +3209,9 @@ def phase_5i(dev, tmp: Path, bundle: Path, features: Path, card: str) -> None:
     trained cnn bundle at --batch 32, plain (a CUDA graph) and with
     --tune-flags (eager, the graph, torch.compile's default and
     reduce-overhead modes): the report's keys are JAX's, the graph's and each
-    candidate's logits within 1e-5 of the eager forward (TF32 off)."""
+    candidate's logits within 1e-5 of the eager forward (TF32 off). On 2 or
+    more cards, the capture on a card that is not current
+    (``other_card_capture``)."""
     import torch
     import torch._inductor.config as inductor_config
 
@@ -3242,7 +3256,184 @@ def phase_5i(dev, tmp: Path, bundle: Path, features: Path, card: str) -> None:
     check(all("error" not in c and c["max_abs_diff_vs_eager"] <= 1e-5 for c in search["candidates"]),
           "5i: a candidate failed or disagrees with the eager forward")
     check(graph_err <= 1e-5, "5i: the CUDA graph disagrees with the eager forward")
+    if torch.cuda.device_count() < 2:
+        print(f"[5i] the capture on a card that is not current (compile_xla --device cuda:1 while cuda:0 is current) "
+              f"needs 2 cards; this machine has {torch.cuda.device_count()}: not run")
+    else:
+        other_card_capture(tmp, bundle, features, card)
     print(f"[5i] phase 5i in {time.perf_counter() - t_start:.2f} s")
+
+
+def other_card_capture(tmp: Path, bundle: Path, features: Path, card: str) -> None:
+    """5i on 2 or more cards: with cuda:0 current, compile_xla --device
+    cuda:1, and its graph captured on cuda:1 against eager there (1e-5, TF32
+    off), its replay's kernels counted by the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_edge_ml_pipeline_torch.compilation import compile_xla
+
+    other = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    out = tmp / "xla_cuda1.json"
+    compile_xla.main(["--model", str(bundle), "--features", str(features), "--output", str(out), "--batch", "32",
+                      "--device", "cuda:1"])
+    rep = json.loads(out.read_text())
+    _, forward, xb = compile_xla.load_forward(bundle, features, 32, other)
+    eager = forward(xb).clone()
+    graph = compile_xla.capture_graph(forward, xb)
+    err = float((graph() - eager).abs().max())
+    torch.cuda.synchronize(other)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph()
+        torch.cuda.synchronize(other)
+    kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    current = torch.cuda.current_device()
+    print(f"[5i] compile_xla --device cuda:1 with cuda:0 current: backend {rep['backend']}, "
+          f"{rep['xla_latency_ms_per_sample'] * 1e3:.2f} us a sample; its graph on cuda:1 vs eager there max|d| "
+          f"{err:.3e} (tol 1e-05, TF32 off); one replay launched {kernels} kernels (the profiler's count); current "
+          f"card after {current} on {card}")
+    check(rep["backend"] == "cuda" and rep["xla_latency_ms_per_sample"] > 0, f"5i: the cuda:1 report {rep}")
+    check(err <= 1e-5, "5i: the graph captured on cuda:1 disagrees with the eager forward there")
+    check(kernels >= 1, "5i: the replay of the graph captured on cuda:1 launched no kernel")
+    check(current == 0, "5i: compile_xla changed the current card")
+
+
+EMBED_TOL = 1e-4    # MobileNetV2 embeddings card vs CPU from a converted file, over their largest
+
+
+def torchvision_mbv2_state(path: Path, seed: int = 9) -> dict:
+    """A torchvision-layout MobileNetV2 state_dict of seeded values, saved
+    with torch.save: OIHW kernels in execution order, one
+    num_batches_tracked a BatchNorm and a classifier head, both of which the
+    converter drops. Returns {flax key: the array the converter must
+    write}."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.tools import convert_backbone_weights as tool
+
+    template = tool.backbone_template("mobilenet_v2")
+    r = np.random.default_rng(seed)
+    state, want = {}, {}
+    for i, key in enumerate(tool.mbv2_flax_key_order()):
+        shape = template[key]
+        if key.endswith("/kernel"):
+            arr = (r.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[:3]))).astype(np.float32)
+        elif key.endswith(("/scale", "/var")):
+            arr = r.uniform(0.5, 1.5, shape).astype(np.float32)
+        else:
+            arr = r.normal(0.0, 0.1, shape).astype(np.float32)
+        want[key] = arr
+        state[f"features.{i}.w"] = torch.from_numpy(np.ascontiguousarray(arr.transpose(3, 2, 0, 1) if arr.ndim == 4
+                                                                          else arr))
+        if key.endswith("/var"):
+            state[f"features.{i}.num_batches_tracked"] = torch.tensor(0)
+    state["classifier.1.weight"] = torch.zeros(1000, 1280)
+    state["classifier.1.bias"] = torch.zeros(1000)
+    torch.save(state, path)
+    return want
+
+
+def phase_5k(dev, tmp: Path, bundle: Path, features: Path, card: str) -> None:
+    """Phase 5k: stage 7a and the backbone-weight converter on the card
+    machine. ``compilation.to_tflite`` imports; with TensorFlow unimportable
+    (the H100 machine has none; it is hidden anyway, so that the check
+    holds on any machine) the to_tflite CLI on 5b's bundle and compile_xla --tflite
+    on an existing file refuse with an ImportError that names it: an
+    expected refusal, asserted. The converter turns a seeded
+    torchvision-layout state_dict into the named .npz, which
+    mobilenet_v2_embedder loads on the card and on the CPU: B=32 x 224
+    embeddings within EMBED_TOL of the largest. Its --prefix backbone
+    --bundle file warm-starts the teacher on the card by name and shape:
+    the units MobileNetV2 and EfficientNet-B0 share (stem and head; a B0
+    source is a Keras file, which needs TensorFlow). No mel kernel runs."""
+    import importlib.util
+    import logging
+
+    import torch
+
+    from audio_edge_ml_pipeline_torch.compilation import compile_xla, to_tflite
+    from audio_edge_ml_pipeline_torch.models import backbones
+    from audio_edge_ml_pipeline_torch.models.deep import EfficientNetTeacherTrainer, params_to_flax
+    from audio_edge_ml_pipeline_torch.ops import mel_kernel
+    from audio_edge_ml_pipeline_torch.tools import convert_backbone_weights as tool
+
+    t_start = time.perf_counter()
+    launches = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches)
+    has_tf = importlib.util.find_spec("tensorflow") is not None
+    refusals = {}
+    saved = sys.modules.get("tensorflow")
+    sys.modules["tensorflow"] = None   # an import of it raises ImportError
+    try:
+        baseline = tmp / "baseline.tflite"
+        baseline.write_bytes(b"")
+        for label, call in (
+                ("to_tflite CLI", lambda: to_tflite.main(["--model", str(bundle), "--features", str(features),
+                                                          "--output", str(tmp / "tflite")])),
+                ("compile_xla --tflite", lambda: compile_xla.main(["--model", str(bundle), "--features",
+                                                                   str(features), "--output", str(tmp / "x.json"),
+                                                                   "--tflite", str(baseline)]))):
+            try:
+                call()
+                refusals[label] = "no refusal"
+            except ImportError as exc:
+                refusals[label] = str(exc)
+    finally:
+        if saved is None:
+            sys.modules.pop("tensorflow", None)
+        else:
+            sys.modules["tensorflow"] = saved
+    for label, msg in refusals.items():
+        print(f"[5k] {label} on 5b's bundle without TensorFlow (installed on this run's machine: {has_tf}): ImportError {msg!r} "
+              f"(expected)")
+        check("TensorFlow" in msg, f"5k: the {label} did not refuse with an ImportError naming TensorFlow")
+
+    want = torchvision_mbv2_state(tmp / "mbv2_torchvision.pth")
+    named = tmp / "mbv2_named.npz"
+    out = captured_stdout(tool.main, ["--src", str(tmp / "mbv2_torchvision.pth"), "--out", str(named)])
+    data = np.load(named)
+    same = data.files == list(want) and all(np.array_equal(data[k], want[k]) for k in want)
+    x = torch.from_numpy(np.random.default_rng(10).uniform(-1, 1, (32, 224, 224, 3)).astype(np.float32))
+    with torch.inference_mode():
+        on_card = backbones.mobilenet_v2_embedder(224, weights=str(named), device=dev)(x.to(dev)).cpu().numpy()
+        on_cpu = backbones.mobilenet_v2_embedder(224, weights=str(named), device="cpu")(x).numpy()
+    embed_gap = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
+    print(f"[5k] convert_backbone_weights on a seeded torchvision-layout MobileNetV2 state_dict: {out.strip()}; "
+          f"every array the source's, in execution order {same}; mobilenet_v2_embedder(224) from the file, B=32: "
+          f"card vs CPU max|d|/max {embed_gap:.3e} (tol {EMBED_TOL:g}, TF32 off) on {card}")
+    check(same, "5k: the converted arrays are not the source's")
+    check(on_card.shape == (32, 1280) and bool(np.isfinite(on_card).all()), "5k: the embeddings on the card")
+    check(embed_gap <= EMBED_TOL, "5k: the embeddings from the converted file disagree card vs CPU")
+
+    prefixed = tmp / "mbv2_backbone_bundle.npz"
+    captured_stdout(tool.main, ["--src", str(tmp / "mbv2_torchvision.pth"), "--out", str(prefixed), "--prefix",
+                                "backbone", "--bundle"])
+    msgs: list[str] = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda record: msgs.append(record.getMessage())
+    deep_log = logging.getLogger("audio_edge_ml_pipeline_torch.models.deep")
+    deep_log.addHandler(handler)
+    level, _ = deep_log.level, deep_log.setLevel(logging.INFO)
+    try:
+        teacher = EfficientNetTeacherTrainer(device=dev, image_size=224, pretrained_model=str(prefixed))
+        teacher.prepare_fit(np.random.default_rng(11).random((4, 40, 501, 1), dtype=np.float32), 5)
+    finally:
+        deep_log.removeHandler(handler)
+        deep_log.setLevel(level)
+    flat = params_to_flax(teacher._net.state_dict())
+    donor = np.load(prefixed)
+    shared = sorted(k for k in donor.files if k in flat and donor[k].shape == flat[k].shape)
+    took = all(np.array_equal(flat[k], donor[k]) for k in shared)
+    on_device = {p.device.type for p in teacher._net.parameters()}
+    print(f"[5k] the converter's --prefix backbone --bundle file warm-starts the teacher (image 224) on the card: "
+          f"{[m for m in msgs if 'Pretrained' in m]}; the {len(shared)} tensors of the two backbones' shared units "
+          f"({', '.join(sorted({k.split('/')[-3] for k in shared}))}) are the file's {took}; parameters on "
+          f"{sorted(on_device)}; mel kernel launches in 5k {mel_kernel.counter.launches - launches[0]} + dense "
+          f"{mel_kernel.counter_dense.launches - launches[1]}; phase 5k in {time.perf_counter() - t_start:.2f} s")
+    check(any("Pretrained weights: 6 tensors transferred" in m for m in msgs), "5k: the teacher's warm start")
+    check(len(shared) == 10 and took and on_device == {"cuda"}, "5k: the teacher did not take the file's tensors")
+    check((mel_kernel.counter.launches, mel_kernel.counter_dense.launches) == launches, "5k launched a mel kernel")
 
 
 def native_reader_checks(audio_dir: Path, names: list[str], tmp: Path) -> None:
@@ -3271,8 +3462,15 @@ DP_PER_CLASS, DP_EPOCHS, DP_BATCH = 4, 2, 32   # the data-parallel fits: 27 x 4 
 DP_LOSS_TOL, DP_PARAM_TOL = 1e-5, 1e-4         # a data-parallel fit vs one process: losses relative; parameters
                                                # and BatchNorm statistics over each tensor's largest
 MESH_LOSS_TOL, MESH_PARAM_TOL = 1e-5, 1e-5     # the 1-card NCCL mesh step vs the plain step
+AXIS_LOSS_TOL, AXIS_STATE_TOL = 1e-5, 1e-4     # a (data 1 x model 2) step in float64 vs the one-process step:
+                                               # loss relative; every tensor of the state over its largest
+AXIS_BATCH, AXIS_STEPS = 16, 5                 # the model-axis step's global batch; the steps timed after it
 SPLIT_CV_TOL = 1e-4                            # a CV cell split in fold parts vs unsplit, over the largest decision
 DS_CNN_DEFAULTS = {"filters": [32, 32, 64], "first_stride": 2, "pool": "avg", "batch_norm": True}   # JAX's
+# family -> (its params at the JAX package's defaults, whether it takes 5j's mel rows transposed): the transformer
+# reads 501 steps of 40 mel bins, so its 4 heads of 10 features split over 2 model ranks
+AXIS_FAMILIES = {"ds_cnn": (DS_CNN_DEFAULTS, False), "rnn": ({"units": 128, "n_layers": 1}, False),
+                 "transformer": ({"num_heads": 4, "ff_dim": 128, "n_blocks": 2}, True)}
 
 
 def dp_mel_set(rng: np.random.Generator, per_class: int):
@@ -3366,6 +3564,75 @@ def mesh_step_check(rank, batches: tuple[int, ...], card: str) -> dict:
     return out
 
 
+def model_axis_checks(dev, card: str, devices: list, backend: str, X: np.ndarray, y: np.ndarray) -> None:
+    """Phase 5j's model axis: the ds_cnn, the rnn and the transformer placed
+    on get_mesh(2, model_parallel=2) by ``place_train_state`` over two ranks
+    on ``devices`` through ``backend``, one make_sharded_train_step step (SGD
+    0.1, dropout 0) in float64 against the one-process step on ``dev``, then
+    AXIS_STEPS more steps timed one by one, beside the one-process step's
+    time."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio_edge_ml_pipeline_torch.entry import timed_sharded_step
+    from audio_edge_ml_pipeline_torch.models import get_model
+    from audio_edge_ml_pipeline_torch.models.layers import BatchNorm, LayerNorm
+    from audio_edge_ml_pipeline_torch.parallel import mesh as pm
+
+    rows = np.random.default_rng(16).permutation(len(X))[:AXIS_BATCH]
+    for model, (params, transposed) in AXIS_FAMILIES.items():
+        tr = get_model(model)(**params, dropout=0.0, device="cpu")
+        Xm = tr._prepare_input(X[rows].transpose(0, 2, 1) if transposed else X[rows]).astype(np.float64)
+        tr.initialize(Xm.shape[1:], N_CLASSES, torch.Generator().manual_seed(16))
+        r = np.random.default_rng(16)
+        with torch.no_grad():   # every tensor off its init: a gradient of pure roundoff (an attention key's bias,
+            for mod in tr._net.modules():   # a norm's scale at bias 0) moves a tensor that is 0 by a share of itself
+                if isinstance(mod, (BatchNorm, LayerNorm)):
+                    mod.weight.copy_(torch.from_numpy(r.uniform(0.5, 1.5, mod.weight.shape[0])))
+            for prm in tr._net.parameters():
+                if prm.requires_grad:   # an LSTM's input-side bias stays 0: the flax layout has none
+                    prm.add_(torch.from_numpy(r.normal(0.0, 0.05, tuple(prm.shape)).astype(np.float32)))
+        arch = tr._arch_dict
+        state = {k: v.double().numpy() for k, v in tr._net.state_dict().items()}
+        yb = y[rows].astype(np.int64)
+        loss, new, dims, ms = pm.run_ranks(timed_sharded_step, (arch, state, Xm, yb, 2, "float64", AXIS_STEPS),
+                                           devices, backend=backend)
+        net = tr._net.to(dev, torch.float64).train()
+        opt = torch.optim.SGD(net.parameters(), lr=0.1)
+        xd, yd = torch.from_numpy(Xm).to(dev), torch.from_numpy(yb).to(dev)
+
+        def plain_step():
+            opt.zero_grad(set_to_none=True)
+            out = F.cross_entropy(net(xd), yd)
+            out.backward()
+            opt.step()
+            return out.detach()
+
+        ref_loss = float(plain_step())
+        ref = {k: v.detach().cpu().clone().numpy() for k, v in net.state_dict().items()}
+        plain_ms = []
+        for _ in range(AXIS_STEPS):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            plain_step()
+            torch.cuda.synchronize(dev)
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        loss_gap = abs(loss - ref_loss) / abs(ref_loss)
+        gap, worst = max((float(np.abs(new[k] - v).max() / max(float(np.abs(v).max()), 1e-30)), k)
+                         for k, v in ref.items())
+        n_split = sum(1 for k in ref if "weight" in k or "kernel" in k)
+        print(f"[5j] model axis, {model} {params} on {list(Xm.shape[1:])} (27 classes, B={AXIS_BATCH}, float64): "
+              f"get_mesh(2, model_parallel=2) {dims} over {[str(d) for d in devices]} ({backend}) vs one process on "
+              f"{dev}: loss {loss:.6f} vs {ref_loss:.6f} (rel {loss_gap:.3e}, tol {AXIS_LOSS_TOL:g}), state after the "
+              f"step max|d|/max {gap:.3e} ({worst}; tol {AXIS_STATE_TOL:g}; {len(ref)} tensors, {n_split} weights); "
+              f"step ms model axis {[round(t, 3) for t in ms]}, one process {[round(t, 3) for t in plain_ms]} on "
+              f"{card}")
+        check(sorted(new) == sorted(ref), f"5j: the {model}'s model-axis state has other tensors")
+        check(dims == {"data": 1, "model": 2}, f"5j: the {model}'s mesh {dims}")
+        check(loss_gap <= AXIS_LOSS_TOL, f"5j: the {model}'s model-axis loss disagrees with one process")
+        check(gap <= AXIS_STATE_TOL, f"5j: the {model}'s model-axis state disagrees with one process ({worst})")
+
+
 def tuning_27_copy(mel_train: Path, mel_val: Path, classical_train: Path, out: Path) -> Path:
     """configs/experiments/fsc22-27-classes-tuning.yaml with its FeatureSets
     moved to this phase's and cut as phase 5e cuts configs/tuning.yaml: the
@@ -3393,7 +3660,9 @@ def phase_5j(dev, card: str) -> dict:
     """Phase 5j: the parallel layer. On one card: the flagship CNN and the
     ds_cnn fitted in float64 with data_parallel=2 by two gloo ranks sharing
     the card, each against the same fit in one process, and the cnn in
-    float32 beside its floor (not gated); one make_sharded_train_step
+    float32 beside its floor (not gated); the model axis of the ds_cnn, the
+    rnn and the transformer (``model_axis_checks``: two gloo ranks on the
+    card, and two cards through NCCL where there are two); one make_sharded_train_step
     step on a 1-card NCCL mesh against the plain step, both timed at B=32
     and 512; an extraction batch, a pca_svm CV cell and a 4-trial cnn group
     split in two parts on the card against the unsplit calls, one mel_rfft
@@ -3450,6 +3719,11 @@ def phase_5j(dev, card: str) -> dict:
               f"parameters, {4 * counts['cnn'] / 1e6:.3f} MB; ds_cnn at JAX's defaults {counts['ds_cnn']} parameters, "
               f"{4 * counts['ds_cnn'] / 1e6:.3f} MB (the ds_cnn adds 5 BatchNorm all-reduces a forward, 3 floats a "
               f"channel)")
+
+        # the model axis of every deep family JAX places: two gloo ranks sharing the card, NCCL across two cards
+        model_axis_checks(dev, card, [dev, dev], "gloo", X, y)
+        if torch.cuda.device_count() >= 2:
+            model_axis_checks(dev, card, [torch.device("cuda", 0), torch.device("cuda", 1)], "nccl", X, y)
 
         # world size 1 through NCCL: the DDP wrapper against the plain step
         mesh_out = pm.run_ranks(mesh_step_check, ((32, 512), card), [dev], backend="nccl")
@@ -4219,6 +4493,7 @@ def main() -> int:
         # 5h-5i. the serving loop with the REST tracking backend; the compile stage on 5b's bundle
         t5h = phase_5h(dev, tmp, folder, class_names, card)
         phase_5i(dev, tmp, trained, tmp / "features", card)
+        phase_5k(dev, tmp, trained, tmp / "features", card)
 
     # 5d. the classical core on the card against the CPU at fsc22 scale, with TF32 allowed everywhere
     X_fit, y_fit, X_q, y_q = fsc22_classical(np.random.default_rng(22))

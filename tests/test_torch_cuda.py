@@ -737,3 +737,55 @@ def test_dryrun_multichip_on_two_cards(two_cards):
     from audio_edge_ml_pipeline_torch.entry import dryrun_multichip
 
     assert dryrun_multichip(2).startswith("dryrun_multichip OK: mesh=(1 data x 2 model) on cuda (nccl)")
+
+
+@pytest.mark.cuda
+def test_compile_xla_captures_on_the_bundles_card_when_another_is_current(cuda_device, tmp_path):
+    """Fault o: with cuda:0 current, compile_xla on cuda:1 captures its
+    graph on cuda:1's streams. The replay gives eager's logits (1e-5, TF32
+    off) and launches kernels (the profiler's count), and the CLI runs."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 CUDA cards: a capture on a card that is not current")
+    import json
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_edge_ml_pipeline_torch.compilation import compile_xla
+    from audio_edge_ml_pipeline_torch.features.base import FeatureSet
+    from audio_edge_ml_pipeline_torch.features.pipeline import FeaturePipeline
+    from audio_edge_ml_pipeline_torch.models.deep import CNNTrainer
+
+    trainer = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, device="cpu")
+    trainer.initialize((40, 501, 1), 27, torch.Generator().manual_seed(0))
+    trainer.save(tmp_path / "model.flax.npz")
+    X = np.random.default_rng(2).random((40, 40, 501), dtype=np.float32)
+    FeaturePipeline.save(FeatureSet(features=X, feature_type="audio_mel_spec", modality="audio",
+                                    metadata=[{} for _ in X], labels=np.arange(40) % 27,
+                                    label_names=[str(i) for i in range(27)]), tmp_path / "feats")
+    card = torch.device("cuda", 1)
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    prev = torch.cuda.current_device()
+    torch.cuda.set_device(0)
+    try:
+        _, forward, xb = compile_xla.load_forward(tmp_path / "model.flax.npz", tmp_path / "feats", 32, card)
+        eager = forward(xb).clone()
+        graph = compile_xla.capture_graph(forward, xb)
+        assert torch.cuda.current_device() == 0
+        out = graph()
+        torch.cuda.synchronize(card)
+        assert out.device == card and float((out - eager).abs().max()) <= 1e-5
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            graph()
+            torch.cuda.synchronize(card)
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(kernels) >= 1
+        compile_xla.main(["--model", str(tmp_path / "model.flax.npz"), "--features", str(tmp_path / "feats"),
+                          "--output", str(tmp_path / "r.json"), "--batch", "32", "--device", "cuda:1"])
+        assert torch.cuda.current_device() == 0
+        report = json.loads((tmp_path / "r.json").read_text())
+        assert report["backend"] == "cuda" and report["xla_latency_ms_per_sample"] > 0
+    finally:
+        torch.cuda.set_device(prev)
+        torch.backends.cudnn.allow_tf32 = flags

@@ -110,7 +110,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda, tmp_path
     from audio_edge_ml_pipeline_torch.models import deep
     from audio_edge_ml_pipeline_torch.optimize import optimize, quantize
     from audio_edge_ml_pipeline_torch.serve.edge_simulator import EdgeDeviceSimulator
-    from audio_edge_ml_pipeline_torch.compilation import compile_xla
+    from audio_edge_ml_pipeline_torch.compilation import compile_xla, to_tflite
     from audio_edge_ml_pipeline_torch.serve import audio_processor
     from audio_edge_ml_pipeline_torch.train import train
 
@@ -136,6 +136,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda, tmp_path
                                "--output", str(tmp_path / "opt")]),
         lambda: audio_processor.main(["--input", str(tmp_path / "data" / "a"), "--output", str(tmp_path / "mel")]),
         lambda: compile_xla.main(["--model", str(bundle), "--features", str(tmp_path)]),
+        lambda: to_tflite.compile_model(bundle, tmp_path, tmp_path, tmp_path / "tfl", None, {}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -164,3 +165,36 @@ def test_unported_names_raise_not_yet_ported(tmp_path):
         get("no_such_extractor")
     (tmp_path / "rows.csv").write_text("a,label\n1,x\n")
     assert isinstance(build_loader("tabular", str(tmp_path / "rows.csv"), "train", label_col="label"), TabularLoader)
+
+
+def test_tflite_modules_import_with_jax_and_tensorflow_blocked():
+    """The TFLite export (to_tflite, tf_forward) and the weight converter
+    import with jax, flax, optax and TensorFlow unimportable (the H100
+    machine has none of them), and load no TensorFlow or Keras when they
+    are imported: TensorFlow is imported inside the functions that use it."""
+    mods = ["audio_edge_ml_pipeline_torch", "audio_edge_ml_pipeline_torch.compilation.to_tflite",
+            "audio_edge_ml_pipeline_torch.compilation.tf_forward",
+            "audio_edge_ml_pipeline_torch.tools.convert_backbone_weights",
+            "audio_edge_ml_pipeline_torch.serve.edge_simulator", "audio_edge_ml_pipeline_torch.compilation.compile_xla"]
+    blocked = (*FORBIDDEN, "tensorflow", "keras", "tf_keras")
+    code = (
+        "import importlib, sys\n"
+        f"for m in {blocked!r}:\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from audio_edge_ml_pipeline_torch.compilation import tf_forward\n"
+        "try:\n"
+        "    tf_forward.tensorflow()\n"
+        "    sys.exit('tensorflow imported')\n"
+        "except ImportError as exc:\n"
+        "    assert 'TensorFlow is not installed' in str(exc), exc\n"
+        f"bad = sorted(m for m, v in sys.modules.items() if v is not None and m.split('.')[0] in {blocked!r})\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO), env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
