@@ -296,6 +296,31 @@ def stft_spectrum(
     return mag_sq.to(torch.float32)
 
 
+def _frame_index(n: int, n_fft: int, hop_length: int) -> np.ndarray:
+    """(T, n_fft) gather indices of each centred frame into the padded clip,
+    clamped to its last sample as an XLA gather clamps them (only an odd
+    n_fft with n % hop == 0 reaches past the end)."""
+    starts = np.arange(n_frames_for(n, hop_length)) * hop_length
+    return np.minimum(starts[:, None] + np.arange(n_fft)[None, :], n + 2 * (n_fft // 2) - 1)
+
+
+def stft_complex_fft(y: torch.Tensor, n_fft: int, hop_length: int, window: str = "ones") -> torch.Tensor:
+    """Batched complex STFT by ``torch.fft.rfft`` on ``y``'s device (for
+    large transforms, e.g. the CQT). y: (B, n) float32 -> (B, n_freq,
+    n_frames) complex64; centred with zero padding; ``window`` "hann" (the
+    periodic one) or "ones"."""
+    pad = n_fft // 2
+    ypad = torch.nn.functional.pad(y, (pad, pad))
+    frames = ypad[:, _on(y.device, _frame_index, y.shape[1], n_fft, hop_length)]   # (B, T, n_fft)
+    if window == "hann":
+        frames = frames * _on(y.device, _hann32, n_fft)
+    return torch.fft.rfft(frames, n=n_fft, dim=-1).transpose(1, 2)
+
+
+def _hann32(n_fft: int) -> np.ndarray:
+    return ref.hann_periodic(n_fft).astype(np.float32)
+
+
 # ----------------------------------------------------------------------
 # Precise log10
 #

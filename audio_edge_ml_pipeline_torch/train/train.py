@@ -51,6 +51,13 @@ def setup_tracking(uri: Optional[str], experiment: str):
     logger.info("Tracking backend: %s  experiment: %s", tracking.tracking_location(), experiment)
 
 
+def apply_class_filter(X, y, label_names, class_filter, run_name=""):
+    """Keep only the classes in ``class_filter``, remapped to the canonical
+    name-sorted encoding that tune, optimize and to_tflite share, so that a
+    class-filtered model's label space lines up in every stage."""
+    return apply_class_filter_canonical(X, y, label_names, class_filter, run_name)
+
+
 def stratified_train_val_split(X, y, val_split: float, seed: int = 42):
     """Deterministic stratified split, with a non-stratified fallback when
     some class is too small to stratify; the rows scikit-learn's
@@ -138,7 +145,7 @@ def run_one(
         logger.info("[%s] Subsampled to %d samples", run.name, max_samples)
 
     if run.class_filter:
-        X, y, label_names = apply_class_filter_canonical(X, y, label_names, run.class_filter, run.name)
+        X, y, label_names = apply_class_filter(X, y, label_names, run.class_filter, run.name)
         logger.info("[%s] class_filter: keeping %d classes, %d samples", run.name, len(label_names), len(X))
 
     val_split = run.val_split if run.val_split is not None else 0.2

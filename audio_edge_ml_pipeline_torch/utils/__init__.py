@@ -1,1 +1,3 @@
 """Logging and device helpers."""
+
+from .logging import setup_logging  # noqa: F401

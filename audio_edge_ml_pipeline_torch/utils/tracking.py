@@ -17,7 +17,9 @@ backends, selected by the tracking URI:
 
 The subset of the MLflow client API that training and selection use is
 provided against both: set_tracking_uri, set_experiment, start_run (a run
-logs params, metrics, tags and artifacts), search_runs, get_run.
+logs params, metrics, tags and artifacts), active_run, end_run, the
+module-level log_params / log_metric / log_metrics / log_artifact / set_tag
+on the active run, search_runs, get_run.
 
 Env var MLFLOW_TRACKING_URI is honored.
 """
@@ -247,6 +249,15 @@ class ActiveRun:
         tdir.mkdir(exist_ok=True)
         (tdir / _safe_key(key)).write_text(str(value))
 
+    def log_batch(self, metrics: Optional[dict] = None, params: Optional[dict] = None,
+                  tags: Optional[dict] = None, step: int = 0) -> None:
+        for k, v in (params or {}).items():
+            self.log_param(k, v)
+        for k, v in (metrics or {}).items():
+            self.log_metric(k, float(v), step)
+        for k, v in (tags or {}).items():
+            self.set_tag(k, v)
+
     def log_artifact(self, local_path: str | Path) -> None:
         art = Path(self.info.artifact_uri)
         art.mkdir(parents=True, exist_ok=True)
@@ -398,6 +409,44 @@ def start_run(run_name: Optional[str] = None, experiment: Optional[str] = None) 
     run._previous = _ACTIVE_RUN  # restored when this run finalizes
     _ACTIVE_RUN = run
     return run
+
+
+def active_run() -> Optional[ActiveRun]:
+    return _ACTIVE_RUN
+
+
+def end_run(status: str = "FINISHED") -> None:
+    if _ACTIVE_RUN is not None:
+        _ACTIVE_RUN._finalize(status)
+
+
+# -- module-level conveniences (mlflow-style), on the active run of either store
+
+
+def log_params(params: dict) -> None:
+    if _ACTIVE_RUN:
+        _ACTIVE_RUN.log_batch(params=params)
+
+
+def log_metric(key: str, value: float, step: int = 0) -> None:
+    if _ACTIVE_RUN:
+        _ACTIVE_RUN.log_metric(key, value, step)
+
+
+def log_metrics(metrics: dict, step: int = 0) -> None:
+    if _ACTIVE_RUN:
+        numeric = {k: v for k, v in metrics.items() if isinstance(v, (int, float))}
+        _ACTIVE_RUN.log_batch(metrics=numeric, step=step)
+
+
+def log_artifact(path: str | Path) -> None:
+    if _ACTIVE_RUN:
+        _ACTIVE_RUN.log_artifact(path)
+
+
+def set_tag(key: str, value) -> None:
+    if _ACTIVE_RUN:
+        _ACTIVE_RUN.set_tag(key, value)
 
 
 # -- querying (select.py backend) ----------------------------------------

@@ -233,6 +233,27 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      ``tools/convert_backbone_weights.py``, the embedder on the file card
      vs CPU at B=32 x 224 (1e-4); its --prefix backbone --bundle file
      warm-starting the teacher on the card; no mel kernel launched;
+  5l. the repository's tools and scripts through the port's ``tools/``
+     package, after 5k, each command a user types its own process: the
+     README quick start (``make_synth_dataset`` 27 classes x 12 clips of
+     5 s in every layout, the mel extraction of train and validation on the
+     card, the flagship cnn for 3 epochs, select, optimize, select
+     --post-opt, deploy); ``generate_split`` (27 x 8 / 2 / 2, a re-run,
+     --seed 7 refused by the drift guard, --force) and the extraction CLI on
+     the manifest's test split; ``diagnose_data``, ``diagnose_training``,
+     ``verify_training_data``; ``test_model`` card vs CPU (equal predictions,
+     printed confidences 1e-5); stage 8, ``evaluate_device`` against a
+     loopback device whose answers come from the card (each test clip's
+     mel, one mel_rfft launch, scored by the quick start's bundle): its
+     metrics and report equal the bundle's own predict on the extracted
+     rows, and through its CLI with a file tracking store one out-of-set
+     reply counts wrong; ``receive_wav`` and ``record_dataset`` byte for byte
+     from int16 PCM frames; a FEAT frame of a train clip's card mel through
+     the repository's ``tools/receive_mel.py`` (its own row nearest) and
+     ``tools/gen_prototypes.py``; ``load_sample_data`` to the ingestion API
+     with requests blocked; ``test_dashboard``.
+     ``python3 chip_smoke.py --only 5l`` builds the kernels and runs this
+     phase alone;
   5j. the parallel layer (``parallel/mesh.py``), after 5g: the flagship
      CNN and the ds_cnn (JAX's defaults) fitted in float64 with
      data_parallel=2 by two gloo ranks sharing the card, against the same
@@ -252,7 +273,8 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      fsc22-27-classes-tuning.yaml (cut) through the tune CLI, an
      extraction over the cards and dryrun_multichip(N); with one card it
      says so. ``python3 chip_smoke.py --only 5j`` builds the kernels and
-     runs this phase alone;
+     runs this phase alone (with 2 or more cards also 5i's capture on a
+     card that is not current, on a seeded flagship bundle);
   6. timing with CUDA events at B=512 five-second clips (at n_fft 512 each
      entry's FFT route beside its dense kernel, in turns, and the plain
      versions; a yardstick on no path, torch.stft -> abs()**2 -> mel
@@ -3458,6 +3480,410 @@ def native_reader_checks(audio_dir: Path, names: list[str], tmp: Path) -> None:
           "4c: the native reader's failures")
 
 
+# ---------------------------------------------------------------------------
+# 5l: the repository tools and scripts through the port: the README quick
+# start, the split manifest, the diagnostics, stage 8 against a loopback device
+# ---------------------------------------------------------------------------
+
+QS_PER_CLASS = 12                 # make_synth_dataset --per-class: 8 / 2 / 2 a class after the 70/15/15 split
+QS_SPLIT = {"train": 8, "val": 2, "test": 2}   # round(0.7 * 12) = 8, round(0.15 * 12) = 2, the rest 2
+LOOP_CAPTURES = 3                 # PCM captures through receive_wav and through record_dataset
+SAMPLE_UPLOADS = 5                # load_sample_data's default --n
+OUT_OF_SET = "Thunderstorm"       # a label no synthetic class bears: the loopback's one out-of-set reply
+CONF_TOL = 1e-5                   # test_model's printed confidences card vs CPU
+PORT_TOOLS = "audio_edge_ml_pipeline_torch.tools."
+
+
+def tool_cli(module: str, argv: list[str], cwd: Path, block: tuple[str, ...] = ()) -> tuple[int, str, dict]:
+    """``python -m <module> <argv>`` as a user types it, in its own process from
+    ``cwd`` (TF32 off, as everywhere in this script; ``block``'s modules
+    unimportable there): (exit code, its output, the mel kernel launches it
+    made, by template instantiation, read from its counters as it ends)."""
+    code = ("import json, runpy, sys, torch\n"
+            "torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False\n"
+            f"for m in {block!r}:\n"
+            "    sys.modules[m] = None\n"
+            f"sys.argv = [{module!r}, *{argv!r}]\n"
+            "try:\n"
+            f"    runpy.run_module({module!r}, run_name='__main__', alter_sys=True)\n"
+            "finally:\n"
+            "    launches = {}\n"
+            "    for name in ('mel_kernel', 'mel_unfolded'):\n"
+            "        mod = sys.modules.get('audio_edge_ml_pipeline_torch.ops.' + name)\n"
+            "        for k, v in (dict(mod.counter.by_instantiation) if mod else {}).items():\n"
+            "            launches[k] = launches.get(k, 0) + v\n"
+            "    print('5L_LAUNCHES ' + json.dumps(launches), flush=True)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, cwd=cwd, timeout=600)
+    out = r.stdout + r.stderr
+    marks = re.findall(r"^5L_LAUNCHES (.*)$", r.stdout, re.M)
+    return r.returncode, out, json.loads(marks[-1]) if marks else {}
+
+
+def phase_5l(dev, card: str) -> dict:
+    """Phase 5l: the repository's tools and scripts through the port's
+    ``tools/`` package on the card, each typed command its own process
+    (``tool_cli``; b, c and f run beside a's chain, up to 4 processes at a
+    time, since a process's start-up is most of its time), in one
+    temporary directory:
+
+      a. the README quick start: make_synth_dataset (27 classes x 12 clips of
+         5 s at 16 kHz, every layout), the mel extraction of the train and
+         validation splits on the card, the flagship cnn (3 epochs), select,
+         optimize, select --post-opt and deploy;
+      b. generate_split on the audio_folder tree (27 x 8 / 2 / 2), a re-run,
+         --seed 7 refused by the drift guard (exit 1), --force, then the
+         extraction CLI on the manifest's test split (a --config: the flags
+         take no manifest) holding exactly its files;
+      c. diagnose_data, diagnose_training and verify_training_data on a's
+         train set; test_model on a's bundle on the card and on the CPU;
+      d. stage 8: a LoopbackSerial whose 'R' handler does what EVAL_MODE
+         firmware does, on the card: the next test clip's mel (the
+         audio_mel_spec extractor, one mel_rfft launch a clip) scored by a's
+         bundle; ``evaluate_device.evaluate`` over the test split against the
+         bundle's own predict on b's features, then its CLI (main, with
+         open_serial handed the loopback) with --manifest,
+         --optimization-report and a file tracking store, one reply out of
+         the set;
+      e. captures: receive_wav and record_dataset (main, open_serial handed a
+         loopback of 3 test clips' int16 PCM frames) byte for byte with
+         write_wav, the recorded tree through the extraction CLI; a FEAT
+         frame of a train clip's card mel through read_feat_frame, then the
+         repository's tools/receive_mel.py (nearest row) and
+         tools/gen_prototypes.py, which import neither jax nor the JAX package;
+      f. load_sample_data posting 5 clips to the ingestion API with requests
+         blocked; test_dashboard.
+    Returns the mel kernel's launches in the phase (subprocesses included)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from audio_edge_ml_pipeline_torch.data.audio_io import load_audio, write_wav
+    from audio_edge_ml_pipeline_torch.features.audio import AudioMelSpectrogram
+    from audio_edge_ml_pipeline_torch.features.pipeline import FeaturePipeline
+    from audio_edge_ml_pipeline_torch.models.deep import MODEL_FILENAME, load_any_model
+    from audio_edge_ml_pipeline_torch.ops import mel_kernel
+    from audio_edge_ml_pipeline_torch.serve import api
+    from audio_edge_ml_pipeline_torch.tools import evaluate_device, receive_wav, record_dataset, serial_proto
+    from audio_edge_ml_pipeline_torch.train import evaluate as evaluate_mod
+    from audio_edge_ml_pipeline_torch.utils import tracking
+
+    t_start = time.perf_counter()
+    launches: dict[str, int] = {}
+    cli_s: dict[str, float] = {}   # seconds by CLI, over its calls
+    calls = []
+    lock = threading.Lock()        # the commands run side by side from a thread pool
+
+    def count(new: dict) -> None:
+        with lock:
+            for k, v in new.items():
+                launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_5l_") as tmp_s:
+        tmp = Path(tmp_s)
+
+        def run(module: str, *argv: str, expect: int = 0, block: tuple[str, ...] = ()) -> str:
+            t0 = time.perf_counter()
+            rc, out, counts = tool_cli(module, [str(a) for a in argv], tmp, block)
+            label = module.removeprefix(PORT_TOOLS).removeprefix("audio_edge_ml_pipeline_torch.")
+            with lock:
+                cli_s[label] = cli_s.get(label, 0.0) + time.perf_counter() - t0
+                calls.append(label)
+            check(rc == expect, f"5l: {module} {list(argv)} exited {rc}, not {expect}: {out[-3000:]}")
+            count(counts)
+            return out
+
+        def script(name: str, *argv: str) -> str:
+            """One of the repository's tools/*.py that the port runs as it is."""
+            r = subprocess.run([sys.executable, str(REPO / "tools" / name), *map(str, argv)], capture_output=True,
+                               text=True, cwd=tmp, timeout=300)
+            check(r.returncode == 0, f"5l: tools/{name} exited {r.returncode}: {r.stderr[-3000:]}")
+            return r.stdout
+
+        synth, processed, models = tmp / "data/raw/synth", tmp / "data/processed", tmp / "data/models"
+        mel_train, mel_val, deploy_out = processed / "mel_train", processed / "mel_val", tmp / "deploy_out"
+        folder = synth / "audio_folder"
+        manifest_path = folder / "split_manifest.json"
+
+        def split_chain() -> dict:
+            """b: generate_split, a re-run, --seed 7 (the drift guard), --force, each on the manifest the one
+            before left; then the extraction CLI on the manifest's test split."""
+            out = {"first": run(PORT_TOOLS + "generate_split", "--dataset", folder)}
+            out["first_text"] = manifest_path.read_text()
+            out["rerun"] = run(PORT_TOOLS + "generate_split", "--dataset", folder)
+            out["drift"] = run(PORT_TOOLS + "generate_split", "--dataset", folder, "--seed", 7, expect=1)
+            out["kept"] = manifest_path.read_text() == out["first_text"]
+            out["forced"] = run(PORT_TOOLS + "generate_split", "--dataset", folder, "--seed", 7, "--force")
+            cfg = extraction_config(tmp / "test_split.yaml", folder, "audio_folder", "test", [
+                {"name": "folder_mel_test", "extractor": "audio_mel_spec", "manifest": str(manifest_path),
+                 "manifest_split": "test"}], processed)
+            run("audio_edge_ml_pipeline_torch.features.pipeline", "--config", cfg)
+            return out
+
+        # a. the README quick start through the port; what does not wait on it runs beside it (each process's
+        # start-up, not its work, is most of its time)
+        run(PORT_TOOLS + "make_synth_dataset", synth, "--classes", N_CLASSES, "--per-class", QS_PER_CLASS)
+        t_side = time.perf_counter()
+        server = api.create_server(tmp / "uploads", port=0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            with ThreadPoolExecutor(max_workers=4) as pool:
+                split_job = pool.submit(split_chain)
+                upload_job = pool.submit(run, PORT_TOOLS + "load_sample_data", "--dataset", folder, "--api-url",
+                                         f"http://127.0.0.1:{server.server_address[1]}", block=("requests",))
+                dash_job = pool.submit(run, PORT_TOOLS + "test_dashboard")
+                for job in [pool.submit(run, "audio_edge_ml_pipeline_torch.features.pipeline", "--loader", "fsc22",
+                                        "--dataset", synth / "fsc22", "--extractor", "audio_mel_spec", "--split",
+                                        split, "--output", out)
+                            for split, out in (("train", mel_train), ("validation", mel_val))]:
+                    job.result()
+                diag_jobs = {tool: pool.submit(run, PORT_TOOLS + tool, mel_train)
+                             for tool in ("diagnose_data", "diagnose_training", "verify_training_data")}
+                run("audio_edge_ml_pipeline_torch.train.train", "--features", mel_train, "--features-test", mel_val,
+                    "--model", "cnn", "--param", "filters=[16,64,64]", "--param", "first_stride=4", "--param",
+                    "second_stride=2", "--param", f"epochs={TRAIN_EPOCHS}", "--output", models, "--experiment", "demo")
+                bundle = models / "cnn" / MODEL_FILENAME
+                model_jobs = {dv: pool.submit(run, PORT_TOOLS + "test_model", bundle, mel_val, "--n", 20, *extra)
+                              for dv, extra in (("card", ()), ("cpu", ("--device", "cpu")))}
+                run("audio_edge_ml_pipeline_torch.train.select", "--experiment", "demo", "--output",
+                    models / "shortlist.json")
+                run("audio_edge_ml_pipeline_torch.optimize.optimize", "--shortlist", models / "shortlist.json",
+                    "--features-eval", mel_val, "--output", models / "optimized")
+                run("audio_edge_ml_pipeline_torch.train.select", "--post-opt", "--shortlist", models / "shortlist.json",
+                    "--opt-dir", models / "optimized")
+                reports = sorted((models / "optimized").glob("*/optimization_report.json"))
+                check(len(reports) == 1, f"5l: optimize wrote {reports}")
+                run("audio_edge_ml_pipeline_torch.deploy.deploy", "--report", reports[0], "--features-dir", mel_train,
+                    "--output", deploy_out, "--board", "nicla_vision")
+                split_out, posted, dash = split_job.result(), upload_job.result(), dash_job.result()
+                diag = {tool: job.result() for tool, job in diag_jobs.items()}
+                served = {dv: job.result() for dv, job in model_jobs.items()}
+        finally:
+            server.shutdown()
+            server.server_close()
+        side_s = time.perf_counter() - t_side
+        n_clips = N_CLASSES * QS_PER_CLASS
+        wavs = {layout: sorted((synth / layout).rglob("*.wav")) for layout in ("fsc22", "audio_folder")}
+        fs_train, fs_val = FeaturePipeline.load(mel_train), FeaturePipeline.load(mel_val)
+        shortlist = json.loads((models / "shortlist.json").read_text())
+        project = sorted(p.name for p in deploy_out.iterdir())
+        print(f"[5l] a. README quick start through the port on {card}, with b, c and f beside it ({len(calls)} "
+              f"commands, {side_s:.1f} s after make_synth_dataset): {len(wavs['fsc22'])} fsc22 and "
+              f"{len(wavs['audio_folder'])} audio_folder WAVs; mel_train {fs_train.features.shape}, mel_val "
+              f"{fs_val.features.shape}; shortlist {[c['run_name'] for c in shortlist['candidates']]}; "
+              f"best_model.json {(models / 'optimized' / 'best_model.json').exists()}; firmware project {project}")
+        check(all(len(v) == n_clips for v in wavs.values()), "5l: make_synth_dataset's trees")
+        check(all((synth / f).is_file() for f in ("text.csv", "tabular.csv")) and (synth / "images").is_dir(),
+              "5l: make_synth_dataset's text, tabular and image layouts")
+        check(fs_train.features.shape == (N_CLASSES * QS_SPLIT["train"], N_MELS, 1 + CLIP // HOP)
+              and fs_val.features.shape[0] == N_CLASSES * QS_SPLIT["val"], "5l: the quick start's FeatureSets")
+        check(bundle.is_file() and len(shortlist["candidates"]) == 1, "5l: the quick start's bundle and shortlist")
+        check((models / "optimized" / "best_model.json").is_file(), "5l: select --post-opt wrote no best_model.json")
+        check("platformio.ini" in project and (deploy_out / "src").is_dir(), "5l: deploy wrote no firmware project")
+
+        # b. the split manifest and its drift guard
+        first = json.loads(split_out["first_text"])
+        per_class = {(c, s): sum(1 for f in first[s] if f.split("/")[0] == c)
+                     for c in {f.split("/")[0] for f in first["train"]} for s in QS_SPLIT}
+        manifest = json.loads(manifest_path.read_text())
+        moved = sum(1 for s in QS_SPLIT for f in manifest[s] if f not in first[s])
+        fs_test = FeaturePipeline.load(processed / "folder_mel_test")
+        test_files = [f"{m['class_dir']}/{m['filename']}" for m in fs_test.metadata]
+        written = re.search(r"train: \d+\s+val: \d+\s+test: \d+", split_out["first"])
+        print(f"[5l] b. generate_split: {written and written.group(0)} ({len(per_class) // len(QS_SPLIT)} "
+              f"classes, each {sorted(set(per_class.values()))} a split); re-run exit 0 "
+              f"{'Manifest written' in split_out['rerun']}; --seed 7 exit 1 with "
+              f"{split_out['drift'].strip().splitlines()[0][:60]!r}..., manifest kept {split_out['kept']}; --force: "
+              f"{split_out['forced'].strip().splitlines()[0][:70]!r}, {moved} files moved; the extraction CLI on the "
+              f"manifest's test split: {fs_test.features.shape}, exactly its files "
+              f"{sorted(test_files) == sorted(manifest['test'])}")
+        check(all(n == QS_SPLIT[s] for (_, s), n in per_class.items()) and len(per_class) == N_CLASSES * len(QS_SPLIT),
+              "5l: the manifest is not 27 x 8 / 2 / 2")
+        check("DRIFT GUARD" in split_out["drift"] and split_out["kept"] and moved > 0, "5l: the drift guard")
+        check(sorted(test_files) == sorted(manifest["test"]) and len(test_files) == N_CLASSES * QS_SPLIT["test"],
+              "5l: the test split's FeatureSet is not the manifest's test files")
+
+        # c. the diagnostics on a's train set, test_model on the card and on the CPU
+        rows = {dv: re.findall(r"^\[(?:OK |BAD)\] sample (\d+): true=(\S+)\s+pred=(\S+)\s+conf=(\S+)$", text, re.M)
+                for dv, text in served.items()}
+        conf_gap = max(abs(float(a[3]) - float(b[3])) for a, b in zip(rows["card"], rows["cpu"]))
+        summary = {tool: [ln for ln in text.splitlines() if ln.startswith(("NaN", "OK", "ISSUE", "WARNING", "note"))]
+                   for tool, text in diag.items()}
+        correct = re.findall(r"^(\d+/\d+ correct)$", served["card"], re.M)
+        print(f"[5l] c. diagnostics on mel_train: {summary}; test_model on 20 validation rows, card vs CPU: "
+              f"predictions equal {[r[:3] for r in rows['card']] == [r[:3] for r in rows['cpu']]}, printed "
+              f"confidences max|d| {conf_gap:.3e} (tol {CONF_TOL:g}); {correct}")
+        check("NaN: 0  Inf: 0" in diag["diagnose_data"] and "PROBLEM" not in diag["diagnose_data"],
+              "5l: diagnose_data reports non-finite values")
+        check("leakage" not in diag["diagnose_training"] and "non-finite" not in diag["diagnose_training"],
+              "5l: diagnose_training reports leakage or non-finite values")
+        check("OK: batches are finite and stratified." in diag["verify_training_data"], "5l: verify_training_data")
+        check(len(rows["card"]) == 20 and [r[:3] for r in rows["card"]] == [r[:3] for r in rows["cpu"]]
+              and conf_gap <= CONF_TOL, "5l: test_model on the card disagrees with the CPU")
+
+        # d. stage 8 against a loopback device on the card
+        names = fs_train.label_names
+        model = load_any_model(bundle)
+        check(model.device.type == "cuda", "5l: the loopback's bundle is not on the card")
+        extractor = AudioMelSpectrogram(device=dev)
+        test_clips = [(folder / rel, rel.split("/")[0]) for rel in manifest["test"]]
+        pending: list[Path] = []
+        answers: list[str] = []
+        wrong_reply: dict[int, str] = {}
+
+        def firmware(ser, data: bytes) -> None:
+            """EVAL_MODE: on 'R', the next clip's mel on the card, scored, then PRED / SCORES / EVAL_DONE."""
+            if data != b"R":
+                return
+            feat = extractor.extract(pending.pop(0))
+            proba = model.predict_proba(feat[None])[0]
+            label = wrong_reply.get(len(answers), names[int(proba.argmax())])
+            answers.append(names[int(proba.argmax())])
+            ser.feed(f"PRED {label}\nSCORES {' '.join(f'{p:.6f}' for p in proba)}\nEVAL_DONE\n".encode())
+
+        mel_kernel.counter.reset()
+        pending[:] = [p for p, _ in test_clips]
+        t0 = time.perf_counter()
+        metrics = evaluate_device.evaluate(serial_proto.LoopbackSerial(on_write=firmware), test_clips,
+                                           sorted({c for _, c in test_clips}), playback=False,
+                                           output_dir=tmp / "device_eval_api")
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        loop_launches = dict(mel_kernel.counter.by_instantiation)
+        count(loop_launches)
+        # the bundle's own predict on b's features of the same clips
+        row_of = {f: i for i, f in enumerate(test_files)}
+        batch_pred = model.predict(fs_test.features)
+        own = [names[int(batch_pred[row_of[str(p.relative_to(folder))]])] for p, _ in test_clips]
+        label_set = sorted({c for _, c in test_clips})
+        y_true = np.array([label_set.index(c) for _, c in test_clips])
+        y_own = np.array([label_set.index(c) for c in own])
+        want = evaluate_mod.compute_metrics(y_true, y_own, label_names=label_set)
+        evaluate_mod.save_classification_report(y_true, y_own, label_set, tmp / "own_report.txt")
+        same_report = ((tmp / "device_eval_api" / "classification_report.txt").read_text()
+                       == (tmp / "own_report.txt").read_text())
+        print(f"[5l] d. evaluate_device.evaluate over the {len(test_clips)} test clips through the loopback on {card} "
+              f"in {loop_s:.2f} s ({1e3 * loop_s / len(test_clips):.1f} ms a clip): val_accuracy "
+              f"{metrics['val_accuracy']:.6f}, val_f1_macro {metrics['val_f1_macro']:.6f}; the bundle's predict on "
+              f"the extraction CLI's rows: {want['val_accuracy']:.6f}, {want['val_f1_macro']:.6f}; per-clip answers "
+              f"equal the batch's {answers == own}; classification_report.txt equal {same_report}; launches "
+              f"{loop_launches}")
+        check(metrics["val_accuracy"] == want["val_accuracy"] and metrics["val_f1_macro"] == want["val_f1_macro"],
+              "5l: the device's metrics are not the bundle's own")
+        check(same_report, "5l: the loopback's classification report differs from the bundle's own")
+        check(loop_launches == {"mel_rfft<256, float>": len(test_clips)}, f"5l: the loopback launched {loop_launches}")
+
+        # stage 8's CLI: --manifest, --optimization-report, a file tracking store; the first reply out of the set
+        answers.clear()
+        pending[:] = [p for p, _ in test_clips]
+        wrong_reply[0] = OUT_OF_SET
+        store = tmp / "device_store"
+        opened = serial_proto.open_serial
+        serial_proto.open_serial = lambda *a, **k: serial_proto.LoopbackSerial(on_write=firmware)
+        mel_kernel.counter.reset()
+        try:
+            captured_stdout(evaluate_device.main, [
+                "--port", "loopback", "--dataset", str(folder), "--manifest", str(manifest_path),
+                "--optimization-report", str(reports[0]), "--no-playback", "--mlflow-uri", str(store),
+                "--output", str(tmp / "device_eval")])
+            tracking.set_tracking_uri(str(store))
+            runs = tracking.search_runs("device-eval")
+        finally:
+            serial_proto.open_serial = opened
+            tracking.set_tracking_uri(None)
+        count(dict(mel_kernel.counter.by_instantiation))
+        expected = (sum(a == c for a, (_, c) in zip(own, test_clips)) - int(own[0] == test_clips[0][1])) / len(own)
+        run8 = runs[0] if len(runs) == 1 else None
+        arts = sorted(p.name for p in Path(run8.artifact_uri).iterdir()) if run8 else []
+        report8 = (tmp / "device_eval" / "classification_report.txt").read_text()
+        print(f"[5l] d. the evaluate_device CLI (first reply {OUT_OF_SET!r}): {len(runs)} run(s) "
+              f"{[r.run_name for r in runs]}, params {run8.params if run8 else None}, device_val_accuracy "
+              f"{run8.metrics.get('device_val_accuracy') if run8 else None} (expected {expected:.6f}), artifacts "
+              f"{arts}; the report names {OUT_OF_SET} {OUT_OF_SET in report8}")
+        check(run8 is not None and run8.run_name == "device_eval_test" and run8.status == "FINISHED",
+              "5l: no device_eval_test run in the tracking store")
+        check(run8.metrics.get("device_val_accuracy") == expected, "5l: the out-of-set reply was not counted wrong")
+        check(arts == ["classification_report.txt", "confusion_matrix.png"] and OUT_OF_SET in report8,
+              "5l: the device run's artifacts or its grown label set")
+
+        # e. captures: PCM frames through receive_wav and record_dataset, a FEAT frame through receive_mel
+        cap = test_clips[:LOOP_CAPTURES]
+        pcm = [np.clip(np.round(load_audio(p, sr=SR)[0] * 32768.0), -32768, 32767).astype(np.int16) for p, _ in cap]
+        refs = []
+        for i, frame in enumerate(pcm):
+            write_wav(tmp / f"ref_{i}.wav", frame.astype("float32") / 32768.0, SR)
+            refs.append((tmp / f"ref_{i}.wav").read_bytes())
+
+        def pcm_device(*_a, **_k):
+            ser = serial_proto.LoopbackSerial()
+            for frame in pcm:
+                serial_proto.write_pcm_frame(ser, frame)
+            return ser
+
+        serial_proto.open_serial = pcm_device
+        try:
+            captured_stdout(receive_wav.main, ["--port", "loopback", "--count", str(LOOP_CAPTURES), "--out",
+                                               str(tmp / "captures")])
+            captured_stdout(record_dataset.main, ["--port", "loopback", "--no-prompt", "--count", str(LOOP_CAPTURES),
+                                                  "--label", cap[0][1], "--out", str(tmp / "recorded")])
+        finally:
+            serial_proto.open_serial = opened
+        got_recv = [p.read_bytes() for p in sorted((tmp / "captures").glob("capture_*.wav"))]
+        got_rec = [p.read_bytes() for p in sorted((tmp / "recorded" / cap[0][1]).glob("rec_*.wav"))]
+        run("audio_edge_ml_pipeline_torch.features.pipeline", "--loader", "audio_folder", "--dataset",
+            tmp / "recorded", "--extractor", "audio_mel_spec", "--split", "all", "--output", processed / "recorded")
+        fs_rec = FeaturePipeline.load(processed / "recorded")
+
+        j = 0   # a train clip: its mel on the card, alone, as a FEAT frame
+        audio_dir = next((synth / "fsc22").glob("Audio Wise V1.0-*/Audio Wise V1.0"))
+        mel_kernel.counter.reset()
+        feat = extractor.extract(audio_dir / fs_train.metadata[j]["filename"])
+        count(dict(mel_kernel.counter.by_instantiation))
+        wire = serial_proto.LoopbackSerial()
+        serial_proto.write_feat_frame(wire, feat)
+        device_mel = serial_proto.read_feat_frame(wire)
+        np.save(tmp / "device_mel.npy", device_mel)
+        near = script("receive_mel.py", "--load", tmp / "device_mel.npy", "--no-device", "--features", mel_train)
+        nearest = dict(re.findall(r"^\s+(\w+): (\S+)$", near, re.M))
+        protos = script("gen_prototypes.py", "--features", mel_train, "--out-dir", deploy_out)
+        header = (deploy_out / "include" / "prototypes.h").read_text()
+        print(f"[5l] e. receive_wav wrote {len(got_recv)} and record_dataset {len(got_rec)} WAVs from {LOOP_CAPTURES} "
+              f"int16 PCM frames, byte for byte write_wav(pcm / 32768): {got_recv == refs}, {got_rec == refs}; the "
+              f"recorded tree through the extraction CLI {fs_rec.features.shape} {fs_rec.label_names}; the FEAT "
+              f"frame read back bit for bit {np.array_equal(device_mel, feat)}; tools/receive_mel.py: nearest row "
+              f"{nearest.get('nearest_index')} (the clip's {j}), MSE {nearest.get('nearest_mse')}; "
+              f"tools/gen_prototypes.py: {protos.strip()}")
+        check(got_recv == refs and got_rec == refs, "5l: the captured WAVs are not write_wav's bytes")
+        check(fs_rec.features.shape == (LOOP_CAPTURES, N_MELS, 1 + CLIP // HOP) and fs_rec.label_names == [cap[0][1]],
+              "5l: the recorded tree's FeatureSet")
+        check(np.array_equal(device_mel, feat), "5l: the FEAT frame did not come back bit for bit")
+        check(nearest.get("nearest_index") == str(j), f"5l: receive_mel found row {nearest.get('nearest_index')}")
+        check(f"#define PROTO_N_CLASSES {N_CLASSES}" in header, "5l: gen_prototypes' header")
+
+        # f. load_sample_data to the ingestion API without requests (run beside a); test_dashboard
+        metas = [json.loads(p.read_text()) for p in sorted((tmp / "uploads").glob("*.json"))]
+        first5 = sorted(folder.rglob("*.wav"))[:SAMPLE_UPLOADS]
+        print(f"[5l] f. load_sample_data with requests blocked: {posted.count(': 200 ')} replies 200, "
+              f"{len(list((tmp / 'uploads').glob('*.wav')))} WAVs and {len(metas)} sidecars stored, fields "
+              f"{sorted({(m['true_class'], m['source']) for m in metas})}; test_dashboard: "
+              f"{[ln for ln in dash.splitlines() if ln.startswith('render')]}")
+        check(len(metas) == SAMPLE_UPLOADS == len(list((tmp / "uploads").glob("*.wav")))
+              and sorted(m["filename"] for m in metas) == sorted(p.name for p in first5)
+              and all(m["true_class"] == p.parent.name and m["source"] == "load_sample_data"
+                      for m, p in zip(sorted(metas, key=lambda m: m["filename"]), first5)),
+              "5l: the uploads and their sidecars")
+        check("render OK" in dash, "5l: test_dashboard")
+
+    total = sum(launches.values())
+    print(f"[5l] mel kernel launches in phase 5l (its CLI processes and the loopback): {launches}")
+    print(f"[5l] phase 5l in {time.perf_counter() - t_start:.2f} s on {card}; its {len(calls)} CLI processes took "
+          f"{sum(cli_s.values()):.1f} s together, up to 4 at a time: "
+          + ", ".join(f"{k} x{calls.count(k)} {v:.2f} s" for k, v in cli_s.items()))
+    check(set(launches) == {"mel_rfft<256, float>"}, f"5l launched {launches}")
+    return {"mel_launches": total}
+
+
 DP_PER_CLASS, DP_EPOCHS, DP_BATCH = 4, 2, 32   # the data-parallel fits: 27 x 4 seeded mel rows, 2 epochs, batch 32
 DP_LOSS_TOL, DP_PARAM_TOL = 1e-5, 1e-4         # a data-parallel fit vs one process: losses relative; parameters
                                                # and BatchNorm statistics over each tensor's largest
@@ -3942,6 +4368,22 @@ def main() -> int:
         print(f"[2] {kname} ptxas: {' | '.join(ptxas)}")
     if sys.argv[1:] == ["--only", "5j"]:   # the parallel phase alone, e.g. its NCCL part on a machine of several cards
         phase_5j(dev, card)
+        if torch.cuda.device_count() >= 2:   # and 5i's capture on a card that is not current, on a seeded bundle
+            from audio_edge_ml_pipeline_torch.features.base import FeatureSet
+
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_5i_") as tmp_s:
+                tmp = Path(tmp_s)
+                bundle = seeded_bundle("cnn", CNN_PARAMS, (N_MELS, 1 + CLIP // HOP, 1), tmp / MODEL_FILENAME)
+                X = np.random.default_rng(12).random((40, N_MELS, 1 + CLIP // HOP), dtype=np.float32)
+                pipeline.FeaturePipeline.save(FeatureSet(features=X, feature_type="deep", modality="audio",
+                                                         metadata=[{} for _ in X], labels=np.arange(40) % N_CLASSES,
+                                                         label_names=[str(i) for i in range(N_CLASSES)]),
+                                              tmp / "features")
+                other_card_capture(tmp, bundle, tmp / "features", card)
+        print(f"[7] the run took {time.perf_counter() - t_all:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--only", "5l"]:   # the tools phase alone: it makes its own data
+        phase_5l(dev, card)
         print(f"[7] the run took {time.perf_counter() - t_all:.1f} s")
         return 0
 
@@ -4495,6 +4937,9 @@ def main() -> int:
         phase_5i(dev, tmp, trained, tmp / "features", card)
         phase_5k(dev, tmp, trained, tmp / "features", card)
 
+        # 5l. the repository tools and scripts through the port: the quick start, the manifest, stage 8
+        t5l = phase_5l(dev, card)
+
     # 5d. the classical core on the card against the CPU at fsc22 scale, with TF32 allowed everywhere
     X_fit, y_fit, X_q, y_q = fsc22_classical(np.random.default_rng(22))
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
@@ -4842,7 +5287,7 @@ def main() -> int:
         "replaces": "audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:119",
         "launches": (extract_launches + shipped_f32 + t4e["mel_launches"] + t4f["mel_launches"] + t4g["mel_launches"]
                      + serve_launches + trained_launches + t5e["mel_launches"] + t5f["mel_launches"]
-                     + t5g["mel_launches"] + t5h["mel_launches"] + t5j["mel_launches"]),
+                     + t5g["mel_launches"] + t5h["mel_launches"] + t5j["mel_launches"] + t5l["mel_launches"]),
         "max_abs_err": worst_abs,
         "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "plain_products": "float64", "dense_ms": ms_dense,

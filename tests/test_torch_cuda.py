@@ -789,3 +789,38 @@ def test_compile_xla_captures_on_the_bundles_card_when_another_is_current(cuda_d
     finally:
         torch.cuda.set_device(prev)
         torch.backends.cudnn.allow_tf32 = flags
+
+
+@pytest.mark.cuda
+def test_test_model_on_the_card_prints_what_the_cpu_prints(cuda_device, tmp_path, capsys):
+    """The ported scripts/test_model.py: the same seeded rows, predictions
+    equal and printed confidences within 1e-5, card (its default) vs --device cpu."""
+    import re
+
+    from audio_edge_ml_pipeline_torch.features.base import FeatureSet
+    from audio_edge_ml_pipeline_torch.features.pipeline import FeaturePipeline
+    from audio_edge_ml_pipeline_torch.models.deep import CNNTrainer
+    from audio_edge_ml_pipeline_torch.tools import test_model
+
+    rng = np.random.default_rng(4)
+    y = np.repeat(np.arange(3), 8).astype(np.int32)
+    X = rng.random((24, 40, 51), dtype=np.float32) + y[:, None, None] * 0.2
+    FeaturePipeline.save(FeatureSet(features=X, feature_type="deep", modality="audio", metadata=[{}] * 24,
+                                    labels=y, label_names=["a", "b", "c"]), tmp_path / "fs")
+    cnn = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, device="cpu")
+    cnn.initialize((40, 51, 1), 3, torch.Generator().manual_seed(0))
+    cnn.save(tmp_path / "model.flax.npz")
+    outs = []
+    flags = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False   # full float32 convolutions, as the CPU's
+    try:
+        for extra in ([], ["--device", "cpu"]):
+            capsys.readouterr()
+            test_model.main([str(tmp_path / "model.flax.npz"), str(tmp_path / "fs"), "--n", "20", *extra])
+            outs.append(capsys.readouterr().out.splitlines())
+    finally:
+        torch.backends.cudnn.allow_tf32 = flags
+    strip = [[re.sub(r" conf=\S+$", "", ln) for ln in out] for out in outs]
+    confs = [[float(c) for c in re.findall(r" conf=(\S+)$", "\n".join(out), re.M)] for out in outs]
+    assert strip[0] == strip[1] and len(confs[0]) == 20
+    assert max(abs(a - b) for a, b in zip(*confs)) <= 1e-5

@@ -112,6 +112,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda, tmp_path
     from audio_edge_ml_pipeline_torch.serve.edge_simulator import EdgeDeviceSimulator
     from audio_edge_ml_pipeline_torch.compilation import compile_xla, to_tflite
     from audio_edge_ml_pipeline_torch.serve import audio_processor
+    from audio_edge_ml_pipeline_torch.tools import test_model
     from audio_edge_ml_pipeline_torch.train import train
 
     bundle = tmp_path / "m.npz"
@@ -137,6 +138,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda, tmp_path
         lambda: audio_processor.main(["--input", str(tmp_path / "data" / "a"), "--output", str(tmp_path / "mel")]),
         lambda: compile_xla.main(["--model", str(bundle), "--features", str(tmp_path)]),
         lambda: to_tflite.compile_model(bundle, tmp_path, tmp_path, tmp_path / "tfl", None, {}),
+        lambda: test_model.main([str(bundle), str(tmp_path)]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -198,3 +200,50 @@ def test_tflite_modules_import_with_jax_and_tensorflow_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+
+
+TOOLS = ["serial_proto", "make_synth_dataset", "generate_split", "diagnose_data", "diagnose_training",
+         "verify_training_data", "test_model", "receive_wav", "record_dataset", "evaluate_device", "load_sample_data",
+         "test_dashboard"]
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_tool_runs_help_with_jax_blocked(tool):
+    """``python -m audio_edge_ml_pipeline_torch.tools.<tool> --help`` with jax,
+    the JAX package, the repository's tools/ and scripts/ modules, requests
+    and pyserial unimportable, and none of them loaded."""
+    blocked = (*FORBIDDEN, "tools", "scripts", "serial_proto", "requests", "serial", "sklearn", "matplotlib")
+    code = (
+        "import runpy, sys\n"
+        f"for m in {blocked!r}:\n"
+        "    sys.modules[m] = None\n"
+        f"sys.argv = ['{tool}', '--help']\n"
+        "try:\n"
+        f"    runpy.run_module('audio_edge_ml_pipeline_torch.tools.{tool}', run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code in (0, None), exc.code\n"
+        f"bad = sorted(m for m, v in sys.modules.items() if v is not None and m.split('.')[0] in {blocked!r})\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO), env.get("PYTHONPATH", "")]).rstrip(os.pathsep)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert tool == "serial_proto" or "usage:" in proc.stdout
+
+
+def test_tools_import_no_repo_tool_and_edit_no_sys_path():
+    """The ported tools import the port through relative imports: nothing of
+    the repository's tools/ or scripts/, and no sys.path edit anywhere in the
+    package."""
+    for path in sorted(PORT.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        roots = _imported_roots(path)
+        assert not roots & {"tools", "scripts", "serial_proto"}, path
+        paths = [n for n in ast.walk(tree) if isinstance(n, ast.Attribute) and n.attr == "path"
+                 and isinstance(n.value, ast.Name) and n.value.id == "sys"]
+        assert not paths, f"{path} touches sys.path"
+    assert sorted(p.stem for p in (PORT / "tools").glob("*.py") if p.stem != "__init__") == sorted(
+        [*TOOLS, "convert_backbone_weights"])

@@ -315,6 +315,73 @@ def test_a_run_written_by_one_package_reads_back_in_the_other(stub_server, write
     assert (again.run_name, again.params, again.metrics) == (rec.run_name, rec.params, rec.metrics)
 
 
+def _module_api_session(trk, experiment: str, art: Path) -> None:
+    """The MLflow-style module functions of ``trk`` (either package), as
+    tests/test_tracking_rest.py drives the JAX ones."""
+    trk.set_experiment(experiment)
+    assert trk.active_run() is None
+    trk.log_metric("ignored", 1.0)   # no active run: nothing is logged
+    with trk.start_run(run_name="svm_c1") as run:
+        assert trk.active_run() is run
+        trk.log_params({"model": "svm", "features_dir": "/tmp/f_train"})
+        trk.log_metrics({"val_accuracy": 0.91, "val_f1_macro": 0.90, "note": "not a number"})
+        trk.log_metric("loss", 0.5, step=2)
+        trk.set_tag("stage", "train")
+        trk.log_artifact(art)
+    assert trk.active_run() is None
+    trk.start_run(run_name="svm_c2")
+    trk.log_params({"model": "svm"})
+    trk.log_metrics({"val_accuracy": 0.80, "val_f1_macro": 0.78})
+    trk.end_run("FAILED")
+    assert trk.active_run() is None
+    trk.end_run()   # nothing active: a no-op
+
+
+@pytest.mark.parametrize("store", ["rest", "file"])
+def test_module_level_api_records_what_the_jax_one_records(stub_server, tmp_path, store):
+    """active_run, end_run, log_params, log_metric, log_metrics, log_artifact
+    and set_tag on the port's active run, REST or file store, against the
+    same calls of the JAX package's functions."""
+    uri, state = stub_server
+    art = tmp_path / "report.json"
+    art.write_text('{"ok": true}')
+    records = {}
+    for name, trk in (("jax", jtracking), ("port", tracking)):
+        trk.set_tracking_uri(uri if store == "rest" else str(tmp_path / f"mlruns_{name}"))
+        _module_api_session(trk, f"module-api-{name}", art)
+        recs = sorted(trk.search_runs(f"module-api-{name}", status=None), key=lambda r: r.run_name)
+        records[name] = [(r.run_name, r.status, r.params, r.metrics, r.tags) for r in recs]
+        ((_, c1),) = [(r.run_name, r) for r in recs if r.run_name == "svm_c1"]
+        if store == "rest":
+            assert state.artifacts[next(k for k in state.artifacts if c1.run_id in k)] == b'{"ok": true}'
+        else:
+            assert (Path(c1.artifact_uri) / "report.json").read_text() == '{"ok": true}'
+    assert records["port"] == records["jax"]
+    (c1, c2) = records["port"]
+    assert c1[1:4] == ("FINISHED", {"model": "svm", "features_dir": "/tmp/f_train"},
+                       {"val_accuracy": 0.91, "val_f1_macro": 0.90, "loss": 0.5})
+    assert c1[4]["stage"] == "train" and c2[1] == "FAILED" and c2[3] == {"val_accuracy": 0.80, "val_f1_macro": 0.78}
+
+
+@pytest.mark.parametrize("store", ["rest", "file"])
+def test_nested_runs_finalize_and_restore_the_outer_run(stub_server, tmp_path, store):
+    """tests/test_infra.py's nested runs on the port: each run finalizes
+    itself and hands active_run back to the run it interrupted."""
+    uri, _ = stub_server
+    tracking.set_tracking_uri(uri if store == "rest" else str(tmp_path / "mlruns"))
+    tracking.set_experiment("nested")
+    with tracking.start_run(run_name="outer") as outer:
+        with tracking.start_run(run_name="inner") as inner:
+            assert tracking.active_run() is inner
+        assert tracking.active_run() is outer
+        assert inner.info.status == "FINISHED"
+        tracking.log_metric("m", 1.0)   # lands on the outer run
+    assert outer.info.status == "FINISHED"
+    assert tracking.active_run() is None
+    runs = {r.run_name: r for r in tracking.search_runs("nested", status="FINISHED")}
+    assert set(runs) == {"outer", "inner"} and runs["outer"].metrics == {"m": 1.0} and runs["inner"].metrics == {}
+
+
 # ---------------------------------------------------------------------------
 # The port's stage CLIs (train sweep -> select -> optimize, and tune) with
 # MLFLOW_TRACKING_URI=http://<stub> and a shared-filesystem artifact root,
