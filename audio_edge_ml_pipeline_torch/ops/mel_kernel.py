@@ -6,25 +6,29 @@
 its power, and the slaney mel product, (B, n) waveforms -> (B, T, n_mels)
 mel power, time-major. On a CUDA tensor it launches one of two hand-written
 kernels, chosen by ``route`` from n_fft alone: ``csrc/mel_rfft.cu``, a real
-FFT, for n_fft in {256, 320, 400, 480, 512, 640, 1024, 2048} (``rfft_plan``
-builds its tables), and ``csrc/mel_folded.cu``, the dense folded DFT, for
-every other even n_fft. On a CPU tensor it runs ``mel_power_folded_plain``,
-the same gather (``dsp.fold_indices``) and GEMMs as torch ops. There is no
-fallback from one to another: a CUDA tensor the routed kernel cannot take
-raises.
+FFT of compiled plans, for n_fft in {256, 320, 400, 480, 512, 640, 1024,
+2048} (``rfft_plan`` builds its tables), and ``csrc/mel_czt.cu``, a real FFT
+of run-time length (direct where n_fft / 2 is 5-smooth, chirp-z elsewhere;
+``czt_plan`` builds its plan and tables), for every other even n_fft. On a
+CPU tensor it runs ``mel_power_folded_plain``, the same gather
+(``dsp.fold_indices``) and GEMMs as torch ops. There is no fallback from one
+to another: a CUDA tensor the routed kernel cannot take raises.
 
-``launch_rfft`` and ``launch_dense`` launch a kernel and count nothing: the
+``launch_rfft`` and ``launch_czt`` launch a kernel and count nothing: the
 wrapper counts, in all and by template instantiation
 (``KernelCounter.by_instantiation``). ``mel_unfolded.mel_power_unfolded``
-calls ``launch_rfft`` too and adds to its own counter.
+calls both too and adds to its own counters. ``launch_dense`` launches the
+earlier design of the off-plan route, the dense folded DFT
+``csrc/mel_folded.cu``: no route reaches it, so ``counter_dense`` reads 0 on
+every path; ``chip_smoke.py`` times it beside ``mel_czt``.
 
 ``precise=True`` (the MFCC features, ``ops/audio_features.py``) launches
 the float64 instantiation of the routed kernel: the same steps in float64,
 which the MFCC's dB scale at ref = 1 needs (see that file), on float64
 tables. Those launches count on ``counter`` and on ``counter_f64``. Each
-kernel sizes its tiles to the shared memory (``fit_tile``): the dense one
-holds every even n_fft up to 9,630 in float32 and 4,798 in float64 and
-raises above.
+kernel sizes its tiles to the shared memory (``fit_tile``): ``mel_czt``
+holds every even n_fft up to 16,384 in float32 and 10,240 in float64 at hop
+160 and 40 mels (one warp of one frame a block there) and raises above.
 
 ``mel_spec_feature`` adds the masked dB and min-max epilogue (torch ops, from
 ``ops.dsp``), as ``mel_spec_feature_pallas`` does on the TPU side.
@@ -40,13 +44,15 @@ import threading
 import numpy as np
 import torch
 
-from . import _build, dsp, rfft_plan
+from . import _build, czt_plan, dsp, rfft_plan
 from .golden import librosa_ref as ref
 
 F_ALIGN = 96              # f_pad is a multiple of 32 lanes x kChunksPerPass
 SMEM_LIMIT = 232_448      # dynamic shared memory a block may use on Hopper
 RFFT_TILES = (32, 16, 8, 4, 2, 1)   # frames a tile that csrc/mel_rfft.cu takes, preferred first
 DENSE_TILES = (32, 16, 8, 4)        # frames a block that csrc/mel_folded.cu is built for, preferred first
+CZT_SHAPES = ((8, 32), (8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))  # csrc/mel_czt.cu's
+                                    # (warps a block, frames a tile), preferred first
 
 
 class KernelCounter:
@@ -73,13 +79,15 @@ class KernelCounter:
 
 def instantiation(kernel: str, n_fft: int, precise: bool) -> str:
     """The template instantiation a launch runs: ``mel_rfft<M, T>`` (M =
-    n_fft / 2) or ``<dense kernel><T>``, T float or double."""
+    n_fft / 2) for kernel "rfft", else ``<kernel><T>`` (``mel_czt<T>``, or
+    a dense kernel's), T float or double."""
     t = "double" if precise else "float"
     return f"mel_rfft<{n_fft // 2}, {t}>" if kernel == "rfft" else f"{kernel}<{t}>"
 
 
-counter = KernelCounter("mel_folded")              # every launch of either kernel
-counter_dense = KernelCounter("mel_folded_dense")  # the launches of the dense one among them
+counter = KernelCounter("mel_folded")              # every launch of either routed kernel
+counter_czt = KernelCounter("mel_folded_czt")      # the launches of csrc/mel_czt.cu among them
+counter_dense = KernelCounter("mel_folded_dense")  # routed launches of csrc/mel_folded.cu: none since mel_czt
 counter_f64 = KernelCounter("mel_folded_f64")      # the launches of either kernel's float64 instantiation among them
 
 
@@ -118,11 +126,11 @@ def mel_power_folded_plain(
 
 def route(n_fft: int) -> str:
     """The kernel that takes ``n_fft`` on a card: "rfft" (csrc/mel_rfft.cu)
-    for the FFT's sizes, "dense" (csrc/mel_folded.cu) for any other even
+    for the compiled plans' sizes, "czt" (csrc/mel_czt.cu) for any other even
     n_fft. Odd n_fft raises: the fold pairs x[n] with x[n_fft - n]."""
     if n_fft % 2 or n_fft < 4:
         raise ValueError(f"the folded kernels need an even n_fft >= 4, got {n_fft}")
-    return "rfft" if rfft_plan.supports(n_fft) else "dense"
+    return "rfft" if rfft_plan.supports(n_fft) else "czt"
 
 
 def _check(y: torch.Tensor) -> None:
@@ -199,6 +207,75 @@ def launch_rfft(y: torch.Tensor, sr: int, n_mels: int, n_fft: int, hop_length: i
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def czt_constants(sr: int, n_fft: int, n_mels: int, device: torch.device,
+                  precise: bool = False) -> tuple[torch.Tensor, ...]:
+    """What csrc/mel_czt.cu reads of ``czt_plan.tables`` (``tables64`` if
+    ``precise``), on ``device``, built once per device: (window, chirp, filt,
+    positions, twiddles, split, weights, chunks, slots)."""
+    tab = (czt_plan.tables64 if precise else czt_plan.tables)(sr, n_fft, n_mels)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (tab.window, tab.chirp, tab.filt, tab.positions, tab.twiddles, tab.split, tab.weights,
+                           tab.chunks, tab.slots))
+
+
+def _czt_library() -> ctypes.CDLL:
+    lib = _build.load_library("mel_czt")
+    if lib.mel_czt_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for launch in (lib.mel_czt_launch, lib.mel_czt_launch_f64):
+            launch.argtypes = [p, i, i, i, i, i, i, i, i, i, i, p, p, p, i, p, p, p, p, p, p, p, p, i, p, i, i, p, p]
+            launch.restype = ctypes.c_int
+    return lib
+
+
+def czt_shape(n_fft: int, hop_length: int, n_slots: int, precise: bool) -> tuple[int, int]:
+    """(warps a block, frames a tile) of csrc/mel_czt.cu: the first of
+    CZT_SHAPES whose shared memory fits in SMEM_LIMIT (its ``smem_bytes``);
+    ValueError naming the kernel when none does."""
+    scratch = czt_plan.scratch_size(czt_plan.plan(n_fft))
+    t_bytes = 8 if precise else 4
+
+    def smem(shape):
+        warps, tile = shape
+        return 4 * (((tile - 1) * hop_length + n_fft + 3) // 4 * 4) + t_bytes * warps * (2 * scratch + n_slots)
+
+    try:
+        return fit_tile(smem, CZT_SHAPES)[0]
+    except ValueError:
+        raise ValueError(f"mel_czt<{'double' if precise else 'float'}> at n_fft={n_fft}, hop={hop_length}: "
+                         f"{smem(CZT_SHAPES[-1])} B of shared memory for one warp of one frame "
+                         f"(> {SMEM_LIMIT})") from None
+
+
+def launch_czt(y: torch.Tensor, sr: int, n_mels: int, n_fft: int, hop_length: int,
+               precise: bool = False) -> torch.Tensor:
+    """csrc/mel_czt.cu on a CUDA (B, n) float32 tensor -> (B, T, n_mels),
+    its float64 instantiation if ``precise``."""
+    plan = czt_plan.plan(n_fft)
+    consts = czt_constants(sr, n_fft, n_mels, y.device, precise)
+    chunks, slots = consts[7], consts[8]
+    n_slots = int(czt_plan.tables(sr, n_fft, n_mels).slots[:, 1].sum())
+    warps, tile = czt_shape(n_fft, hop_length, n_slots, precise)
+    batch, n = y.shape
+    T = dsp.n_frames_for(n, hop_length)
+    S = len(plan.radices)
+    ints = [(ctypes.c_int * max(S, 1))(*v) for v in (plan.radices, plan.lengths, plan.tw_offsets)]
+    lib = _czt_library()
+    launch = lib.mel_czt_launch_f64 if precise else lib.mel_czt_launch
+    out = torch.empty((batch, T, n_mels), dtype=torch.float32, device=y.device)
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = launch(
+            y.data_ptr(), batch, n, T, n_fft, hop_length, tile, warps, int(plan.mode == "chirp"), plan.length, S,
+            *ints, czt_plan.scratch_size(plan), *(c.data_ptr() for c in consts[:7]), chunks.data_ptr(),
+            chunks.shape[0], slots.data_ptr(), n_mels, n_slots, out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"mel_czt kernel launch failed: cudaError {err}")
+    return out
+
+
 def _dense_library() -> ctypes.CDLL:
     lib = _build.load_library("mel_folded")
     fn = lib.mel_folded_launch
@@ -215,7 +292,9 @@ def _dense_library() -> ctypes.CDLL:
 def launch_dense(y: torch.Tensor, consts: tuple[torch.Tensor, ...], n_fft: int, hop_length: int) -> torch.Tensor:
     """csrc/mel_folded.cu on a CUDA (B, n) float32 tensor -> (B, T, n_mels):
     its float64 instantiation if ``consts`` are float64, at the most frames
-    a block (DENSE_TILES) that fit in shared memory."""
+    a block (DENSE_TILES) that fit in shared memory. No route launches it:
+    the earlier design of the off-plan route, kept to be timed beside
+    ``launch_czt``."""
     A, B, wr, fb = consts
     batch, n = y.shape
     T = dsp.n_frames_for(n, hop_length)
@@ -261,11 +340,11 @@ def mel_power_folded(
         if kernel == "rfft":
             out = launch_rfft(y, sr, n_mels, n_fft, hop_length, precise)
         else:
-            out = launch_dense(y, constants(sr, n_fft, n_mels, y.device, precise), n_fft, hop_length)
-            counter_dense.add()
+            out = launch_czt(y, sr, n_mels, n_fft, hop_length, precise)
+            counter_czt.add()
         if precise:
             counter_f64.add()
-        counter.add(instantiation("mel_folded" if kernel == "dense" else kernel, n_fft, precise))
+        counter.add(instantiation("mel_czt" if kernel == "czt" else kernel, n_fft, precise))
         return out
     if y.device.type == "cpu":
         return mel_power_folded_plain(y, sr, n_mels, n_fft, hop_length)

@@ -6,15 +6,17 @@
 windowed cos|sin DFT basis (``dsp.dft_bases``), its power, and the slaney
 mel product, (B, n) waveforms -> (B, T, n_mels) mel power, time-major, with
 T = 1 + n // hop. That is the folded kernel's function, so on a CUDA tensor
-it launches one of two hand-written kernels, chosen by ``route`` from n_fft
-alone: the real FFT ``csrc/mel_rfft.cu`` (``mel_kernel.launch_rfft``) for
-n_fft in {256, 320, 400, 480, 512, 640, 1024, 2048}, and
-``csrc/mel_unfolded.cu``, the dense unfolded DFT, for every other even
-n_fft; the dense one runs in float32 only and its shared memory holds n_fft
-up to 3,070 at hop 160 (2,302 at hop 512). On a CPU tensor it runs
-``mel_power_unfolded_plain``, the same product as torch ops on frames cut
-with ``Tensor.unfold``. There is no fallback from one to another: a CUDA
-tensor the routed kernel cannot take raises.
+it launches one of the folded entry's two hand-written kernels, chosen by
+``route`` from n_fft alone, in float32: the real FFT ``csrc/mel_rfft.cu``
+(``mel_kernel.launch_rfft``) for n_fft in {256, 320, 400, 480, 512, 640,
+1024, 2048}, and the chirp-z real FFT ``csrc/mel_czt.cu``
+(``mel_kernel.launch_czt``) for every other even n_fft, down to 2. On a CPU
+tensor it runs ``mel_power_unfolded_plain``, the same product as torch ops
+on frames cut with ``Tensor.unfold``. There is no fallback from one to
+another: a CUDA tensor the routed kernel cannot take raises.
+``launch_dense`` launches the earlier design of the off-plan route, the
+dense unfolded DFT ``csrc/mel_unfolded.cu`` (float32, n_fft up to 3,070 at
+hop 160): no route reaches it, so ``counter_dense`` reads 0 on every path.
 
 Odd n_fft is refused, as the JAX kernel refuses it (its frame tiles run out
 of bounds there). Nothing in the port's CLIs calls this wrapper: no JAX path
@@ -31,10 +33,11 @@ import torch
 
 from . import _build, dsp, rfft_plan
 from .golden import librosa_ref as ref
-from .mel_kernel import F_ALIGN, SMEM_LIMIT, KernelCounter, _round_up, instantiation, launch_rfft
+from .mel_kernel import F_ALIGN, SMEM_LIMIT, KernelCounter, _round_up, instantiation, launch_czt, launch_rfft
 
-counter = KernelCounter("mel_unfolded")              # every launch of either kernel
-counter_dense = KernelCounter("mel_unfolded_dense")  # the launches of the dense one among them
+counter = KernelCounter("mel_unfolded")              # every launch of either routed kernel
+counter_czt = KernelCounter("mel_unfolded_czt")      # the launches of csrc/mel_czt.cu among them
+counter_dense = KernelCounter("mel_unfolded_dense")  # routed launches of csrc/mel_unfolded.cu: none since mel_czt
 BLOCK_K = 64  # samples per partial DFT sum; csrc/mel_unfolded.cu's kBlockK
 
 
@@ -96,13 +99,13 @@ def _check(y: torch.Tensor) -> None:
 
 def route(n_fft: int) -> str:
     """The kernel that takes ``n_fft`` on a card: "rfft" (csrc/mel_rfft.cu)
-    for the FFT's sizes, "dense" (csrc/mel_unfolded.cu) for any other even
+    for the compiled plans' sizes, "czt" (csrc/mel_czt.cu) for any other even
     n_fft, as ``mel_kernel.route`` sends the folded entry's. Odd n_fft raises."""
     if n_fft % 2 or n_fft < 2:
         raise ValueError(
             f"mel_power_unfolded needs an even n_fft, got {n_fft}: the JAX kernel it ports "
             "(pallas_mel.mel_power_pallas) does not take odd sizes either")
-    return "rfft" if rfft_plan.supports(n_fft) else "dense"
+    return "rfft" if rfft_plan.supports(n_fft) else "czt"
 
 
 def _library() -> ctypes.CDLL:
@@ -119,7 +122,8 @@ def _library() -> ctypes.CDLL:
 
 def launch_dense(y: torch.Tensor, consts: tuple[torch.Tensor, ...], n_fft: int, hop_length: int) -> torch.Tensor:
     """csrc/mel_unfolded.cu on a CUDA (B, n) float32 tensor -> (B, T, n_mels).
-    Counts nothing: the wrapper counts."""
+    Counts nothing. No route launches it: the earlier design of the off-plan
+    route, kept to be timed beside ``mel_kernel.launch_czt``."""
     C, S, fb = consts
     batch, n = y.shape
     T = dsp.n_frames_for(n, hop_length)
@@ -160,9 +164,9 @@ def mel_power_unfolded(
         if kernel == "rfft":
             out = launch_rfft(y, sr, n_mels, n_fft, hop_length)
         else:
-            out = launch_dense(y, constants(sr, n_fft, n_mels, y.device), n_fft, hop_length)
-            counter_dense.add()
-        counter.add(instantiation("mel_unfolded" if kernel == "dense" else kernel, n_fft, False))
+            out = launch_czt(y, sr, n_mels, n_fft, hop_length)
+            counter_czt.add()
+        counter.add(instantiation("mel_czt" if kernel == "czt" else kernel, n_fft, False))
         return out
     if y.device.type == "cpu":
         return mel_power_unfolded_plain(y, sr, n_mels, n_fft, hop_length)

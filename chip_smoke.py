@@ -12,31 +12,34 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      both entries, ``mel_power_folded`` and ``mel_power_unfolded``, with the
      launches of each route and template instantiation counted: the FFT mel
      kernel at n_fft 512 (two shapes), 1024 / 512 / 128 mels at 22.05 kHz
-     and n_fft 320, 400 and 640 (folded) or 400 (unfolded), and no dense
-     launch; its four-pass plans (n_fft 480 and 2048) through both entries
-     and in float64; each entry's dense kernel on its route (n_fft 482),
-     one launch each; the float64 instantiations (``precise=True``) of
-     ``mel_rfft`` at n_fft 1024, 512, 400, 480 and 2048 (also at hop 1024,
-     where its tiles shrink) and of the dense folded kernel at 482 and 2050,
-     also per bin; a sweep of even n_fft from 4 to 4096 in both precisions,
-     none of which may raise; the unfolded entry's refusal of odd n_fft; and
-     the mel feature against the float64 golden copy;
+     and n_fft 320, 400 and 640 (folded) or 400 (unfolded); its four-pass
+     plans (n_fft 480 and 2048) through both entries and in float64; each
+     entry's off-plan route, ``mel_czt`` (chirp-z at n_fft 482, direct at
+     4096), one launch each; the float64 instantiations (``precise=True``)
+     of ``mel_rfft`` at n_fft 1024, 512, 400, 480 and 2048 (also at hop
+     1024, where its tiles shrink) and of ``mel_czt`` at 482, 2050 and
+     4096, also per bin; no dense launch anywhere; a sweep of even n_fft
+     (SWEEP_N_FFT) in both precisions against the plain version, then every
+     even n_fft from 4 to 4096 off the compiled plans through both entries
+     and in float64 against a float64 DFT reference, each of which
+     must launch ``mel_czt`` once; the unfolded entry's refusal of odd n_fft;
+     and the mel feature against the float64 golden copy;
   3c. the MFCC and classical features on the card (``mfcc_seq_feature``,
      raw ``mfcc``, ``classical_feature_vector``, ``waveform_feature``) on 4
      five-second clips at 22.05 kHz against the float64 golden copy, with
      both TF32 flags on (the DSP must pin its own precision), at n_fft 1024
      and, for the MFCC sequence and the classical vector, at 2048 (the FFT
-     route) and 2050 (the dense float64 route); each MFCC call must launch
+     route) and 2050 (``mel_czt``'s float64 route); each MFCC call must launch
      the mel kernel of its route once, in float64; and ``mel_spec_feature``
      at n_fft 511 (no fold, no kernel) and 2048 against golden;
   4. the feature-extraction CLI on a 27-class x 5-clip fsc22-style WAV tree
-     (5 s, 16 kHz), which must launch the FFT mel kernel and not the dense
-     one, and the FFT kernel's mel power on the tree's clips against the
-     float64 golden mel power; then the unfolded kernel's entry point
-     (``mel_power_unfolded``, which no CLI calls, as no JAX path calls
-     ``mel_power_pallas``) on the same clips, which must launch the FFT
-     kernel and not its dense one, against the same, and at n_fft 482 its
-     dense kernel;
+     (5 s, 16 kHz), which must launch the FFT mel kernel and neither
+     ``mel_czt`` nor a dense one, and the FFT kernel's mel power on the
+     tree's clips against the float64 golden mel power; then the unfolded
+     kernel's entry point (``mel_power_unfolded``, which no CLI calls, as no
+     JAX path calls ``mel_power_pallas``) on the same clips, which must
+     launch the FFT kernel, against the same, and at n_fft 482
+     ``mel_czt<float>`` and no dense kernel;
   4c. the shipped ``configs/feature_extraction.yaml`` through the extraction
      CLI on the same tree (its own splits, train and validation; its
      dataset and outputs moved to the temporary directory): all four
@@ -46,10 +49,12 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      reader: available, bit for bit with the numpy codec on the tree's
      clips, None and negative batch lengths for a missing and a truncated
      file;
-  4d. the sizes this slice repaired, through the extraction CLI on the same
-     tree (a copy of the shipped config's mel and MFCC-sequence experiments
-     at n_fft 480, 2048 and 482 / 2050): each experiment must launch the
-     template instantiation of its route, and 3 rows against golden;
+  4d. the repaired sizes, through the extraction CLI on the same tree (a
+     copy of the shipped config's mel and MFCC-sequence experiments at
+     n_fft 480, 2048 and 482 / 2050): each experiment must launch the
+     template instantiation of its route (``mel_czt<float>`` at 482,
+     ``mel_czt<double>`` at 2050) and no dense kernel, and 3 rows against
+     golden;
   4e. BIRDeep (the ``birdeep`` loader): a synthetic BIRDeep_AudioAnnotations
      tree (10 recordings of 30 s at 16 kHz; 16 train and 4 validation rows a
      species of the five focal ones and of one that class_filter drops,
@@ -286,8 +291,11 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      bound and its plain version, ``mfcc_seq_feature`` and
      ``classical_feature_vector`` with its MFCC block, magnitude STFT and
      spectral groups alone; the four-pass plans in both types (n_fft 480 at
-     16 kHz, 2048 at 22.05 kHz) and the dense kernels at n_fft 482 and 2050
-     beside their bounds and plain versions; an mlp and an rnn train step at
+     16 kHz, 2048 at 22.05 kHz) and ``mel_czt`` (n_fft 482 at 16 kHz through
+     both entries, 2050 in float64 and 4096 in both types at 22.05 kHz, hop
+     512, 128 mels) beside their bounds and plain versions, each in turns
+     with the dense kernel it replaced there, launched directly (no route
+     reaches those); an mlp and an rnn train step at
      B=32 and B=512; at 5d's fsc22 scale an svm fit eager and captured in a
      CUDA graph (which must give what eager gives, bit for bit), the
      kernels an APG step launches, svm predict and predict_proba on the 284
@@ -312,11 +320,14 @@ but for phases 3c and 5d, which turn TF32 on: the features must stay within
 1e-5 of the float64 oracle, and the classical core must pin full float32
 itself.
 
-Usage: python3 chip_smoke.py
+Usage: python3 chip_smoke.py [--only 5j | --only 5l | --only mel]
+(``--only mel``: phases 1-3, then phase 6's times of the four-pass plans
+and of mel_czt beside the dense kernels, and no result line.)
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -351,8 +362,9 @@ GRAD_TOL = 1e-4                    # train-step gradients card vs CPU, max|d| ov
                                    # cuDNN's backward may sum in a run-dependent order
 TRAIN_EPOCHS = 3
 TRACE_EPOCHS = 2                   # the traced cnn run of phase 4g: ~51 steps an epoch at fsc22 scale
-DENSE_N_FFT = 482                  # M = 241 has no FFT plan: the dense kernels' route at 16 kHz
-DENSE_N_FFT_22 = 2050              # M = 1025 = 5^2 x 41: the dense route at the 22.05 kHz front end
+CZT_N_FFT = 482                    # M = 241 (prime) has no compiled plan: mel_czt's chirp-z route at 16 kHz
+CZT_N_FFT_22 = 2050                # M = 1025 = 5^2 x 41: the chirp-z route at the 22.05 kHz front end
+DIRECT_N_FFT_22 = 4096             # M = 2048, 5-smooth but no compiled plan: mel_czt's direct route
 NEW_PLANS = (480, 2048)            # the four-pass plans: M = 240 = 4 4 3 5, M = 1024 = 8 8 4 4
 SWEEP_N_FFT = (4, 6, 130, 256, 482, 1026, 1678, 2050, 3000, 4096)  # even n_fft tried in both precisions
 FSC22_CLIPS, CLASSICAL_DIM = 75, 302   # fsc22: 75 clips a class; the classical vector's width
@@ -437,6 +449,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(*fns, timer=cuda_ms) -> tuple[list[float], list[list[float]]]:
+    """Each fn's ms by ``timer``, timed in turns forth and back (a, b, c,
+    c, b, a): (the mean of each fn's two turns, the turns)."""
+    turns: list[list[float]] = [[] for _ in fns]
+    for i in [*range(len(fns)), *reversed(range(len(fns)))]:
+        turns[i].append(timer(fns[i]))
+    return [sum(t) / len(t) for t in turns], turns
+
+def share(ms: float, bound: float) -> str:
+    return f"{100 * bound / ms:.2f} % of the bound"
+
+
 def ptxas_report(log: str) -> list[str]:
     """'<kernel><template args>: <spill stores>, <registers>' for each kernel in nvcc's -Xptxas -v output."""
     kernels: list[list[str]] = []
@@ -475,6 +499,147 @@ def mel_folded_bound(batch: int, n: int, n_fft: int, mel_nonzeros: int, hop: int
     t_ops, t_bytes = fft_flops / peak, nbytes / HBM_RATE
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", 1e3 * t_ops,
             1e3 * folded_flops / F32_PEAK, 1e3 * unfolded_flops / F32_PEAK)
+
+
+def dft_mel_reference(y64, sr: int, n_fft: int, hop: int, n_mels: int):
+    """(B, T, n_mels) float64 mel power of float64 (B, n) clips on the card:
+    the center-padded frames times a Hann-windowed DFT basis built on the
+    card (phases k n mod n_fft in integers), power, the float64 slaney bank.
+    A reference for the off-plan sweep that needs neither the plain
+    version's host-built bases (0.7 s a size at n_fft 4096) nor a cuFFT plan
+    a size; on no path."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.ops.golden import librosa_ref
+
+    dev = y64.device
+    frames = torch.nn.functional.pad(y64, (n_fft // 2, n_fft // 2)).unfold(1, n_fft, hop)
+    n = torch.arange(n_fft, device=dev)
+    phase = ((n[:, None] * n[None, : n_fft // 2 + 1]) % n_fft).double() * (2 * np.pi / n_fft)
+    window = torch.from_numpy(librosa_ref.hann_periodic(n_fft)).to(dev)[:, None]
+    re, im = frames @ (window * torch.cos(phase)), frames @ (window * torch.sin(phase))
+    fb = torch.from_numpy(librosa_ref.mel_filterbank(sr, n_fft, n_mels)).to(dev)
+    return (re * re + im * im) @ fb.T
+
+
+def sweep_off_plan(dev, rng: np.random.Generator, mel_kernel, mel_unfolded, errs: dict) -> None:
+    """Every even n_fft from 4 to 4096 that mel_rfft has no compiled plan for,
+    on 2 one-second clips at 16 kHz (hop 160, 40 mels): the folded entry in
+    float32 and float64 and the unfolded one in float32, each of which must
+    launch mel_czt<T> once and no dense kernel, held against
+    ``dft_mel_reference`` at KERNEL_REL_TOL of each clip's peak (float32) or
+    F64_ELEMENT_TOL a bin (float64). Adds each instantiation's max|d| to
+    ``errs``."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.ops import czt_plan, rfft_plan
+
+    t0 = time.perf_counter()
+    y = torch.from_numpy(synth_clips(rng, 2, SR)).to(dev)
+    y64 = y.double()
+    calls = (("mel_power_folded", mel_kernel, False), ("mel_power_folded", mel_kernel, True),
+             ("mel_power_unfolded", mel_unfolded, False))
+    sizes = [n for n in range(4, 4098, 2) if not rfft_plan.supports(n)]
+    rel = torch.zeros((len(sizes), len(calls)), dtype=torch.float64, device=dev)
+    absd = torch.zeros_like(rel)
+    for i, n_fft in enumerate(sizes):
+        ref = dft_mel_reference(y64, SR, n_fft, HOP, N_MELS)
+        peak = ref.amax(dim=(1, 2), keepdim=True)
+        for c, (entry, module, precise) in enumerate(calls):
+            for counter in (module.counter, module.counter_czt, module.counter_dense):
+                counter.reset()
+            out = getattr(module, entry)(y, SR, N_MELS, n_fft, HOP, **({"precise": True} if precise else {}))
+            launched = (dict(module.counter.by_instantiation), module.counter_czt.launches, module.counter_dense.launches)
+            want = {mel_kernel.instantiation("mel_czt", n_fft, precise): 1}
+            check(launched == (want, 1, 0), f"sweep: {entry} at n_fft {n_fft} launched (by instantiation, czt, "
+                                            f"dense) {launched}, not {want}")
+            d = (out.double() - ref).abs()
+            absd[i, c] = d.amax()
+            rel[i, c] = (d / ref.clamp_min(torch.finfo(torch.float64).tiny)).amax() if precise else (d / peak).amax()
+    rel, absd = rel.cpu().numpy(), absd.cpu().numpy()
+    modes = collections.Counter(czt_plan.plan(n).mode for n in sizes)
+    for c, (entry, _, precise) in enumerate(calls):
+        tol = F64_ELEMENT_TOL if precise else KERNEL_REL_TOL
+        worst = int(np.argmax(rel[:, c]))
+        key = mel_kernel.instantiation("mel_czt", 4, precise)
+        errs[key] = max(errs.get(key, 0.0), float(absd[:, c].max()))
+        print(f"[3] sweep of every even n_fft from 4 to 4096 off the compiled plans ({len(sizes)} sizes: "
+              f"{modes['direct']} direct, {modes['chirp']} chirp-z), {entry}{' precise' if precise else ''} ({key}) "
+              f"vs a float64 DFT reference: worst max|d|/{'|ref| per bin' if precise else 'clip peak'} "
+              f"{rel[worst, c]:.3e} at n_fft {sizes[worst]} (tol {tol:g}), max|d| {absd[:, c].max():.3e}")
+        check(bool(np.isfinite(rel[:, c]).all()) and rel[:, c].max() <= tol,
+              f"sweep: {entry}{' precise' if precise else ''} misses its gate at n_fft {sizes[worst]}: {rel[worst, c]:.3e}")
+    print(f"[3] the off-plan sweep took {time.perf_counter() - t0:.1f} s, {len(sizes) * len(calls)} launches")
+
+
+def mel_route_times(dev, card: str, entries: dict, waves, waves22) -> dict[str, list[dict]]:
+    """Phase 6's timing of the four-pass plans and the off-plan route
+    (mel_czt) at B = len(waves) five-second clips (16 kHz ``waves``, 22.05 kHz
+    ``waves22``), beside their bounds and plain versions; each mel_czt shape
+    in turns with the dense kernel it replaced there, launched directly (on
+    no path), both held against the plain version. Returns {instantiation:
+    [its shapes' numbers, the first the row's own]}."""
+    import torch
+
+    from audio_edge_ml_pipeline_torch.ops import golden, mel_kernel, mel_unfolded
+
+    batch = waves.shape[0]
+    timed: dict[str, list[dict]] = {}
+    with torch.inference_mode():
+        for key, entry, w, sr, n_fft, hop, n_mels, precise in (
+                ("mel_rfft<240, float>", "mel_power_folded", waves, SR, 480, HOP, N_MELS, False),
+                ("mel_rfft<240, double>", "mel_power_folded", waves, SR, 480, HOP, N_MELS, True),
+                ("mel_rfft<1024, float>", "mel_power_folded", waves22, SR22, 2048, MFCC_HOP, MFCC_MELS, False),
+                ("mel_rfft<1024, double>", "mel_power_folded", waves22, SR22, 2048, MFCC_HOP, MFCC_MELS, True),
+                ("mel_czt<float>", "mel_power_folded", waves, SR, CZT_N_FFT, HOP, N_MELS, False),
+                ("mel_czt<float>", "mel_power_unfolded", waves, SR, CZT_N_FFT, HOP, N_MELS, False),
+                ("mel_czt<double>", "mel_power_folded", waves22, SR22, CZT_N_FFT_22, MFCC_HOP, MFCC_MELS, True),
+                ("mel_czt<float>", "mel_power_folded", waves22, SR22, DIRECT_N_FFT_22, MFCC_HOP, MFCC_MELS, False),
+                ("mel_czt<double>", "mel_power_folded", waves22, SR22, DIRECT_N_FFT_22, MFCC_HOP, MFCC_MELS, True)):
+            module, plain_fn, dense_launch = entries[entry]
+            kw = {"precise": True} if precise else {}
+
+            def kernel_fn():
+                return getattr(module, entry)(w, sr, n_mels, n_fft, hop, **kw)
+
+            ms_p = cuda_ms(lambda: plain_fn(w, sr, n_mels, n_fft, hop), iters=3, warmup=1)
+            nonzeros = int(np.count_nonzero(golden.mel_filterbank(sr, n_fft, n_mels)))
+            bound, bound_by_k, _, dense_peak_ms, unf_dense_peak_ms = mel_folded_bound(
+                batch, w.shape[1], n_fft, nonzeros, hop, n_mels, F64_PEAK if precise else F32_PEAK)
+            shape = f"B={batch} x 5 s at {sr / 1000:g} kHz, n_fft {n_fft}, hop {hop}, {n_mels} mels"
+            row = {"entry": entry, "plain_ms": ms_p, "bound_ms": bound, "bound_by": bound_by_k, "shape": shape}
+            if key.startswith("mel_czt"):
+                folded = entry == "mel_power_folded"
+                consts = (mel_kernel.constants(sr, n_fft, n_mels, dev, precise) if folded
+                          else mel_unfolded.constants(sr, n_fft, n_mels, dev))
+
+                def dense_fn():
+                    return dense_launch(w, consts, n_fft, hop)
+
+                (ms, ms_d), turns_d = in_turns(kernel_fn, dense_fn, timer=lambda fn: (
+                    cuda_ms(fn, iters=3, warmup=1) if fn is dense_fn else cuda_ms(fn)))
+                ref = plain_fn(w, sr, n_mels, n_fft, hop)
+                dense_key = f"{'mel_folded' if folded else 'mel_unfolded'}<{'double' if precise else 'float'}>"
+                dense_err = float((dense_fn() - ref).abs().max())
+                czt_err = float((kernel_fn() - ref).abs().max())
+                del ref
+                timed.setdefault(dense_key, []).append({
+                    "entry": entry, "ms": ms_d, "plain_ms": ms_p, "bound_ms": bound, "bound_by": bound_by_k,
+                    "shape": shape, "max_abs_err": dense_err,
+                    "formulation_ms": dense_peak_ms if folded else unf_dense_peak_ms})
+                row.update(ms=ms, max_abs_err=czt_err, dense_ms=ms_d, turns=turns_d)
+                print(f"[6] {key} ({entry}) at {shape}: {ms:.3f} ms ({ms_turns(turns_d[0])}), {share(ms, bound)} "
+                      f"{bound:.4f} ms ({bound_by_k}), max|d| vs plain {czt_err:.3e}; the dense {dense_key} it replaced "
+                      f"there, launched directly: {ms_d:.3f} ms ({ms_turns(turns_d[1])}), {share(ms_d, bound)}, "
+                      f"max|d| vs plain {dense_err:.3e}; mel_czt is {ms_d / ms:.1f}x faster; plain version "
+                      f"{ms_p:.3f} ms ({ms_p / ms:.1f}x mel_czt) on {card}")
+            else:
+                ms = cuda_ms(kernel_fn)
+                row["ms"] = ms
+                print(f"[6] {key} ({entry}) at {shape}: {ms:.3f} ms, {share(ms, bound)} {bound:.4f} ms ({bound_by_k}); "
+                      f"plain version {ms_p:.3f} ms on {card}")
+            timed.setdefault(key, []).append(row)
+    return timed
 
 
 def write_wav_tree(root: Path, rng: np.random.Generator) -> tuple[Path, Path, list[str]]:
@@ -549,18 +714,18 @@ def training_config_copy(features_root: Path, out_root: Path) -> tuple[Path, lis
 
 
 def repaired_sizes_config(dataset: Path, out_root: Path) -> tuple[Path, list[dict]]:
-    """The shipped config's mel and MFCC-sequence training experiments at the
-    n_fft this slice repaired: the four-pass plans (480, 2048) and the dense
-    route (DENSE_N_FFT for the mel, DENSE_N_FFT_22 for the MFCC sequence,
-    which runs the dense kernel's float64 instantiation). Written as JSON
+    """The shipped config's mel and MFCC-sequence training experiments at
+    the n_fft of the four-pass plans (480, 2048) and of the off-plan route
+    (CZT_N_FFT for the mel, CZT_N_FFT_22 for the MFCC sequence, which runs
+    mel_czt's float64 instantiation). Written as JSON
     under ``out_root``; its experiments as written."""
     import yaml
 
     shipped = {e["extractor"]: e for e in yaml.safe_load((REPO / "configs" / "feature_extraction.yaml").read_text())
                ["experiments"] if e["split"] == "train" and e["extractor"] != "audio_classical"}
     experiments = []
-    for extractor, sizes in (("audio_mel_spec", (*NEW_PLANS, DENSE_N_FFT)),
-                             ("audio_mfcc_seq", (*NEW_PLANS, DENSE_N_FFT_22))):
+    for extractor, sizes in (("audio_mel_spec", (*NEW_PLANS, CZT_N_FFT)),
+                             ("audio_mfcc_seq", (*NEW_PLANS, CZT_N_FFT_22))):
         for n_fft in sizes:
             name = f"{shipped[extractor]['name']}_nfft{n_fft}"
             experiments.append({**shipped[extractor], "name": name, "output": str(out_root / name),
@@ -681,17 +846,18 @@ def phase_5e(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(5)
     mel_kernel.counter.reset()
     mel_kernel.counter_dense.reset()
+    mel_kernel.counter_czt.reset()
     t0 = time.perf_counter()
     X_mel = np.concatenate([mel_kernel.mel_spec_feature(class_clips_on_card(gen, dev, c, FSC22_CLIPS)).cpu().numpy()
                             for c in range(N_CLASSES)])
     mel5e_s = time.perf_counter() - t0
-    mel5e_launches = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches)
+    mel5e_launches = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_kernel.counter_czt.launches)
     y_mel = np.repeat(np.arange(N_CLASSES), FSC22_CLIPS).astype(np.int32)
     split = np.array(stratified_split_indices([names5e[c] for c in y_mel], 0.70, 0.15, 42))
     X_ct, y_ct = fsc22_classical_train(np.random.default_rng(22))
     check(X_mel.shape == (N_CLASSES * FSC22_CLIPS, N_MELS, 1 + CLIP // HOP) and bool(np.isfinite(X_mel).all()),
           f"5e mel features {X_mel.shape}")
-    check(mel5e_launches == (N_CLASSES, 0), f"5e's extraction launched (all, dense) {mel5e_launches}")
+    check(mel5e_launches == (N_CLASSES, 0, 0), f"5e's extraction launched (all, dense, czt) {mel5e_launches}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp5e:
         tmp5e = Path(tmp5e)
@@ -748,7 +914,7 @@ def phase_5e(dev) -> dict:
         failures = [m for m in messages5e if "failed" in m and "Test-set evaluation failed" not in m]
         inherited = [m for m in messages5e if "Test-set evaluation failed" in m]
         print(f"[5e] mel FeatureSets on the card: {len(X_mel)} clips in {mel5e_s:.2f} s, mel_rfft launches "
-              f"{mel5e_launches[0] - mel5e_launches[1]}, dense {mel5e_launches[1]}; train {int((split == 'train').sum())}, "
+              f"{mel5e_launches[0] - mel5e_launches[1] - mel5e_launches[2]}, dense {mel5e_launches[1]}, czt {mel5e_launches[2]}; train {int((split == 'train').sum())}, "
               f"validation {int((split == 'validation').sum())} rows; classical train {len(X_ct)} x {CLASSICAL_DIM}")
         print(f"[5e] tune CLI on the card: configs/tuning.yaml (cut) in {tune_s['shipped']:.2f} s, the pca_svm grid "
               f"{grid_s['grid']:.2f} s (cells {', '.join(f'{t:.3f}' for t in cell_s)} s, then the refit); the batched "
@@ -1586,18 +1752,19 @@ def phase_5g(dev, mel108, mfcc108, t5e: dict) -> dict:
                 write_wav(folder / name / "0.wav", class_clips_on_card(gen, dev, names.index(name), 1)[0].cpu().numpy(), SR)
             mel_kernel.counter.reset()
             mel_kernel.counter_dense.reset()
+            mel_kernel.counter_czt.reset()
             sim = EdgeDeviceSimulator(student_bundle, kd_names, folder, device_id="student",
                                       telemetry_dir=tmp / "telemetry", stats_dir=tmp / "stats", seed=2)
             sim.run(8)
             torch.cuda.synchronize()
             out["mel_launches"] = mel_kernel.counter.launches
-            sim_dense = mel_kernel.counter_dense.launches
+            sim_dense = mel_kernel.counter_dense.launches + mel_kernel.counter_czt.launches   # neither may launch
             events = [json.loads(ln) for ln in (tmp / "telemetry" / "student_telemetry.jsonl").read_text().splitlines()]
             student = tdeep.load_any_model(student_bundle)
             err, same = compiled_scores(["--model", str(student_bundle), "--labels", *kd_names, "--max-ram", "0"],
                                         tmp / "student_c", Xk[:2], student)
             print(f"[5g] student ({student._arch_dict['filters']}, {student.name}) served by the edge simulator: 8 "
-                  f"requests, mel_rfft launches {out['mel_launches'] - sim_dense}, dense {sim_dense}, predictions "
+                  f"requests, mel_rfft launches {out['mel_launches'] - sim_dense}, dense or czt {sim_dense}, predictions "
                   f"{[e['prediction'] for e in events]}; through the deploy CLI and gcc: C scores on 2 validation rows "
                   f"vs predict_proba on the card max|d| {err:.3e} (tol {C_SCORE_TOL:g}), argmax equal {same}")
             check(len(events) == 8 and all(e["prediction"] in kd_names for e in events), "5g: the served student")
@@ -1768,7 +1935,7 @@ def phase_4e(dev, tmp: Path) -> dict:
     root = tmp / "BIRDeep_AudioAnnotations"
     cfg, cfg_cpu, doc, train_doc = birdeep_configs(root, tmp / "birdeep")
     rows = write_birdeep_tree(root, np.random.default_rng(11), doc["class_filter"])
-    counters = (mel_kernel.counter, mel_kernel.counter_dense, mel_kernel.counter_f64)
+    counters = (mel_kernel.counter, mel_kernel.counter_dense, mel_kernel.counter_f64, mel_kernel.counter_czt)
     for c in counters:
         c.reset()
     t0 = time.perf_counter()
@@ -1784,7 +1951,7 @@ def phase_4e(dev, tmp: Path) -> dict:
     out: dict = {"mel_launches": by_inst.get("mel_rfft<256, float>", 0),
                  "f64_launches": by_inst.get("mel_rfft<512, double>", 0)}
     print(f"[4e] {Path(cfg).name} through the extraction CLI on the card in {card_s:.2f} s (the CPU run "
-          f"{cpu_s:.2f} s): launches (all, dense, float64) {launches}, by instantiation {by_inst}")
+          f"{cpu_s:.2f} s): launches (all, dense, float64, czt) {launches}, by instantiation {by_inst}")
     for exp in doc["experiments"]:
         classical = exp["extractor"] == "audio_classical"
         split = exp["split"]
@@ -1812,7 +1979,7 @@ def phase_4e(dev, tmp: Path) -> dict:
               f"{'max|d|/max(|cpu|, 1)' if classical else 'max|d|'} {gap:.3e}, 3 rows vs float64 golden {gold_err:.3e} "
               f"(tol {tol:g})")
         check(gap <= tol and gold_err <= tol, f"4e: {exp['name']} misses its gate")
-    check(out["mel_launches"] == 2 and out["f64_launches"] >= 2 and launches[1] == 0,
+    check(out["mel_launches"] == 2 and out["f64_launches"] >= 2 and launches[1] == launches[3] == 0,
           f"4e: the mel experiments launched mel_rfft<256, float> {out['mel_launches']} times, not once each")
 
     # birdeep-5-classes-train.yaml on those FeatureSets, through the train CLI on the card
@@ -1977,17 +2144,19 @@ def phase_4f(dev, tmp: Path) -> dict:
     # the augmented tree through the extraction CLI on the card, split all
     mel_kernel.counter.reset()
     mel_kernel.counter_dense.reset()
+    mel_kernel.counter_czt.reset()
     pipeline.main(["--loader", "audio_folder", "--dataset", str(root / "dev"), "--split", "all", "--extractor",
                    "audio_mel_spec", "--output", str(root / "mel")])
     torch.cuda.synchronize()
     out["mel_launches"] = mel_kernel.counter.launches
     fs = pipeline.FeaturePipeline.load(root / "mel")
     print(f"[4f] the device backend's tree through the extraction CLI (audio_mel_spec, split all): {fs}; mel_rfft "
-          f"launches {out['mel_launches']}, dense {mel_kernel.counter_dense.launches}")
+          f"launches {out['mel_launches']}, dense {mel_kernel.counter_dense.launches}, czt {mel_kernel.counter_czt.launches}")
     check(fs.features.shape == (n_files * 5, N_MELS, 1 + CLIP // HOP) and fs.n_classes == N_CLASSES
           and sorted(fs.label_names) == sorted(names) and bool(np.isfinite(fs.features).all()),
           "4f: the augmented FeatureSet")
-    check(out["mel_launches"] >= 1 and mel_kernel.counter_dense.launches == 0, "4f: the extraction's mel kernel")
+    check(out["mel_launches"] >= 1 and mel_kernel.counter_dense.launches == mel_kernel.counter_czt.launches == 0,
+          "4f: the extraction's mel kernel")
     print(f"[4f] phase 4f in {time.perf_counter() - t_start:.2f} s")
     return out
 
@@ -3382,7 +3551,7 @@ def phase_5k(dev, tmp: Path, bundle: Path, features: Path, card: str) -> None:
     from audio_edge_ml_pipeline_torch.tools import convert_backbone_weights as tool
 
     t_start = time.perf_counter()
-    launches = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches)
+    launches = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_kernel.counter_czt.launches)
     has_tf = importlib.util.find_spec("tensorflow") is not None
     refusals = {}
     saved = sys.modules.get("tensorflow")
@@ -3452,10 +3621,12 @@ def phase_5k(dev, tmp: Path, bundle: Path, features: Path, card: str) -> None:
           f"{[m for m in msgs if 'Pretrained' in m]}; the {len(shared)} tensors of the two backbones' shared units "
           f"({', '.join(sorted({k.split('/')[-3] for k in shared}))}) are the file's {took}; parameters on "
           f"{sorted(on_device)}; mel kernel launches in 5k {mel_kernel.counter.launches - launches[0]} + dense "
-          f"{mel_kernel.counter_dense.launches - launches[1]}; phase 5k in {time.perf_counter() - t_start:.2f} s")
+          f"{mel_kernel.counter_dense.launches - launches[1]} + czt {mel_kernel.counter_czt.launches - launches[2]}; "
+          f"phase 5k in {time.perf_counter() - t_start:.2f} s")
     check(any("Pretrained weights: 6 tensors transferred" in m for m in msgs), "5k: the teacher's warm start")
     check(len(shared) == 10 and took and on_device == {"cuda"}, "5k: the teacher did not take the file's tensors")
-    check((mel_kernel.counter.launches, mel_kernel.counter_dense.launches) == launches, "5k launched a mel kernel")
+    check((mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_kernel.counter_czt.launches) == launches,
+          "5k launched a mel kernel")
 
 
 def native_reader_checks(audio_dir: Path, names: list[str], tmp: Path) -> None:
@@ -4360,7 +4531,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    kernels = ["mel_rfft", "mel_folded", "mel_unfolded"]
+    kernels = ["mel_rfft", "mel_czt", "mel_folded", "mel_unfolded"]
     built = _build.build([*kernels, "wavio"])   # and the native WAV reader (g++), all started together
     print(f"[2] build: {time.perf_counter() - t0:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in built.items()) or 'already built'})")
     for kname in kernels:
@@ -4390,10 +4561,14 @@ def main() -> int:
     # 3. kernel against its plain version, feature against the float64 golden copy
     rng = np.random.default_rng(0)
 
-    entries = {  # entry -> (its module, its plain version, its dense kernel)
-        "mel_power_folded": (mel_kernel, mel_kernel.mel_power_folded_plain, "mel_folded.cu"),
-        "mel_power_unfolded": (mel_unfolded, mel_unfolded.mel_power_unfolded_plain, "mel_unfolded.cu"),
+    entries = {  # entry -> (its module, its plain version, its earlier dense kernel's launch)
+        "mel_power_folded": (mel_kernel, mel_kernel.mel_power_folded_plain, mel_kernel.launch_dense),
+        "mel_power_unfolded": (mel_unfolded, mel_unfolded.mel_power_unfolded_plain, mel_unfolded.launch_dense),
     }
+
+    def routed(n_fft: int, precise: bool) -> str:
+        """The template instantiation ``route(n_fft)`` launches."""
+        return mel_kernel.instantiation("mel_czt" if mel_kernel.route(n_fft) == "czt" else "rfft", n_fft, precise)
 
     errs_by_instantiation: dict[str, float] = {}   # max|d| against the plain version, by template instantiation
 
@@ -4405,17 +4580,18 @@ def main() -> int:
         each clip's peak power, and if ``precise`` at F64_ELEMENT_TOL of
         each bin (the plain version's products run in float64, so only a
         float64 kernel meets that). Returns max|d|."""
-        module, plain_fn, dense_kernel = entries[entry]
-        dense = module.route(n_fft) == "dense"
+        module, plain_fn, _ = entries[entry]
+        czt = module.route(n_fft) == "czt"
         y = torch.from_numpy(synth_clips(rng, batch, n)).to(dev)
         module.counter.reset()
         module.counter_dense.reset()
+        module.counter_czt.reset()
         mel_kernel.counter_f64.reset()
         out = getattr(module, entry)(y, sr, n_mels, n_fft, hop, **({"precise": True} if precise else {}))
         torch.cuda.synchronize()
-        launches = (module.counter.launches, module.counter_dense.launches)
+        launches = (module.counter.launches, module.counter_czt.launches, module.counter_dense.launches)
         check(mel_kernel.counter_f64.launches == int(precise), f"{entry} float64 launches")
-        kernel = mel_kernel.instantiation(dense_kernel.removesuffix(".cu") if dense else "rfft", n_fft, precise)
+        kernel = routed(n_fft, precise)
         check(dict(module.counter.by_instantiation) == {kernel: 1},
               f"{entry} at n_fft {n_fft} launched {dict(module.counter.by_instantiation)}, not {kernel}")
         ref = plain_fn(y, sr, n_mels, n_fft, hop)
@@ -4424,12 +4600,12 @@ def main() -> int:
         rel_bin = float((err / ref.abs().clamp_min(torch.finfo(torch.float32).tiny)).max())
         errs_by_instantiation[kernel] = max(errs_by_instantiation.get(kernel, 0.0), float(err.max()))
         print(f"[3] {entry} n_fft {n_fft}, hop {hop}, {n_mels} mels ({kernel}) vs plain, {label}: "
-              f"launches (all, dense) {launches}, max|d| {float(err.max()):.3e}, max|d|/clip peak {rel:.3e} "
+              f"launches (all, czt, dense) {launches}, max|d| {float(err.max()):.3e}, max|d|/clip peak {rel:.3e} "
               f"(tol {KERNEL_REL_TOL:g}), max|d|/|plain| per bin {rel_bin:.3e}"
               + (f" (tol {F64_ELEMENT_TOL:g})" if precise else " (not checked)"))
         check(not precise or rel_bin <= F64_ELEMENT_TOL,
               f"{entry}'s float64 instantiation disagrees with its plain version per bin at n_fft {n_fft}: {rel_bin:.3e}")
-        check(launches == (1, int(dense)), f"{entry} at n_fft {n_fft} launched (all, dense) {launches}")
+        check(launches == (1, int(czt), 0), f"{entry} at n_fft {n_fft} launched (all, czt, dense) {launches}")
         check(out.shape == (batch, 1 + n // hop, n_mels), f"{entry} output shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), f"{entry} output is not finite")
         check(rel <= KERNEL_REL_TOL, f"{entry} disagrees with its plain version at n_fft {n_fft}, {label}: {rel:.3e}")
@@ -4456,16 +4632,25 @@ def main() -> int:
     against_plain("mel_power_folded", *front_2048, precise=True)
     against_plain("mel_power_folded", "hop 1024: the FFT kernel's tiles shrink to fit", 2, 66150, 22050, 2048, 1024,
                   128, precise=True)
-    # each entry's dense kernel, and the folded one's float64 instantiation
+    # each entry's off-plan route (mel_czt, chirp-z at 482 and 2050), and the folded one's float64 instantiation
     for entry in entries:
-        against_plain(entry, "B=4 x 5 s", 4, CLIP, SR, DENSE_N_FFT, HOP, N_MELS)
-    against_plain("mel_power_folded", "B=4 x 5 s", 4, CLIP, SR, DENSE_N_FFT, HOP, N_MELS, precise=True)
-    against_plain("mel_power_folded", f"MFCC front end at n_fft {DENSE_N_FFT_22}", 2, 66150, 22050, DENSE_N_FFT_22,
+        against_plain(entry, "B=4 x 5 s", 4, CLIP, SR, CZT_N_FFT, HOP, N_MELS)
+    against_plain("mel_power_folded", "B=4 x 5 s", 4, CLIP, SR, CZT_N_FFT, HOP, N_MELS, precise=True)
+    against_plain("mel_power_folded", f"MFCC front end at n_fft {CZT_N_FFT_22}", 2, 66150, 22050, CZT_N_FFT_22,
                   512, 128, precise=True)
-    # no even n_fft from 4 to 4096 raises, in either precision
+    # the off-plan route at a direct size (M = 2048)
+    against_plain("mel_power_folded", "direct, B=2 x 5 s @ 22.05 kHz", 2, CLIP22, SR22, DIRECT_N_FFT_22, MFCC_HOP,
+                  MFCC_MELS)
+    against_plain("mel_power_folded", "direct, B=2 x 5 s @ 22.05 kHz", 2, CLIP22, SR22, DIRECT_N_FFT_22, MFCC_HOP,
+                  MFCC_MELS, precise=True)
+    against_plain("mel_power_unfolded", "direct, B=2 x 5 s @ 22.05 kHz", 2, CLIP22, SR22, DIRECT_N_FFT_22, MFCC_HOP,
+                  MFCC_MELS)
+    # no even n_fft from 4 to 4096 raises, in either precision, against the plain version at SWEEP_N_FFT ...
     for n_fft in SWEEP_N_FFT:
         for precise in (False, True):
             against_plain("mel_power_folded", "sweep, B=2 x 1 s", 2, SR, SR, n_fft, HOP, N_MELS, precise=precise)
+    # ... and every one off the compiled plans through both entries
+    sweep_off_plan(dev, rng, mel_kernel, mel_unfolded, errs_by_instantiation)
     try:
         mel_unfolded.mel_power_unfolded(torch.zeros((2, 4000), device=dev), n_fft=511)
         fail("mel_unfolded took an odd n_fft")
@@ -4486,18 +4671,22 @@ def main() -> int:
     print(f"[3] mel_spec_feature padded batch with lengths: card vs float64 golden max|d| {gold_err:.3e}, "
           f"card vs CPU plain {pad_err:.3e} (tol {FEATURE_TOL:g})")
     check(gold_err <= FEATURE_TOL and pad_err <= FEATURE_TOL, "mel_spec_feature misses the 1e-5 gate")
+    if sys.argv[1:] == ["--only", "mel"]:   # the mel kernels alone: phase 3, then phase 6's off-plan and four-pass times
+        mel_route_times(dev, card, entries, *(torch.from_numpy(np.tile(synth_clips(rng, 8, 5 * sr, sr), (64, 1))).to(dev)
+                                              for sr in (SR, SR22)))
+        print(f"[7] the run took {time.perf_counter() - t_all:.1f} s")
+        return 0
 
     # 3c. the MFCC and classical features on the card, with TF32 allowed everywhere, at the extractors'
-    # n_fft 1024, at 2048 (the FFT route) and 2050 (the dense float64 route); the mel feature at 511 and 2048
+    # n_fft 1024, at 2048 (mel_rfft's route) and 2050 (mel_czt's float64 chirp-z route); the mel feature at 511 and 2048
     y22_np = synth_clips(rng, 4, CLIP22, SR22)
     y22 = torch.from_numpy(y22_np).to(dev)
     y16_np = synth_clips(rng, 4)
     y16 = torch.from_numpy(y16_np).to(dev)
     y22_64 = y22_np.astype(np.float64)
-    t22 = {nf: 1 + CLIP22 // MFCC_HOP for nf in (MFCC_N_FFT, 2048, DENSE_N_FFT_22)}
-    f64 = {nf: mel_kernel.instantiation(mel_kernel.route(nf).replace("dense", "mel_folded"), nf, True)
-           for nf in (MFCC_N_FFT, 2048, DENSE_N_FFT_22)}
-    cases3c = {  # label -> (feature on the card, golden, tol, shape, launches (all, dense, float64), instantiation)
+    t22 = {nf: 1 + CLIP22 // MFCC_HOP for nf in (MFCC_N_FFT, 2048, CZT_N_FFT_22)}
+    f64 = {nf: routed(nf, True) for nf in (MFCC_N_FFT, 2048, CZT_N_FFT_22)}
+    cases3c = {  # label -> (feature on the card, golden, tol, shape, launches (all, czt, float64), instantiation)
         "mfcc_seq_feature": (lambda: audio_features.mfcc_seq_feature(y22),
                              lambda c: golden.mfcc_seq_feature(c), FEATURE_TOL, (4, 40, t22[MFCC_N_FFT]),
                              (1, 0, 1), f64[MFCC_N_FFT]),
@@ -4516,8 +4705,8 @@ def main() -> int:
             (lambda c, nf=nf: golden.classical_feature_vector(c, n_fft=nf)),
             FEATURE_TOL if name == "mfcc_seq_feature" else CLASSICAL_REL_TOL,
             (4, 40, t22[nf]) if name == "mfcc_seq_feature" else (4, 302),
-            (1, int(nf == DENSE_N_FFT_22), 1), f64[nf])
-           for name in ("mfcc_seq_feature", "classical_feature_vector") for nf in (2048, DENSE_N_FFT_22)},
+            (1, int(nf == CZT_N_FFT_22), 1), f64[nf])
+           for name in ("mfcc_seq_feature", "classical_feature_vector") for nf in (2048, CZT_N_FFT_22)},
         "mel_spec_feature n_fft 511": (lambda: mel_kernel.mel_spec_feature(y16, n_fft=511),
                                        lambda c: golden.mel_spec_feature(c, n_fft=511), FEATURE_TOL,
                                        (4, N_MELS, 1 + (CLIP - 1) // HOP), (0, 0, 0), None),
@@ -4533,11 +4722,13 @@ def main() -> int:
         for label, (fn, *_) in cases3c.items():
             mel_kernel.counter.reset()
             mel_kernel.counter_dense.reset()
+            mel_kernel.counter_czt.reset()
             mel_kernel.counter_f64.reset()
             feats3c[label] = fn().cpu().numpy()
             torch.cuda.synchronize()
-            mfcc_launches[label] = ((mel_kernel.counter.launches, mel_kernel.counter_dense.launches,
-                                     mel_kernel.counter_f64.launches), dict(mel_kernel.counter.by_instantiation))
+            mfcc_launches[label] = ((mel_kernel.counter.launches, mel_kernel.counter_czt.launches,
+                                     mel_kernel.counter_f64.launches), dict(mel_kernel.counter.by_instantiation),
+                                    mel_kernel.counter_dense.launches)
         flags_after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
@@ -4549,11 +4740,11 @@ def main() -> int:
         err = float((d / np.maximum(np.abs(gold), 1.0)).max() if classical else d.max())
         print(f"[3c] {label} on the card, TF32 flags on: shape {feats3c[label].shape}, vs float64 golden "
               f"{'max|d|/max(|g|, 1)' if classical else 'max|d|'} {err:.3e} (tol {tol:g}); mel kernel launches "
-              f"(all, dense, float64) {mfcc_launches[label][0]}, {mfcc_launches[label][1]}")
+              f"(all, czt, float64) {mfcc_launches[label][0]}, {mfcc_launches[label][1]}, dense {mfcc_launches[label][2]}")
         check(feats3c[label].shape == shape and bool(np.isfinite(feats3c[label]).all()), f"{label} shape or finiteness")
         check(err <= tol, f"{label} on the card misses its gate against golden: {err:.3e}")
-        check(mfcc_launches[label] == (launches, {inst: 1} if inst else {}),
-              f"{label} launched {mfcc_launches[label]}, not {launches} of {inst}")
+        check(mfcc_launches[label] == (launches, {inst: 1} if inst else {}, 0),
+              f"{label} launched {mfcc_launches[label]}, not {launches} of {inst} and no dense kernel")
     check(flags_after == (True, True), "the DSP changed the caller's TF32 flags")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -4563,12 +4754,13 @@ def main() -> int:
         # 4. extraction CLI
         mel_kernel.counter.reset()
         mel_kernel.counter_dense.reset()
+        mel_kernel.counter_czt.reset()
         t0 = time.perf_counter()
         pipeline.main(["--loader", "fsc22", "--dataset", str(fsc22), "--extractor", "audio_mel_spec",
                        "--split", "all", "--output", str(tmp / "features")])
         extract_s = time.perf_counter() - t0
         extract_launches = mel_kernel.counter.launches
-        extract_dense = mel_kernel.counter_dense.launches
+        extract_dense = mel_kernel.counter_dense.launches + mel_kernel.counter_czt.launches   # neither may launch
         fs = pipeline.FeaturePipeline.load(tmp / "features")
         n_clips = N_CLASSES * PER_CLASS
         check(fs.features.shape == (n_clips, N_MELS, 1 + CLIP // HOP), f"FeatureSet shape {fs.features.shape}")
@@ -4580,7 +4772,7 @@ def main() -> int:
             yj, _ = load_audio(fsc22 / "Audio Wise V1.0-20260101" / "Audio Wise V1.0" / fs.metadata[j]["filename"], sr=SR)
             cli_err = max(cli_err, float(np.abs(fs.features[j] - golden.mel_spec_feature(yj)).max()))
         print(f"[4] extraction CLI: {fs} in {extract_s:.2f} s; mel_rfft launches {extract_launches - extract_dense}, "
-              f"dense mel_folded launches {extract_dense}; 3 rows vs float64 golden max|d| {cli_err:.3e}")
+              f"dense mel_folded or mel_czt launches {extract_dense}; 3 rows vs float64 golden max|d| {cli_err:.3e}")
         check(extract_launches > 0 and extract_dense == 0, "the extraction CLI did not run the FFT mel kernel")
         check(cli_err <= FEATURE_TOL, "CLI features miss the 1e-5 gate")
 
@@ -4599,32 +4791,36 @@ def main() -> int:
         # 4b. the unfolded kernel's entry point on the tree's clips
         mel_unfolded.counter.reset()
         mel_unfolded.counter_dense.reset()
+        mel_unfolded.counter_czt.reset()
         mel_u = mel_unfolded.mel_power_unfolded(tree_d).cpu().numpy()
         unfolded_launches = mel_unfolded.counter.launches
-        unfolded_dense = mel_unfolded.counter_dense.launches
+        unfolded_dense = mel_unfolded.counter_dense.launches + mel_unfolded.counter_czt.launches   # neither may launch
         gold_rel = max(float(np.abs(mel_u[j].T - g).max() / np.abs(g).max())
                        for j, g in zip((0, n_clips // 2, n_clips - 1), gold_mel))
         print(f"[4] mel_power_unfolded on the {n_clips} tree clips: shape {mel_u.shape}, mel_rfft launches "
-              f"{unfolded_launches - unfolded_dense}, dense mel_unfolded launches {unfolded_dense}; "
+              f"{unfolded_launches - unfolded_dense}, dense mel_unfolded or mel_czt launches {unfolded_dense}; "
               f"3 clips vs float64 golden mel power max|d|/clip peak {gold_rel:.3e} (tol {GOLDEN_REL_TOL:g})")
         check(unfolded_launches == 1 and unfolded_dense == 0,
-              f"mel_power_unfolded launched {unfolded_launches} kernels ({unfolded_dense} dense) for one call")
+              f"mel_power_unfolded launched {unfolded_launches} kernels ({unfolded_dense} dense or czt) for one call")
         check(mel_u.shape == (n_clips, 1 + CLIP // HOP, N_MELS), "unfolded mel shape")
         check(gold_rel <= GOLDEN_REL_TOL, "the unfolded kernel misses the golden mel power")
-        # and its dense kernel, at an n_fft with no FFT plan
+        # and its off-plan route, mel_czt (chirp-z), once that of its dense kernel
         mel_unfolded.counter.reset()
         mel_unfolded.counter_dense.reset()
-        mel_ud = mel_unfolded.mel_power_unfolded(tree_d, n_fft=DENSE_N_FFT).cpu().numpy()
-        unfolded_dense_launches = dict(mel_unfolded.counter.by_instantiation)
+        mel_unfolded.counter_czt.reset()
+        mel_ud = mel_unfolded.mel_power_unfolded(tree_d, n_fft=CZT_N_FFT).cpu().numpy()
+        unfolded_czt_launches = dict(mel_unfolded.counter.by_instantiation)
         gold_rel_d = max(float(np.abs(mel_ud[j].T - g).max() / np.abs(g).max())
                          for j, g in ((j, golden.melspectrogram(tree[j].astype(np.float64), sr=SR, n_mels=N_MELS,
-                                                                n_fft=DENSE_N_FFT, hop_length=HOP))
+                                                                n_fft=CZT_N_FFT, hop_length=HOP))
                                       for j in (0, n_clips // 2, n_clips - 1)))
-        print(f"[4] mel_power_unfolded at n_fft {DENSE_N_FFT} on the {n_clips} tree clips: launches "
-              f"{unfolded_dense_launches}; 3 clips vs float64 golden mel power max|d|/clip peak {gold_rel_d:.3e} "
-              f"(tol {GOLDEN_REL_TOL:g})")
-        check(unfolded_dense_launches == {"mel_unfolded<float>": 1}, "mel_power_unfolded's dense route")
-        check(gold_rel_d <= GOLDEN_REL_TOL, "the dense unfolded kernel misses the golden mel power")
+        print(f"[4] mel_power_unfolded at n_fft {CZT_N_FFT} on the {n_clips} tree clips: launches "
+              f"{unfolded_czt_launches}, czt {mel_unfolded.counter_czt.launches}, dense "
+              f"{mel_unfolded.counter_dense.launches}; 3 clips vs float64 golden mel power max|d|/clip peak "
+              f"{gold_rel_d:.3e} (tol {GOLDEN_REL_TOL:g})")
+        check(unfolded_czt_launches == {"mel_czt<float>": 1} and mel_unfolded.counter_czt.launches == 1
+              and mel_unfolded.counter_dense.launches == 0, "mel_power_unfolded's off-plan route is not mel_czt")
+        check(gold_rel_d <= GOLDEN_REL_TOL, "mel_czt through the unfolded entry misses the golden mel power")
 
         # 4c. the shipped extraction config on the same tree, through the CLI on the card
         cfg, shipped = shipped_config_copy(fsc22, tmp / "shipped")
@@ -4632,7 +4828,7 @@ def main() -> int:
         shipped_s: dict[str, float] = {}
         run_experiment = pipeline._run_experiment
 
-        counters = (mel_kernel.counter, mel_kernel.counter_dense, mel_kernel.counter_f64)
+        counters = (mel_kernel.counter, mel_kernel.counter_dense, mel_kernel.counter_f64, mel_kernel.counter_czt)
 
         def counted(exp, *args, **kwargs):
             before = [c.launches for c in counters]
@@ -4674,28 +4870,33 @@ def main() -> int:
                                              else d.max()))
             launches_exp = shipped_launches[exp["name"]]
             print(f"[4c] shipped config {exp['name']} ({exp['extractor']}, split {exp['split']}): {fs_exp} in "
-                  f"{shipped_s[exp['name']]:.2f} s; mel_rfft launches {launches_exp[0] - launches_exp[1]} "
-                  f"({launches_exp[2]} float64), dense {launches_exp[1]}; 3 rows vs float64 golden {err_exp:.3e} "
+                  f"{shipped_s[exp['name']]:.2f} s; mel_rfft launches {launches_exp[0] - launches_exp[1] - launches_exp[3]} "
+                  f"({launches_exp[2]} float64), dense {launches_exp[1]}, czt {launches_exp[3]}; 3 rows vs float64 "
+                  f"golden {err_exp:.3e} "
                   f"(tol {tol:g})")
             check(err_exp <= tol, f"{exp['name']} misses its gate against golden")
             mfcc_exp = exp["extractor"] != "audio_mel_spec"
-            check(launches_exp[0] >= 1 and launches_exp[1] == 0 and launches_exp[2] == launches_exp[0] * mfcc_exp,
-                  f"{exp['name']} launched (all, dense, float64) {launches_exp}: not the FFT mel kernel it should")
+            check(launches_exp[0] >= 1 and launches_exp[1] == launches_exp[3] == 0
+                  and launches_exp[2] == launches_exp[0] * mfcc_exp,
+                  f"{exp['name']} launched (all, dense, float64, czt) {launches_exp}: not the FFT mel kernel it should")
 
         native_reader_checks(audio_dir, [m["filename"] for m in fs.metadata], tmp)
 
-        # 4d. this slice's path: the repaired sizes through the extraction CLI, counted by instantiation
+        # 4d. the repaired sizes through the extraction CLI, counted by instantiation: mel_rfft's four-pass plans
+        # and this slice's path, the off-plan route (mel_czt<float> at 482, mel_czt<double> at 2050)
         slice_cfg, slice_exps = repaired_sizes_config(fsc22, tmp / "repaired")
         slice_launches: dict[str, dict[str, int]] = {}
         slice_s: dict[str, float] = {}
 
         def counted_slice(exp, *args, **kwargs):
             mel_kernel.counter.reset()
+            mel_kernel.counter_dense.reset()
             t0 = time.perf_counter()
             run_experiment(exp, *args, **kwargs)
             torch.cuda.synchronize()
             slice_s[exp.resolved_name()] = time.perf_counter() - t0
             slice_launches[exp.resolved_name()] = dict(mel_kernel.counter.by_instantiation)
+            check(mel_kernel.counter_dense.launches == 0, f"{exp.resolved_name()} launched a dense kernel")
 
         pipeline._run_experiment = counted_slice
         try:
@@ -4717,8 +4918,7 @@ def main() -> int:
             for j in (0, rows // 2, rows - 1):
                 yj, _ = load_audio(audio_dir / fs_exp.metadata[j]["filename"], sr=sr_exp)
                 err_exp = max(err_exp, float(np.abs(fs_exp.features[j] - gold_fn(yj, n_fft=prm["n_fft"])).max()))
-            kernel = mel_kernel.instantiation(mel_kernel.route(prm["n_fft"]).replace("dense", "mel_folded"),
-                                              prm["n_fft"], mfcc_exp)
+            kernel = routed(prm["n_fft"], mfcc_exp)
             print(f"[4d] repaired size {exp['name']} ({exp['extractor']}, n_fft {prm['n_fft']}): {fs_exp} in "
                   f"{slice_s[exp['name']]:.2f} s; launches {slice_launches[exp['name']]}; 3 rows vs float64 golden "
                   f"{err_exp:.3e} (tol {FEATURE_TOL:g})")
@@ -4738,12 +4938,13 @@ def main() -> int:
         phase_4j(dev, tmp)
 
         # 4k-4l. the text and tabular modalities: no kernel of the port on their path
-        mel_before = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_unfolded.counter.launches,
-                      mel_unfolded.counter_dense.launches)
+        mel_before = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_kernel.counter_czt.launches,
+                      mel_unfolded.counter.launches, mel_unfolded.counter_dense.launches, mel_unfolded.counter_czt.launches)
         phase_4k(dev, tmp, card)
         phase_4l(dev, tmp, card)
-        check((mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_unfolded.counter.launches,
-               mel_unfolded.counter_dense.launches) == mel_before, "4k-4l launched a mel kernel")
+        check((mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_kernel.counter_czt.launches,
+               mel_unfolded.counter.launches, mel_unfolded.counter_dense.launches, mel_unfolded.counter_czt.launches)
+              == mel_before, "4k-4l launched a mel kernel")
 
         # 5. serving
         trainer = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, device=dev)
@@ -4763,6 +4964,7 @@ def main() -> int:
 
         mel_kernel.counter.reset()
         mel_kernel.counter_dense.reset()
+        mel_kernel.counter_czt.reset()
         sim = EdgeDeviceSimulator(bundle, class_names, folder, device_id="smoke",
                                   telemetry_dir=tmp / "telemetry", stats_dir=tmp / "stats", seed=0)
         t0 = time.perf_counter()
@@ -4770,7 +4972,7 @@ def main() -> int:
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         serve_launches = mel_kernel.counter.launches
-        serve_dense = mel_kernel.counter_dense.launches
+        serve_dense = mel_kernel.counter_dense.launches + mel_kernel.counter_czt.launches   # neither may launch
         events = [json.loads(ln) for ln in (tmp / "telemetry" / "smoke_telemetry.jsonl").read_text().splitlines()]
         stats = json.loads((tmp / "stats" / "smoke_stats.json").read_text())
         check(len(events) == 8 and stats["total_inferences"] == 8, "telemetry / stats of 8 requests")
@@ -4783,10 +4985,10 @@ def main() -> int:
             cpu_feat = mel_kernel.mel_spec_feature(torch.from_numpy(yj[None])).numpy()
             conf_err = max(conf_err, abs(float(cpu_model.predict_proba(cpu_feat).max()) - e["confidence"]))
         print(f"[5] edge simulator: 8 requests in {serve_s:.3f} s, mel_rfft launches {serve_launches - serve_dense}, "
-              f"dense mel_folded launches {serve_dense}, "
+              f"dense mel_folded or mel_czt launches {serve_dense}, "
               f"avg confidence {stats['avg_confidence']:.4f}; confidence vs all-CPU path max|d| {conf_err:.3e}")
         check(serve_launches == 8 and serve_dense == 0,
-              f"the simulator launched the mel kernels {serve_launches} times ({serve_dense} dense) for 8 requests")
+              f"the simulator launched the mel kernels {serve_launches} times ({serve_dense} dense or czt) for 8 requests")
         check(conf_err <= 1e-5, "served confidences disagree with the CPU path")
 
         # 5b. training: the train CLI on the card, then its bundle served
@@ -4822,19 +5024,21 @@ def main() -> int:
 
         mel_kernel.counter.reset()
         mel_kernel.counter_dense.reset()
+        mel_kernel.counter_czt.reset()
         sim = EdgeDeviceSimulator(trained, class_names, folder, device_id="trained",
                                   telemetry_dir=tmp / "telemetry", stats_dir=tmp / "stats", seed=1)
         sim.run(4)
         torch.cuda.synchronize()
         trained_launches = mel_kernel.counter.launches
-        trained_dense = mel_kernel.counter_dense.launches
+        trained_dense = mel_kernel.counter_dense.launches + mel_kernel.counter_czt.launches   # neither may launch
         events = [json.loads(ln) for ln in (tmp / "telemetry" / "trained_telemetry.jsonl").read_text().splitlines()]
         print(f"[5b] edge simulator on the trained bundle: 4 requests, mel_rfft launches {trained_launches - trained_dense}, "
-              f"dense mel_folded launches {trained_dense}, "
+              f"dense mel_folded or mel_czt launches {trained_dense}, "
               f"predictions {[e['prediction'] for e in events]}")
         check(len(events) == 4 and all(e["prediction"] in class_names for e in events), "served trained bundle")
         check(trained_launches == 4 and trained_dense == 0,
-              f"the simulator launched the mel kernels {trained_launches} times ({trained_dense} dense) for 4 requests")
+              f"the simulator launched the mel kernels {trained_launches} times ({trained_dense} dense or czt) for 4 "
+              "requests")
 
         X_step, y_step = fs.features[:32], fs.labels[:32]
         # From phase 5's seeded bundle, not the trained one: training on the card does not repeat from run to
@@ -5001,14 +5205,6 @@ def main() -> int:
     batch = 512
     waves = torch.from_numpy(np.tile(synth_clips(rng, 8), (batch // 8, 1))).to(dev)
 
-    def in_turns(*fns, timer=cuda_ms) -> tuple[list[float], list[list[float]]]:
-        """Each fn's ms by ``timer``, timed in turns forth and back (a, b, c,
-        c, b, a): (the mean of each fn's two turns, the turns)."""
-        turns: list[list[float]] = [[] for _ in fns]
-        for i in [*range(len(fns)), *reversed(range(len(fns)))]:
-            turns[i].append(timer(fns[i]))
-        return [sum(t) / len(t) for t in turns], turns
-
     def dense_folded(n_fft):
         consts = mel_kernel.constants(SR, n_fft, N_MELS, dev)
         return lambda: mel_kernel.launch_dense(waves, consts, n_fft, HOP)
@@ -5049,9 +5245,6 @@ def main() -> int:
         ms_epilogue = cuda_ms(lambda: dsp.mel_epilogue(mel, None, HOP))
         x = dsp.mel_epilogue(mel, None, HOP).transpose(1, 2)[..., None]
         ms_cnn = cuda_ms(lambda: module(x), iters=10)
-
-    def share(ms: float, bound: float) -> str:
-        return f"{100 * bound / ms:.2f} % of the bound"
 
     print(f"[6] bound at B={batch} x 5 s, hop {HOP}, {N_MELS} mels: n_fft {N_FFT} {bound_ms:.4f} ms ({bound_by}; "
           f"least operations at the float32 peak: FFT {fft_ms:.4f} ms with {mel_nonzeros} mel nonzeros, dense "
@@ -5179,29 +5372,7 @@ def main() -> int:
           f"({', '.join(f'{k} {v:.3f}' for k, v in ms_group.items())} ms) on {card}")
     print(f"[6] the classical vector's float64 sums at B={batch} x 5 s, 22.05 kHz, against float32 in this call: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in ms_repairs.items()) + f" on {card}")
-    # the four-pass plans and the dense routes at B=512 five-second clips, beside their bounds and plain versions
-    timed = {}   # instantiation -> (ms, plain ms, bound ms, bound_by, shape)
-    with torch.inference_mode():
-        for key, entry, w, sr, n_fft, hop, n_mels, precise in (
-                ("mel_rfft<240, float>", "mel_power_folded", waves, SR, 480, HOP, N_MELS, False),
-                ("mel_rfft<240, double>", "mel_power_folded", waves, SR, 480, HOP, N_MELS, True),
-                ("mel_rfft<1024, float>", "mel_power_folded", waves22, SR22, 2048, MFCC_HOP, MFCC_MELS, False),
-                ("mel_rfft<1024, double>", "mel_power_folded", waves22, SR22, 2048, MFCC_HOP, MFCC_MELS, True),
-                ("mel_folded<float>", "mel_power_folded", waves, SR, DENSE_N_FFT, HOP, N_MELS, False),
-                ("mel_folded<double>", "mel_power_folded", waves22, SR22, DENSE_N_FFT_22, MFCC_HOP, MFCC_MELS, True),
-                ("mel_unfolded<float>", "mel_power_unfolded", waves, SR, DENSE_N_FFT, HOP, N_MELS, False)):
-            module, plain_fn, _ = entries[entry]
-            kw = {"precise": True} if precise else {}
-            dense = module.route(n_fft) == "dense"
-            ms = cuda_ms(lambda: getattr(module, entry)(w, sr, n_mels, n_fft, hop, **kw), iters=5 if dense else 20)
-            ms_p = cuda_ms(lambda: plain_fn(w, sr, n_mels, n_fft, hop), iters=3, warmup=1)
-            nonzeros = int(np.count_nonzero(golden.mel_filterbank(sr, n_fft, n_mels)))
-            bound, bound_by_k, *_ = mel_folded_bound(batch, w.shape[1], n_fft, nonzeros, hop, n_mels,
-                                                     F64_PEAK if precise else F32_PEAK)
-            shape = f"B={batch} x 5 s at {sr / 1000:g} kHz, n_fft {n_fft}, hop {hop}, {n_mels} mels"
-            timed[key] = (ms, ms_p, bound, bound_by_k, shape)
-            print(f"[6] {key} ({entry}) at {shape}: {ms:.3f} ms, {share(ms, bound)} {bound:.4f} ms ({bound_by_k}); "
-                  f"plain version {ms_p:.3f} ms on {card}")
+    timed = mel_route_times(dev, card, entries, waves, waves22)
     # the classical core at 5d's fsc22 scale: host clock around calls that end on the host or synchronise
     gamma_v, _, idx, ypm, u = classical_core.svm_problem(X_fit, y_fit, N_CLASSES, SVM_C)
     solver_args = [torch.from_numpy(a).to(dev) for a in (X_fit, idx.astype(np.int64), ypm, u)]
@@ -5276,9 +5447,12 @@ def main() -> int:
     check(all(np.isfinite([ms_kernel, ms_dense, ms_plain, ms_unf, ms_unf_dense, ms_unf_plain, ms_400, ms_400_folded,
                             ms_400_unfolded, ms_e2e, ms_epilogue, ms_cnn, *step_ms.values(), ms_mfcc_kernel, ms_mfcc_f64,
                             ms_mfcc_plain, ms_mfcc_seq, ms_classical, ms_mfcc_block, ms_mag_stft, ms_groups,
-                            *(t for v in timed.values() for t in v[:3])])), "timing")
-    path_launches["mel_unfolded<float>"] = unfolded_dense_launches.get("mel_unfolded<float>", 0)
-    check(all(path_launches.get(key, 0) >= 1 for key in timed),
+                            *(r[k] for v in timed.values() for r in v for k in ("ms", "plain_ms", "bound_ms"))])),
+          "timing")
+    for key, n in unfolded_czt_launches.items():   # 4b's off-plan call through the unfolded entry
+        path_launches[key] = path_launches.get(key, 0) + n
+    on_path = [key for key in timed if key.startswith(("mel_rfft", "mel_czt"))]   # the dense kernels are on none
+    check(all(path_launches.get(key, 0) >= 1 for key in on_path),
           f"a kernel of this slice's path was not launched there: {path_launches}")
 
     # 7. results
@@ -5310,9 +5484,14 @@ def main() -> int:
         "name": key, "route": "cuda",
         "source": f"audio_edge_ml_pipeline_torch/csrc/{'mel_rfft' if key.startswith('mel_rfft') else key.split('<')[0]}.cu",
         "replaces": f"audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:{35 if key.startswith('mel_unfolded') else 119}",
-        "launches": path_launches[key], "max_abs_err": errs_by_instantiation[key], "ms": ms, "plain_ms": ms_p,
-        "bound_ms": bound, "bound_by": by, "library_ms": None, "shape": shape,
-    } for key, (ms, ms_p, bound, by, shape) in timed.items())]}))
+        **({"also_replaces": "audio_edge_ml_pipeline_tpu/ops/pallas_mel.py:35"} if key.startswith("mel_czt") else {}),
+        "launches": path_launches.get(key, 0) if key in on_path else 0,
+        "max_abs_err": max([errs_by_instantiation.get(key, 0.0)] + [r.get("max_abs_err", 0.0) for r in rows]),
+        "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"], "bound_ms": rows[0]["bound_ms"],
+        "bound_by": rows[0]["bound_by"], "library_ms": None, "shape": rows[0]["shape"], "entry": rows[0]["entry"],
+        **({} if key in on_path else {"on_path": False, "replaced_by": "audio_edge_ml_pipeline_torch/csrc/mel_czt.cu"}),
+        "also": [{k: r[k] for k in ("entry", "shape", "ms", "plain_ms", "bound_ms", "bound_by")} for r in rows[1:]],
+    } for key, rows in timed.items())]}))
     print(f"[7] the smoke run took {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

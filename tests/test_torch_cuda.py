@@ -52,17 +52,96 @@ def test_mel_folded_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop,
 ])
 @pytest.mark.parametrize("n_fft", [6, 482, 2050])
 def test_dense_route_matches_plain_version(cuda_device, module, entry, plain, n_fft):
-    """M = 3, 241 and 1025 have no FFT plan: each entry launches its dense kernel."""
+    """M = 3, 241 and 1025 have no compiled FFT plan: the off-plan route,
+    once each entry's dense kernel, launches csrc/mel_czt.cu (direct at M =
+    3, chirp-z at 241 and 1025) and no dense kernel."""
     rng = np.random.default_rng(n_fft)
     y = torch.from_numpy((0.3 * rng.standard_normal((3, 16077))).astype(np.float32)).to(cuda_device)
     before, dense_before = module.counter.launches, module.counter_dense.launches
+    czt_before = module.counter_czt.launches
     out = getattr(module, entry)(y, n_fft=n_fft)
     torch.cuda.synchronize()
-    assert module.counter.launches == before + 1 and module.counter_dense.launches == dense_before + 1
+    assert module.counter.launches == before + 1 and module.counter_czt.launches == czt_before + 1
+    assert module.counter_dense.launches == dense_before
     ref = getattr(module, plain)(y, n_fft=n_fft)
     scale = ref.abs().amax(dim=(1, 2), keepdim=True)
     assert out.shape == (3, 1 + 16077 // 160, 40)
     assert float(((out - ref).abs() / scale).max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precise", [False, True])
+@pytest.mark.parametrize("n_fft,sr,hop,n_mels", [
+    (482, 16000, 160, 40), (2050, 22050, 512, 128), (4096, 22050, 512, 128),
+])
+def test_mel_czt_matches_plain_version(cuda_device, n_fft, sr, hop, n_mels, precise):
+    """csrc/mel_czt.cu through the folded entry in both types and the
+    unfolded one in float32: one mel_czt launch a call, by instantiation, no
+    dense launch; float32 within 1e-6 of each clip's peak, float64 within
+    1e-6 of each bin (chip_smoke.py's KERNEL_REL_TOL and F64_ELEMENT_TOL)."""
+    rng = np.random.default_rng(n_fft + precise)
+    y = torch.from_numpy((0.3 * rng.standard_normal((2, 2 * sr))).astype(np.float32)).to(cuda_device)
+    plain = mel_kernel.mel_power_folded_plain(y, sr, n_mels, n_fft, hop)
+    calls = [(mel_kernel, lambda: mel_kernel.mel_power_folded(y, sr, n_mels, n_fft, hop, precise=precise))]
+    if not precise:
+        calls.append((mel_unfolded, lambda: mel_unfolded.mel_power_unfolded(y, sr, n_mels, n_fft, hop)))
+    for module, call in calls:
+        module.counter.reset()
+        dense_before, czt_before = module.counter_dense.launches, module.counter_czt.launches
+        out = call()
+        torch.cuda.synchronize()
+        assert dict(module.counter.by_instantiation) == {f"mel_czt<{'double' if precise else 'float'}>": 1}
+        assert module.counter_czt.launches == czt_before + 1 and module.counter_dense.launches == dense_before
+        assert out.shape == plain.shape and bool(torch.isfinite(out).all())
+        err = (out - plain).abs()
+        if precise:
+            assert float((err / plain.abs().clamp_min(1e-30)).max()) <= 1e-6
+        else:
+            assert float((err / plain.abs().amax(dim=(1, 2), keepdim=True)).max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,n_fft,precise", [
+    ("mel_power_folded", 9630, False), ("mel_power_folded", 4798, True), ("mel_power_unfolded", 3070, False),
+])
+def test_mel_czt_holds_the_largest_sizes_of_the_dense_kernels(cuda_device, entry, n_fft, precise):
+    """The largest even n_fft each dense kernel held (folded float32 and
+    float64, unfolded at hop 160) runs on mel_czt, against the plain version."""
+    module = mel_kernel if entry == "mel_power_folded" else mel_unfolded
+    rng = np.random.default_rng(n_fft)
+    y = torch.from_numpy((0.3 * rng.standard_normal((2, 16000))).astype(np.float32)).to(cuda_device)
+    czt_before = module.counter_czt.launches
+    out = getattr(module, entry)(y, n_fft=n_fft, **({"precise": True} if precise else {}))
+    torch.cuda.synchronize()
+    assert module.counter_czt.launches == czt_before + 1
+    plain = mel_kernel.mel_power_folded_plain(y, n_fft=n_fft)
+    err = (out - plain).abs()
+    if precise:
+        assert float((err / plain.abs().clamp_min(1e-30)).max()) <= 1e-6
+    else:
+        assert float((err / plain.abs().amax(dim=(1, 2), keepdim=True)).max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_mel_czt_raises_by_name_above_its_limit(cuda_device):
+    y = torch.zeros((1, 16000), device=cuda_device)
+    with pytest.raises(ValueError, match=r"mel_czt<double> at n_fft=10242"):
+        mel_kernel.mel_power_folded(y, n_fft=10242, precise=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precise", [False, True])
+def test_dense_kernels_launched_directly_match_plain_version(cuda_device, precise):
+    """No route reaches the dense kernels any more; launched directly (as
+    chip_smoke.py times them) they still compute the function."""
+    rng = np.random.default_rng(17)
+    y = torch.from_numpy((0.3 * rng.standard_normal((3, 16077))).astype(np.float32)).to(cuda_device)
+    plain = mel_kernel.mel_power_folded_plain(y, n_fft=482)
+    outs = [mel_kernel.launch_dense(y, mel_kernel.constants(16000, 482, 40, cuda_device, precise), 482, 160)]
+    if not precise:
+        outs.append(mel_unfolded.launch_dense(y, mel_unfolded.constants(16000, 482, 40, cuda_device), 482, 160))
+    for out in outs:
+        assert float(((out - plain).abs() / plain.abs().amax(dim=(1, 2), keepdim=True)).max()) <= 1e-6
 
 
 @pytest.mark.cuda
@@ -126,18 +205,19 @@ def test_mel_unfolded_raises_instead_of_falling_back(cuda_device):
 ])
 def test_mel_folded_float64_instantiation_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop, n_mels):
     """precise=True launches the routed kernel's float64 instantiation
-    (mel_rfft.cu's on its sizes, mel_folded.cu's elsewhere; at n_fft 2048,
+    (mel_rfft.cu's on its sizes, mel_czt.cu's elsewhere; at n_fft 2048,
     hop 1024 the FFT kernel's tiles shrink to fit); the plain version's
     products run in float64 too, so the two meet at float32 rounding of the
     result."""
     rng = np.random.default_rng(batch * 7919 + n)
     y = torch.from_numpy((0.3 * rng.standard_normal((batch, n))).astype(np.float32)).to(cuda_device)
     before, f64_before = mel_kernel.counter.launches, mel_kernel.counter_f64.launches
-    dense_before = mel_kernel.counter_dense.launches
+    dense_before, czt_before = mel_kernel.counter_dense.launches, mel_kernel.counter_czt.launches
     out = mel_kernel.mel_power_folded(y, sr, n_mels, n_fft, hop, precise=True)
     torch.cuda.synchronize()
     assert mel_kernel.counter.launches == before + 1 and mel_kernel.counter_f64.launches == f64_before + 1
-    assert mel_kernel.counter_dense.launches == dense_before + (mel_kernel.route(n_fft) == "dense")
+    assert mel_kernel.counter_czt.launches == czt_before + (mel_kernel.route(n_fft) == "czt")
+    assert mel_kernel.counter_dense.launches == dense_before
     plain = mel_kernel.mel_power_folded_plain(y, sr, n_mels, n_fft, hop)
     assert float(((out - plain).abs() / plain.abs().clamp_min(1e-30)).max()) <= 1e-6
 
