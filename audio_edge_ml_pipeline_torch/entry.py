@@ -26,6 +26,7 @@ from torch.func import functional_call
 from .models.deep import _MODULE_FACTORY, CNNModule
 from .ops import mel_kernel
 from .utils.device import resolve_device
+from .utils.profiling import span
 
 _DRY_SR, _DRY_N, _DRY_CLASSES = 16000, 1600, 8   # 0.1 s clips, as JAX's dry run
 
@@ -35,9 +36,10 @@ def flagship(n_mels=40, n_fft=512, hop=160, sr=16000, n_classes=27, filters=(16,
     module = CNNModule(tuple(filters), dropout=0.3, n_classes=n_classes, first_stride=4, second_stride=2).eval()
 
     def forward(params: dict[str, torch.Tensor], waves: torch.Tensor) -> torch.Tensor:
-        mel = mel_kernel.mel_spec_feature(waves, sr=sr, n_mels=n_mels, n_fft=n_fft, hop_length=hop)
-        x = mel.transpose(1, 2)[..., None]  # (B, T, n_mels, 1)
-        return functional_call(module, params, (x,))
+        with span("score"):
+            mel = mel_kernel.mel_spec_feature(waves, sr=sr, n_mels=n_mels, n_fft=n_fft, hop_length=hop)
+            x = mel.transpose(1, 2)[..., None]  # (B, T, n_mels, 1)
+            return functional_call(module, params, (x,))
 
     return module, forward
 

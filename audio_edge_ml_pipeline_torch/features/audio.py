@@ -16,6 +16,7 @@ import torch
 
 from ..ops import audio_features, dsp, mel_kernel
 from ..ops.golden.librosa_ref import _ALL_CLASSICAL
+from ..utils.profiling import span
 from .base import BatchedAudioExtractor
 from .registry import register
 
@@ -59,10 +60,11 @@ class AudioMelSpectrogram(BatchedAudioExtractor):
         return dsp.n_frames_for(n_samples, self.hop_length)
 
     def batch_feature(self, waves: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
-        return mel_kernel.mel_spec_feature(
-            waves, sr=self.sample_rate, n_mels=self.n_mels, n_fft=self.n_fft,
-            hop_length=self.hop_length, lengths=lengths,
-        )
+        with span(self.name):
+            return mel_kernel.mel_spec_feature(
+                waves, sr=self.sample_rate, n_mels=self.n_mels, n_fft=self.n_fft,
+                hop_length=self.hop_length, lengths=lengths,
+            )
 
 
 @register
@@ -157,10 +159,11 @@ class AudioMFCCSequence(BatchedAudioExtractor):
         return dsp.n_frames_for(n_samples, self.hop_length)
 
     def batch_feature(self, waves: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
-        return audio_features.mfcc_seq_feature(
-            waves, sr=self.sample_rate, n_mfcc=self.n_mfcc, n_fft=self.n_fft, hop_length=self.hop_length,
-            lengths=lengths,
-        )
+        with span(self.name):
+            return audio_features.mfcc_seq_feature(
+                waves, sr=self.sample_rate, n_mfcc=self.n_mfcc, n_fft=self.n_fft, hop_length=self.hop_length,
+                lengths=lengths,
+            )
 
 
 @register
@@ -227,8 +230,9 @@ class AudioClassicalExtractor(BatchedAudioExtractor):
         return max(int(self.min_duration * self.sample_rate), self.n_fft, 8 * self.hop_length)
 
     def batch_feature(self, waves: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
-        return audio_features.classical_feature_vector(
-            waves, sr=self.sample_rate, n_mfcc=self.n_mfcc, n_mels=self.n_mels, n_fft=self.n_fft,
-            hop_length=self.hop_length, features=tuple(self.features), aggregations=tuple(self.aggregations),
-            lengths=lengths,
-        )
+        with span(self.name):
+            return audio_features.classical_feature_vector(
+                waves, sr=self.sample_rate, n_mfcc=self.n_mfcc, n_mels=self.n_mels, n_fft=self.n_fft,
+                hop_length=self.hop_length, features=tuple(self.features), aggregations=tuple(self.aggregations),
+                lengths=lengths,
+            )

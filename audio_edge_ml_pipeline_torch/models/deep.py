@@ -87,6 +87,7 @@ from ..train.evaluate import (
 from ..utils.checkpoint import load_train_state, save_train_state
 from ..utils.device import resolve_device
 from ..utils.dropout import GlobalBatchNoise, dropout_noise, runtime_dropout
+from ..utils.profiling import span
 from .backbones import EMBED_DIM, EfficientNetB0
 from .base import BaseTrainer, TrainResult
 from .layers import BatchNorm, LayerNorm, Projection, SelfAttention, conv_same, name_batch_norms, sync_batch_norms
@@ -130,16 +131,18 @@ class CNNModule(_RuntimeDropoutModule):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, dropout_rate=None, stats: dict | None = None) -> torch.Tensor:
-        """``dropout_rate`` (optional) replaces the module's own rate."""
-        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
-        for conv, stride in zip(self.convs, self.strides):
-            x = F.relu(conv_same(conv, x))
-            if stride == 1:
-                x = F.max_pool2d(x, 2, 2)
-            x = self._drop(x, dropout_rate)
-        x = x.mean(dim=(2, 3))  # GAP2D
-        x = self._drop(F.relu(self.denses[0](x)), dropout_rate)
-        return self.denses[1](x)
+        """``dropout_rate`` (optional) replaces the module's own rate. A
+        ``cnn`` span."""
+        with span("cnn"):
+            x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
+            for conv, stride in zip(self.convs, self.strides):
+                x = F.relu(conv_same(conv, x))
+                if stride == 1:
+                    x = F.max_pool2d(x, 2, 2)
+                x = self._drop(x, dropout_rate)
+            x = x.mean(dim=(2, 3))  # GAP2D
+            x = self._drop(F.relu(self.denses[0](x)), dropout_rate)
+            return self.denses[1](x)
 
 
 class MLPModule(_RuntimeDropoutModule):
@@ -668,12 +671,13 @@ class TorchTrainer(BaseTrainer):
         weighted by ``w``; then the BatchNorm statistics of the step's forward
         pass replace the running ones (flax's mutable ``batch_stats``).
         Returns the batch's (loss, accuracy) on the device. The step is a
-        ``train_step`` range in an ``AEP_PROFILE_DIR`` trace. In ``fit``:
+        ``train_step`` span (``aep.train_step`` in an ``AEP_PROFILE_DIR``
+        trace; ``utils.profiling.span``). In ``fit``:
         ``noise`` draws the dropout masks (``GlobalBatchNoise``), and on one
         of ``ranks`` data-parallel ranks ``wsum`` is the global batch's
         weight and the loss is scaled by ``ranks`` before DDP averages the
         gradients, so that they are the global loss's."""
-        with torch.profiler.record_function("train_step"):
+        with span("train_step"):
             optimizer.zero_grad(set_to_none=True)
             stats: dict[str, torch.Tensor] = {}
             with dropout_noise(noise):

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from . import dsp, mel_kernel
 from .golden import librosa_ref as ref
 from .golden.librosa_ref import _ALL_CLASSICAL
@@ -48,10 +49,12 @@ def mfcc(
     n_mels: int = 128,
     mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """(B, n) -> (B, n_mfcc, T); log-mel (ref=1.0, top_db=80) -> ortho DCT-II."""
-    S_db = dsp.power_to_db(mel_power(y, sr, n_mels, n_fft, hop_length), ref_mode=1.0, amin=1e-10, top_db=80.0,
-                           mask=mask)
-    return dsp._matmul64(dsp._on(y.device, ref.dct_ii_ortho_matrix, n_mfcc, n_mels), S_db)
+    """(B, n) -> (B, n_mfcc, T); log-mel (ref=1.0, top_db=80) -> ortho DCT-II.
+    An ``mfcc`` span, the mel power a ``mel`` span inside it."""
+    with span("mfcc"):
+        S_db = dsp.power_to_db(mel_power(y, sr, n_mels, n_fft, hop_length), ref_mode=1.0, amin=1e-10, top_db=80.0,
+                               mask=mask)
+        return dsp._matmul64(dsp._on(y.device, ref.dct_ii_ortho_matrix, n_mfcc, n_mels), S_db)
 
 
 def mfcc_seq_feature(
@@ -102,7 +105,10 @@ def classical_feature_vector(
     aggs = tuple(a for a in ("mean", "std") if a in set(aggregations))
     active = set(feats)
 
-    Smag = dsp.stft_spectrum(y, n_fft, hop_length, power=1.0) if active & _STFT_GROUPS else None
+    Smag = None
+    if active & _STFT_GROUPS:
+        with span("stft"):
+            Smag = dsp.stft_spectrum(y, n_fft, hop_length, power=1.0)
     cache: dict[str, torch.Tensor] = {}
     if active & _MFCC_GROUPS:
         cache["mfcc"] = mfcc(y, sr, n_mfcc, n_fft, hop_length, n_mels=n_mels)
@@ -110,20 +116,21 @@ def classical_feature_vector(
             cache["delta_mfcc"] = dsp.delta(cache["mfcc"], order=1)
         if "delta2_mfcc" in active:
             cache["delta2_mfcc"] = dsp.delta(cache["mfcc"], order=2)
-    if active & {"spectral_centroid", "spectral_bandwidth"}:
-        cache["spectral_centroid"] = dsp.spectral_centroid_from_mag(Smag, sr, n_fft)[:, None, :]
-    if "spectral_rolloff" in active:
-        cache["spectral_rolloff"] = dsp.spectral_rolloff_from_mag(Smag, sr, n_fft)[:, None, :]
-    if "spectral_bandwidth" in active:
-        cache["spectral_bandwidth"] = dsp.spectral_bandwidth_from_mag(Smag, sr, n_fft)[:, None, :]
-    if "spectral_contrast" in active:
-        cache["spectral_contrast"] = dsp.spectral_contrast_from_mag(Smag, sr, n_fft)
-    if "spectral_flatness" in active:
-        cache["spectral_flatness"] = dsp.spectral_flatness_from_mag(Smag)[:, None, :]
-    if active & {"chroma", "tonnetz"}:
-        cache["chroma"] = dsp.chroma_from_power(Smag * Smag, sr, n_fft)
-        if "tonnetz" in active:
-            cache["tonnetz"] = dsp.tonnetz_from_chroma(cache["chroma"])
+    with span("spectral"):   # every group that reads Smag
+        if active & {"spectral_centroid", "spectral_bandwidth"}:
+            cache["spectral_centroid"] = dsp.spectral_centroid_from_mag(Smag, sr, n_fft)[:, None, :]
+        if "spectral_rolloff" in active:
+            cache["spectral_rolloff"] = dsp.spectral_rolloff_from_mag(Smag, sr, n_fft)[:, None, :]
+        if "spectral_bandwidth" in active:
+            cache["spectral_bandwidth"] = dsp.spectral_bandwidth_from_mag(Smag, sr, n_fft)[:, None, :]
+        if "spectral_contrast" in active:
+            cache["spectral_contrast"] = dsp.spectral_contrast_from_mag(Smag, sr, n_fft)
+        if "spectral_flatness" in active:
+            cache["spectral_flatness"] = dsp.spectral_flatness_from_mag(Smag)[:, None, :]
+        if active & {"chroma", "tonnetz"}:
+            cache["chroma"] = dsp.chroma_from_power(Smag * Smag, sr, n_fft)
+            if "tonnetz" in active:
+                cache["tonnetz"] = dsp.tonnetz_from_chroma(cache["chroma"])
     if "zcr" in active:
         cache["zcr"] = dsp.zero_crossing_rate(y, hop_length=hop_length)[:, None, :]
     if "rms" in active:

@@ -30,6 +30,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .golden import librosa_ref as ref
 
 # ----------------------------------------------------------------------
@@ -444,9 +445,10 @@ def minmax_normalize(x: torch.Tensor, mask: torch.Tensor | None = None, eps: flo
 
 def mel_epilogue(mel: torch.Tensor, lengths: torch.Tensor | None, hop_length: int) -> torch.Tensor:
     """(B, n_mels, T) mel power -> masked power_to_db(ref=max) -> [0, 1]."""
-    mask = frame_mask(mel.shape[-1], lengths, hop_length)
-    log_mel = power_to_db(mel, ref_mode="max", mask=mask)
-    return minmax_normalize(log_mel, mask=mask).to(torch.float32)
+    with span("epilogue"):
+        mask = frame_mask(mel.shape[-1], lengths, hop_length)
+        log_mel = power_to_db(mel, ref_mode="max", mask=mask)
+        return minmax_normalize(log_mel, mask=mask).to(torch.float32)
 
 
 # ----------------------------------------------------------------------
@@ -460,10 +462,12 @@ def melspectrogram(
 ) -> torch.Tensor:
     """(B, n) -> (B, n_mels, T) mel power spectrogram, frames-major through
     power + mel with one swap on the small mel output. Odd n_fft (no
-    symmetric fold) takes ``stft_spectrum``'s framed basis product."""
-    fb = _mel_fb_tensor(sr, n_fft, n_mels, fmin, fmax, y.device)
-    pw = _power64(y, n_fft, hop_length, "hann", "constant")   # (B, T, F)
-    return torch.matmul(pw, fb.T).transpose(1, 2).to(torch.float32)
+    symmetric fold) takes ``stft_spectrum``'s framed basis product. A
+    ``mel`` span."""
+    with span("mel"):
+        fb = _mel_fb_tensor(sr, n_fft, n_mels, fmin, fmax, y.device)
+        pw = _power64(y, n_fft, hop_length, "hann", "constant")   # (B, T, F)
+        return torch.matmul(pw, fb.T).transpose(1, 2).to(torch.float32)
 
 
 # ----------------------------------------------------------------------

@@ -19,8 +19,8 @@ wrapper counts, in all and by template instantiation
 (``KernelCounter.by_instantiation``). ``mel_unfolded.mel_power_unfolded``
 calls both too and adds to its own counters. ``launch_dense`` launches the
 earlier design of the off-plan route, the dense folded DFT
-``csrc/mel_folded.cu``: no route reaches it, so ``counter_dense`` reads 0 on
-every path; ``chip_smoke.py`` times it beside ``mel_czt``.
+``csrc/mel_folded.cu``: no route reaches it and no counter counts it;
+``chip_smoke.py`` times it beside ``mel_czt``.
 
 ``precise=True`` (the MFCC features, ``ops/audio_features.py``) launches
 the float64 instantiation of the routed kernel: the same steps in float64,
@@ -31,7 +31,9 @@ holds every even n_fft up to 16,384 in float32 and 10,240 in float64 at hop
 160 and 40 mels (one warp of one frame a block there) and raises above.
 
 ``mel_spec_feature`` adds the masked dB and min-max epilogue (torch ops, from
-``ops.dsp``), as ``mel_spec_feature_pallas`` does on the TPU side.
+``ops.dsp``), as ``mel_spec_feature_pallas`` does on the TPU side. The mel
+power is a ``mel`` span and the epilogue an ``epilogue`` span
+(``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ import threading
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import _build, czt_plan, dsp, rfft_plan
 from .golden import librosa_ref as ref
 
@@ -87,7 +90,6 @@ def instantiation(kernel: str, n_fft: int, precise: bool) -> str:
 
 counter = KernelCounter("mel_folded")              # every launch of either routed kernel
 counter_czt = KernelCounter("mel_folded_czt")      # the launches of csrc/mel_czt.cu among them
-counter_dense = KernelCounter("mel_folded_dense")  # routed launches of csrc/mel_folded.cu: none since mel_czt
 counter_f64 = KernelCounter("mel_folded_f64")      # the launches of either kernel's float64 instantiation among them
 
 
@@ -333,15 +335,17 @@ def mel_power_folded(
 
     A CUDA tensor launches the kernel ``route(n_fft)`` names, its float64
     instantiation if ``precise``; a CPU tensor runs the plain version, whose
-    products run in float64 either way."""
+    products run in float64 either way. Either is a ``mel`` span: here the
+    tables and the launch, ``dsp.melspectrogram`` the plain version."""
     _check(y)
     kernel = route(n_fft)
     if y.device.type == "cuda":
-        if kernel == "rfft":
-            out = launch_rfft(y, sr, n_mels, n_fft, hop_length, precise)
-        else:
-            out = launch_czt(y, sr, n_mels, n_fft, hop_length, precise)
-            counter_czt.add()
+        with span("mel"):
+            if kernel == "rfft":
+                out = launch_rfft(y, sr, n_mels, n_fft, hop_length, precise)
+            else:
+                out = launch_czt(y, sr, n_mels, n_fft, hop_length, precise)
+                counter_czt.add()
         if precise:
             counter_f64.add()
         counter.add(instantiation("mel_czt" if kernel == "czt" else kernel, n_fft, precise))

@@ -16,7 +16,7 @@ on frames cut with ``Tensor.unfold``. There is no fallback from one to
 another: a CUDA tensor the routed kernel cannot take raises.
 ``launch_dense`` launches the earlier design of the off-plan route, the
 dense unfolded DFT ``csrc/mel_unfolded.cu`` (float32, n_fft up to 3,070 at
-hop 160): no route reaches it, so ``counter_dense`` reads 0 on every path.
+hop 160): no route reaches it and no counter counts it.
 
 Odd n_fft is refused, as the JAX kernel refuses it (its frame tiles run out
 of bounds there). Nothing in the port's CLIs calls this wrapper: no JAX path
@@ -37,7 +37,6 @@ from .mel_kernel import F_ALIGN, SMEM_LIMIT, KernelCounter, _round_up, instantia
 
 counter = KernelCounter("mel_unfolded")              # every launch of either routed kernel
 counter_czt = KernelCounter("mel_unfolded_czt")      # the launches of csrc/mel_czt.cu among them
-counter_dense = KernelCounter("mel_unfolded_dense")  # routed launches of csrc/mel_unfolded.cu: none since mel_czt
 BLOCK_K = 64  # samples per partial DFT sum; csrc/mel_unfolded.cu's kBlockK
 
 

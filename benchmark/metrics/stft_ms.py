@@ -1,0 +1,13 @@
+"""stft_ms: the magnitude STFT's device-clock self time, ms a batch, median
+over the traced batches: the program's ``stft`` span (``ops/
+audio_features.py::classical_feature_vector``'s ``dsp.stft_spectrum``, the
+float64 framed basis products). Device-clock self time (``harness/
+spans.py``): the time the layer adds to the batch on ``batch_ms_p95``'s
+clock, its device work where the device lags the host and its issue time
+where the host lags."""
+
+from benchmark.harness import spans
+
+
+def read(ctx):
+    return spans.median_self_ms(ctx, "stft")

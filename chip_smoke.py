@@ -546,13 +546,13 @@ def sweep_off_plan(dev, rng: np.random.Generator, mel_kernel, mel_unfolded, errs
         ref = dft_mel_reference(y64, SR, n_fft, HOP, N_MELS)
         peak = ref.amax(dim=(1, 2), keepdim=True)
         for c, (entry, module, precise) in enumerate(calls):
-            for counter in (module.counter, module.counter_czt, module.counter_dense):
+            for counter in (module.counter, module.counter_czt):
                 counter.reset()
             out = getattr(module, entry)(y, SR, N_MELS, n_fft, HOP, **({"precise": True} if precise else {}))
-            launched = (dict(module.counter.by_instantiation), module.counter_czt.launches, module.counter_dense.launches)
+            launched = (dict(module.counter.by_instantiation), module.counter_czt.launches)
             want = {mel_kernel.instantiation("mel_czt", n_fft, precise): 1}
-            check(launched == (want, 1, 0), f"sweep: {entry} at n_fft {n_fft} launched (by instantiation, czt, "
-                                            f"dense) {launched}, not {want}")
+            check(launched == (want, 1), f"sweep: {entry} at n_fft {n_fft} launched (by instantiation, czt) "
+                                         f"{launched}, not {want}")
             d = (out.double() - ref).abs()
             absd[i, c] = d.amax()
             rel[i, c] = (d / ref.clamp_min(torch.finfo(torch.float64).tiny)).amax() if precise else (d / peak).amax()
@@ -845,19 +845,18 @@ def phase_5e(dev) -> dict:
     names5e = [f"class{c:02d}" for c in range(N_CLASSES)]
     gen = torch.Generator(device=dev).manual_seed(5)
     mel_kernel.counter.reset()
-    mel_kernel.counter_dense.reset()
     mel_kernel.counter_czt.reset()
     t0 = time.perf_counter()
     X_mel = np.concatenate([mel_kernel.mel_spec_feature(class_clips_on_card(gen, dev, c, FSC22_CLIPS)).cpu().numpy()
                             for c in range(N_CLASSES)])
     mel5e_s = time.perf_counter() - t0
-    mel5e_launches = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_kernel.counter_czt.launches)
+    mel5e_launches = (mel_kernel.counter.launches, mel_kernel.counter_czt.launches)
     y_mel = np.repeat(np.arange(N_CLASSES), FSC22_CLIPS).astype(np.int32)
     split = np.array(stratified_split_indices([names5e[c] for c in y_mel], 0.70, 0.15, 42))
     X_ct, y_ct = fsc22_classical_train(np.random.default_rng(22))
     check(X_mel.shape == (N_CLASSES * FSC22_CLIPS, N_MELS, 1 + CLIP // HOP) and bool(np.isfinite(X_mel).all()),
           f"5e mel features {X_mel.shape}")
-    check(mel5e_launches == (N_CLASSES, 0, 0), f"5e's extraction launched (all, dense, czt) {mel5e_launches}")
+    check(mel5e_launches == (N_CLASSES, 0), f"5e's extraction launched (all, czt) {mel5e_launches}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp5e:
         tmp5e = Path(tmp5e)
@@ -914,7 +913,7 @@ def phase_5e(dev) -> dict:
         failures = [m for m in messages5e if "failed" in m and "Test-set evaluation failed" not in m]
         inherited = [m for m in messages5e if "Test-set evaluation failed" in m]
         print(f"[5e] mel FeatureSets on the card: {len(X_mel)} clips in {mel5e_s:.2f} s, mel_rfft launches "
-              f"{mel5e_launches[0] - mel5e_launches[1] - mel5e_launches[2]}, dense {mel5e_launches[1]}, czt {mel5e_launches[2]}; train {int((split == 'train').sum())}, "
+              f"{mel5e_launches[0] - mel5e_launches[1]}, czt {mel5e_launches[1]}; train {int((split == 'train').sum())}, "
               f"validation {int((split == 'validation').sum())} rows; classical train {len(X_ct)} x {CLASSICAL_DIM}")
         print(f"[5e] tune CLI on the card: configs/tuning.yaml (cut) in {tune_s['shipped']:.2f} s, the pca_svm grid "
               f"{grid_s['grid']:.2f} s (cells {', '.join(f'{t:.3f}' for t in cell_s)} s, then the refit); the batched "
@@ -1751,24 +1750,23 @@ def phase_5g(dev, mel108, mfcc108, t5e: dict) -> dict:
                 (folder / name).mkdir(parents=True)
                 write_wav(folder / name / "0.wav", class_clips_on_card(gen, dev, names.index(name), 1)[0].cpu().numpy(), SR)
             mel_kernel.counter.reset()
-            mel_kernel.counter_dense.reset()
             mel_kernel.counter_czt.reset()
             sim = EdgeDeviceSimulator(student_bundle, kd_names, folder, device_id="student",
                                       telemetry_dir=tmp / "telemetry", stats_dir=tmp / "stats", seed=2)
             sim.run(8)
             torch.cuda.synchronize()
             out["mel_launches"] = mel_kernel.counter.launches
-            sim_dense = mel_kernel.counter_dense.launches + mel_kernel.counter_czt.launches   # neither may launch
+            sim_czt = mel_kernel.counter_czt.launches   # may not launch
             events = [json.loads(ln) for ln in (tmp / "telemetry" / "student_telemetry.jsonl").read_text().splitlines()]
             student = tdeep.load_any_model(student_bundle)
             err, same = compiled_scores(["--model", str(student_bundle), "--labels", *kd_names, "--max-ram", "0"],
                                         tmp / "student_c", Xk[:2], student)
             print(f"[5g] student ({student._arch_dict['filters']}, {student.name}) served by the edge simulator: 8 "
-                  f"requests, mel_rfft launches {out['mel_launches'] - sim_dense}, dense or czt {sim_dense}, predictions "
+                  f"requests, mel_rfft launches {out['mel_launches'] - sim_czt}, czt {sim_czt}, predictions "
                   f"{[e['prediction'] for e in events]}; through the deploy CLI and gcc: C scores on 2 validation rows "
                   f"vs predict_proba on the card max|d| {err:.3e} (tol {C_SCORE_TOL:g}), argmax equal {same}")
             check(len(events) == 8 and all(e["prediction"] in kd_names for e in events), "5g: the served student")
-            check(out["mel_launches"] == 8 and sim_dense == 0, "5g: the simulator did not launch mel_rfft once a request")
+            check(out["mel_launches"] == 8 and sim_czt == 0, "5g: the simulator did not launch mel_rfft once a request")
             check(err <= C_SCORE_TOL and same, "5g: the student's C forward disagrees with the card")
 
             # a checkpointed teacher run of one epoch, then one of two epochs resumed from it (built with another lr,
@@ -1935,7 +1933,7 @@ def phase_4e(dev, tmp: Path) -> dict:
     root = tmp / "BIRDeep_AudioAnnotations"
     cfg, cfg_cpu, doc, train_doc = birdeep_configs(root, tmp / "birdeep")
     rows = write_birdeep_tree(root, np.random.default_rng(11), doc["class_filter"])
-    counters = (mel_kernel.counter, mel_kernel.counter_dense, mel_kernel.counter_f64, mel_kernel.counter_czt)
+    counters = (mel_kernel.counter, mel_kernel.counter_f64, mel_kernel.counter_czt)
     for c in counters:
         c.reset()
     t0 = time.perf_counter()
@@ -1951,7 +1949,7 @@ def phase_4e(dev, tmp: Path) -> dict:
     out: dict = {"mel_launches": by_inst.get("mel_rfft<256, float>", 0),
                  "f64_launches": by_inst.get("mel_rfft<512, double>", 0)}
     print(f"[4e] {Path(cfg).name} through the extraction CLI on the card in {card_s:.2f} s (the CPU run "
-          f"{cpu_s:.2f} s): launches (all, dense, float64, czt) {launches}, by instantiation {by_inst}")
+          f"{cpu_s:.2f} s): launches (all, float64, czt) {launches}, by instantiation {by_inst}")
     for exp in doc["experiments"]:
         classical = exp["extractor"] == "audio_classical"
         split = exp["split"]
@@ -1979,7 +1977,7 @@ def phase_4e(dev, tmp: Path) -> dict:
               f"{'max|d|/max(|cpu|, 1)' if classical else 'max|d|'} {gap:.3e}, 3 rows vs float64 golden {gold_err:.3e} "
               f"(tol {tol:g})")
         check(gap <= tol and gold_err <= tol, f"4e: {exp['name']} misses its gate")
-    check(out["mel_launches"] == 2 and out["f64_launches"] >= 2 and launches[1] == launches[3] == 0,
+    check(out["mel_launches"] == 2 and out["f64_launches"] >= 2 and launches[2] == 0,
           f"4e: the mel experiments launched mel_rfft<256, float> {out['mel_launches']} times, not once each")
 
     # birdeep-5-classes-train.yaml on those FeatureSets, through the train CLI on the card
@@ -2143,7 +2141,6 @@ def phase_4f(dev, tmp: Path) -> dict:
 
     # the augmented tree through the extraction CLI on the card, split all
     mel_kernel.counter.reset()
-    mel_kernel.counter_dense.reset()
     mel_kernel.counter_czt.reset()
     pipeline.main(["--loader", "audio_folder", "--dataset", str(root / "dev"), "--split", "all", "--extractor",
                    "audio_mel_spec", "--output", str(root / "mel")])
@@ -2151,11 +2148,11 @@ def phase_4f(dev, tmp: Path) -> dict:
     out["mel_launches"] = mel_kernel.counter.launches
     fs = pipeline.FeaturePipeline.load(root / "mel")
     print(f"[4f] the device backend's tree through the extraction CLI (audio_mel_spec, split all): {fs}; mel_rfft "
-          f"launches {out['mel_launches']}, dense {mel_kernel.counter_dense.launches}, czt {mel_kernel.counter_czt.launches}")
+          f"launches {out['mel_launches']}, czt {mel_kernel.counter_czt.launches}")
     check(fs.features.shape == (n_files * 5, N_MELS, 1 + CLIP // HOP) and fs.n_classes == N_CLASSES
           and sorted(fs.label_names) == sorted(names) and bool(np.isfinite(fs.features).all()),
           "4f: the augmented FeatureSet")
-    check(out["mel_launches"] >= 1 and mel_kernel.counter_dense.launches == mel_kernel.counter_czt.launches == 0,
+    check(out["mel_launches"] >= 1 and mel_kernel.counter_czt.launches == 0,
           "4f: the extraction's mel kernel")
     print(f"[4f] phase 4f in {time.perf_counter() - t_start:.2f} s")
     return out
@@ -2181,7 +2178,7 @@ def trace_summary(stage_dir: Path) -> dict:
     """A stage's torch.profiler trace: kernels by total device time (µs,
     launches), the device idle share over the stage's window (1 - the union
     of kernel intervals over the span of all its timed events) and over the
-    train steps after the first, and each train_step range's host time, the
+    train steps after the first, and each aep.train_step range's host time, the
     kernel time inside it and the kernel launches made in it."""
     (path,) = stage_dir.glob("*.pt.trace.json")
     events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X" and "dur" in e]
@@ -2193,7 +2190,7 @@ def trace_summary(stage_dir: Path) -> dict:
             k[1] += 1
     union = kernel_intervals(events)
     t0, t1 = min(e["ts"] for e in events), max(e["ts"] + e["dur"] for e in events)
-    steps = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == "train_step"]
+    steps = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == "aep.train_step"]
     launches = [e for e in events if e.get("cat") == "cuda_runtime" and "LaunchKernel" in e["name"]]
     steps.sort(key=lambda s: s["ts"])
     a, b = (steps[1]["ts"], steps[-1]["ts"] + steps[-1]["dur"]) if len(steps) > 1 else (t0, t1)
@@ -2327,7 +2324,7 @@ def phase_4g(dev, tmp: Path, card: str) -> dict:
     fit = out["fit:cnn"]
     steps = fit["steps"]
     per_epoch = -(-(rows - rows // 5) // 32)
-    check(len(steps) >= 2 * per_epoch - 2, f"4g: the train trace holds {len(steps)} train_step ranges")
+    check(len(steps) >= 2 * per_epoch - 2, f"4g: the train trace holds {len(steps)} aep.train_step ranges")
     host = np.array([d - k for d, k, _ in steps]) / 1e3
     rng_ms, busy_ms = np.array([d for d, _, _ in steps]) / 1e3, np.array([k for _, k, _ in steps]) / 1e3
     n_launch = np.array([n for _, _, n in steps])
@@ -3551,7 +3548,7 @@ def phase_5k(dev, tmp: Path, bundle: Path, features: Path, card: str) -> None:
     from audio_edge_ml_pipeline_torch.tools import convert_backbone_weights as tool
 
     t_start = time.perf_counter()
-    launches = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_kernel.counter_czt.launches)
+    launches = (mel_kernel.counter.launches, mel_kernel.counter_czt.launches)
     has_tf = importlib.util.find_spec("tensorflow") is not None
     refusals = {}
     saved = sys.modules.get("tensorflow")
@@ -3620,13 +3617,12 @@ def phase_5k(dev, tmp: Path, bundle: Path, features: Path, card: str) -> None:
     print(f"[5k] the converter's --prefix backbone --bundle file warm-starts the teacher (image 224) on the card: "
           f"{[m for m in msgs if 'Pretrained' in m]}; the {len(shared)} tensors of the two backbones' shared units "
           f"({', '.join(sorted({k.split('/')[-3] for k in shared}))}) are the file's {took}; parameters on "
-          f"{sorted(on_device)}; mel kernel launches in 5k {mel_kernel.counter.launches - launches[0]} + dense "
-          f"{mel_kernel.counter_dense.launches - launches[1]} + czt {mel_kernel.counter_czt.launches - launches[2]}; "
+          f"{sorted(on_device)}; mel kernel launches in 5k {mel_kernel.counter.launches - launches[0]}, of them czt "
+          f"{mel_kernel.counter_czt.launches - launches[1]}; "
           f"phase 5k in {time.perf_counter() - t_start:.2f} s")
     check(any("Pretrained weights: 6 tensors transferred" in m for m in msgs), "5k: the teacher's warm start")
     check(len(shared) == 10 and took and on_device == {"cuda"}, "5k: the teacher did not take the file's tensors")
-    check((mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_kernel.counter_czt.launches) == launches,
-          "5k launched a mel kernel")
+    check((mel_kernel.counter.launches, mel_kernel.counter_czt.launches) == launches, "5k launched a mel kernel")
 
 
 def native_reader_checks(audio_dir: Path, names: list[str], tmp: Path) -> None:
@@ -4584,12 +4580,11 @@ def main() -> int:
         czt = module.route(n_fft) == "czt"
         y = torch.from_numpy(synth_clips(rng, batch, n)).to(dev)
         module.counter.reset()
-        module.counter_dense.reset()
         module.counter_czt.reset()
         mel_kernel.counter_f64.reset()
         out = getattr(module, entry)(y, sr, n_mels, n_fft, hop, **({"precise": True} if precise else {}))
         torch.cuda.synchronize()
-        launches = (module.counter.launches, module.counter_czt.launches, module.counter_dense.launches)
+        launches = (module.counter.launches, module.counter_czt.launches)
         check(mel_kernel.counter_f64.launches == int(precise), f"{entry} float64 launches")
         kernel = routed(n_fft, precise)
         check(dict(module.counter.by_instantiation) == {kernel: 1},
@@ -4600,12 +4595,12 @@ def main() -> int:
         rel_bin = float((err / ref.abs().clamp_min(torch.finfo(torch.float32).tiny)).max())
         errs_by_instantiation[kernel] = max(errs_by_instantiation.get(kernel, 0.0), float(err.max()))
         print(f"[3] {entry} n_fft {n_fft}, hop {hop}, {n_mels} mels ({kernel}) vs plain, {label}: "
-              f"launches (all, czt, dense) {launches}, max|d| {float(err.max()):.3e}, max|d|/clip peak {rel:.3e} "
+              f"launches (all, czt) {launches}, max|d| {float(err.max()):.3e}, max|d|/clip peak {rel:.3e} "
               f"(tol {KERNEL_REL_TOL:g}), max|d|/|plain| per bin {rel_bin:.3e}"
               + (f" (tol {F64_ELEMENT_TOL:g})" if precise else " (not checked)"))
         check(not precise or rel_bin <= F64_ELEMENT_TOL,
               f"{entry}'s float64 instantiation disagrees with its plain version per bin at n_fft {n_fft}: {rel_bin:.3e}")
-        check(launches == (1, int(czt), 0), f"{entry} at n_fft {n_fft} launched (all, czt, dense) {launches}")
+        check(launches == (1, int(czt)), f"{entry} at n_fft {n_fft} launched (all, czt) {launches}")
         check(out.shape == (batch, 1 + n // hop, n_mels), f"{entry} output shape {tuple(out.shape)}")
         check(bool(torch.isfinite(out).all()), f"{entry} output is not finite")
         check(rel <= KERNEL_REL_TOL, f"{entry} disagrees with its plain version at n_fft {n_fft}, {label}: {rel:.3e}")
@@ -4721,14 +4716,12 @@ def main() -> int:
         feats3c = {}
         for label, (fn, *_) in cases3c.items():
             mel_kernel.counter.reset()
-            mel_kernel.counter_dense.reset()
             mel_kernel.counter_czt.reset()
             mel_kernel.counter_f64.reset()
             feats3c[label] = fn().cpu().numpy()
             torch.cuda.synchronize()
             mfcc_launches[label] = ((mel_kernel.counter.launches, mel_kernel.counter_czt.launches,
-                                     mel_kernel.counter_f64.launches), dict(mel_kernel.counter.by_instantiation),
-                                    mel_kernel.counter_dense.launches)
+                                     mel_kernel.counter_f64.launches), dict(mel_kernel.counter.by_instantiation))
         flags_after = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
@@ -4740,11 +4733,11 @@ def main() -> int:
         err = float((d / np.maximum(np.abs(gold), 1.0)).max() if classical else d.max())
         print(f"[3c] {label} on the card, TF32 flags on: shape {feats3c[label].shape}, vs float64 golden "
               f"{'max|d|/max(|g|, 1)' if classical else 'max|d|'} {err:.3e} (tol {tol:g}); mel kernel launches "
-              f"(all, czt, float64) {mfcc_launches[label][0]}, {mfcc_launches[label][1]}, dense {mfcc_launches[label][2]}")
+              f"(all, czt, float64) {mfcc_launches[label][0]}, {mfcc_launches[label][1]}")
         check(feats3c[label].shape == shape and bool(np.isfinite(feats3c[label]).all()), f"{label} shape or finiteness")
         check(err <= tol, f"{label} on the card misses its gate against golden: {err:.3e}")
-        check(mfcc_launches[label] == (launches, {inst: 1} if inst else {}, 0),
-              f"{label} launched {mfcc_launches[label]}, not {launches} of {inst} and no dense kernel")
+        check(mfcc_launches[label] == (launches, {inst: 1} if inst else {}),
+              f"{label} launched {mfcc_launches[label]}, not {launches} of {inst}")
     check(flags_after == (True, True), "the DSP changed the caller's TF32 flags")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -4753,14 +4746,13 @@ def main() -> int:
 
         # 4. extraction CLI
         mel_kernel.counter.reset()
-        mel_kernel.counter_dense.reset()
         mel_kernel.counter_czt.reset()
         t0 = time.perf_counter()
         pipeline.main(["--loader", "fsc22", "--dataset", str(fsc22), "--extractor", "audio_mel_spec",
                        "--split", "all", "--output", str(tmp / "features")])
         extract_s = time.perf_counter() - t0
         extract_launches = mel_kernel.counter.launches
-        extract_dense = mel_kernel.counter_dense.launches + mel_kernel.counter_czt.launches   # neither may launch
+        extract_czt = mel_kernel.counter_czt.launches   # may not launch
         fs = pipeline.FeaturePipeline.load(tmp / "features")
         n_clips = N_CLASSES * PER_CLASS
         check(fs.features.shape == (n_clips, N_MELS, 1 + CLIP // HOP), f"FeatureSet shape {fs.features.shape}")
@@ -4771,9 +4763,9 @@ def main() -> int:
         for j in (0, n_clips // 2, n_clips - 1):
             yj, _ = load_audio(fsc22 / "Audio Wise V1.0-20260101" / "Audio Wise V1.0" / fs.metadata[j]["filename"], sr=SR)
             cli_err = max(cli_err, float(np.abs(fs.features[j] - golden.mel_spec_feature(yj)).max()))
-        print(f"[4] extraction CLI: {fs} in {extract_s:.2f} s; mel_rfft launches {extract_launches - extract_dense}, "
-              f"dense mel_folded or mel_czt launches {extract_dense}; 3 rows vs float64 golden max|d| {cli_err:.3e}")
-        check(extract_launches > 0 and extract_dense == 0, "the extraction CLI did not run the FFT mel kernel")
+        print(f"[4] extraction CLI: {fs} in {extract_s:.2f} s; mel_rfft launches {extract_launches - extract_czt}, "
+              f"mel_czt launches {extract_czt}; 3 rows vs float64 golden max|d| {cli_err:.3e}")
+        check(extract_launches > 0 and extract_czt == 0, "the extraction CLI did not run the FFT mel kernel")
         check(cli_err <= FEATURE_TOL, "CLI features miss the 1e-5 gate")
 
         audio_dir = fsc22 / "Audio Wise V1.0-20260101" / "Audio Wise V1.0"
@@ -4790,23 +4782,21 @@ def main() -> int:
 
         # 4b. the unfolded kernel's entry point on the tree's clips
         mel_unfolded.counter.reset()
-        mel_unfolded.counter_dense.reset()
         mel_unfolded.counter_czt.reset()
         mel_u = mel_unfolded.mel_power_unfolded(tree_d).cpu().numpy()
         unfolded_launches = mel_unfolded.counter.launches
-        unfolded_dense = mel_unfolded.counter_dense.launches + mel_unfolded.counter_czt.launches   # neither may launch
+        unfolded_czt = mel_unfolded.counter_czt.launches   # may not launch
         gold_rel = max(float(np.abs(mel_u[j].T - g).max() / np.abs(g).max())
                        for j, g in zip((0, n_clips // 2, n_clips - 1), gold_mel))
         print(f"[4] mel_power_unfolded on the {n_clips} tree clips: shape {mel_u.shape}, mel_rfft launches "
-              f"{unfolded_launches - unfolded_dense}, dense mel_unfolded or mel_czt launches {unfolded_dense}; "
+              f"{unfolded_launches - unfolded_czt}, mel_czt launches {unfolded_czt}; "
               f"3 clips vs float64 golden mel power max|d|/clip peak {gold_rel:.3e} (tol {GOLDEN_REL_TOL:g})")
-        check(unfolded_launches == 1 and unfolded_dense == 0,
-              f"mel_power_unfolded launched {unfolded_launches} kernels ({unfolded_dense} dense or czt) for one call")
+        check(unfolded_launches == 1 and unfolded_czt == 0,
+              f"mel_power_unfolded launched {unfolded_launches} kernels ({unfolded_czt} czt) for one call")
         check(mel_u.shape == (n_clips, 1 + CLIP // HOP, N_MELS), "unfolded mel shape")
         check(gold_rel <= GOLDEN_REL_TOL, "the unfolded kernel misses the golden mel power")
         # and its off-plan route, mel_czt (chirp-z), once that of its dense kernel
         mel_unfolded.counter.reset()
-        mel_unfolded.counter_dense.reset()
         mel_unfolded.counter_czt.reset()
         mel_ud = mel_unfolded.mel_power_unfolded(tree_d, n_fft=CZT_N_FFT).cpu().numpy()
         unfolded_czt_launches = dict(mel_unfolded.counter.by_instantiation)
@@ -4815,11 +4805,10 @@ def main() -> int:
                                                                 n_fft=CZT_N_FFT, hop_length=HOP))
                                       for j in (0, n_clips // 2, n_clips - 1)))
         print(f"[4] mel_power_unfolded at n_fft {CZT_N_FFT} on the {n_clips} tree clips: launches "
-              f"{unfolded_czt_launches}, czt {mel_unfolded.counter_czt.launches}, dense "
-              f"{mel_unfolded.counter_dense.launches}; 3 clips vs float64 golden mel power max|d|/clip peak "
+              f"{unfolded_czt_launches}, czt {mel_unfolded.counter_czt.launches}; 3 clips vs float64 golden mel power max|d|/clip peak "
               f"{gold_rel_d:.3e} (tol {GOLDEN_REL_TOL:g})")
-        check(unfolded_czt_launches == {"mel_czt<float>": 1} and mel_unfolded.counter_czt.launches == 1
-              and mel_unfolded.counter_dense.launches == 0, "mel_power_unfolded's off-plan route is not mel_czt")
+        check(unfolded_czt_launches == {"mel_czt<float>": 1} and mel_unfolded.counter_czt.launches == 1,
+              "mel_power_unfolded's off-plan route is not mel_czt")
         check(gold_rel_d <= GOLDEN_REL_TOL, "mel_czt through the unfolded entry misses the golden mel power")
 
         # 4c. the shipped extraction config on the same tree, through the CLI on the card
@@ -4828,7 +4817,7 @@ def main() -> int:
         shipped_s: dict[str, float] = {}
         run_experiment = pipeline._run_experiment
 
-        counters = (mel_kernel.counter, mel_kernel.counter_dense, mel_kernel.counter_f64, mel_kernel.counter_czt)
+        counters = (mel_kernel.counter, mel_kernel.counter_f64, mel_kernel.counter_czt)
 
         def counted(exp, *args, **kwargs):
             before = [c.launches for c in counters]
@@ -4870,15 +4859,14 @@ def main() -> int:
                                              else d.max()))
             launches_exp = shipped_launches[exp["name"]]
             print(f"[4c] shipped config {exp['name']} ({exp['extractor']}, split {exp['split']}): {fs_exp} in "
-                  f"{shipped_s[exp['name']]:.2f} s; mel_rfft launches {launches_exp[0] - launches_exp[1] - launches_exp[3]} "
-                  f"({launches_exp[2]} float64), dense {launches_exp[1]}, czt {launches_exp[3]}; 3 rows vs float64 "
+                  f"{shipped_s[exp['name']]:.2f} s; mel_rfft launches {launches_exp[0] - launches_exp[2]} "
+                  f"({launches_exp[1]} float64), czt {launches_exp[2]}; 3 rows vs float64 "
                   f"golden {err_exp:.3e} "
                   f"(tol {tol:g})")
             check(err_exp <= tol, f"{exp['name']} misses its gate against golden")
             mfcc_exp = exp["extractor"] != "audio_mel_spec"
-            check(launches_exp[0] >= 1 and launches_exp[1] == launches_exp[3] == 0
-                  and launches_exp[2] == launches_exp[0] * mfcc_exp,
-                  f"{exp['name']} launched (all, dense, float64, czt) {launches_exp}: not the FFT mel kernel it should")
+            check(launches_exp[0] >= 1 and launches_exp[2] == 0 and launches_exp[1] == launches_exp[0] * mfcc_exp,
+                  f"{exp['name']} launched (all, float64, czt) {launches_exp}: not the FFT mel kernel it should")
 
         native_reader_checks(audio_dir, [m["filename"] for m in fs.metadata], tmp)
 
@@ -4890,13 +4878,11 @@ def main() -> int:
 
         def counted_slice(exp, *args, **kwargs):
             mel_kernel.counter.reset()
-            mel_kernel.counter_dense.reset()
             t0 = time.perf_counter()
             run_experiment(exp, *args, **kwargs)
             torch.cuda.synchronize()
             slice_s[exp.resolved_name()] = time.perf_counter() - t0
             slice_launches[exp.resolved_name()] = dict(mel_kernel.counter.by_instantiation)
-            check(mel_kernel.counter_dense.launches == 0, f"{exp.resolved_name()} launched a dense kernel")
 
         pipeline._run_experiment = counted_slice
         try:
@@ -4938,13 +4924,12 @@ def main() -> int:
         phase_4j(dev, tmp)
 
         # 4k-4l. the text and tabular modalities: no kernel of the port on their path
-        mel_before = (mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_kernel.counter_czt.launches,
-                      mel_unfolded.counter.launches, mel_unfolded.counter_dense.launches, mel_unfolded.counter_czt.launches)
+        mel_before = (mel_kernel.counter.launches, mel_kernel.counter_czt.launches, mel_unfolded.counter.launches,
+                      mel_unfolded.counter_czt.launches)
         phase_4k(dev, tmp, card)
         phase_4l(dev, tmp, card)
-        check((mel_kernel.counter.launches, mel_kernel.counter_dense.launches, mel_kernel.counter_czt.launches,
-               mel_unfolded.counter.launches, mel_unfolded.counter_dense.launches, mel_unfolded.counter_czt.launches)
-              == mel_before, "4k-4l launched a mel kernel")
+        check((mel_kernel.counter.launches, mel_kernel.counter_czt.launches, mel_unfolded.counter.launches,
+               mel_unfolded.counter_czt.launches) == mel_before, "4k-4l launched a mel kernel")
 
         # 5. serving
         trainer = CNNTrainer(filters=[16, 64, 64], first_stride=4, second_stride=2, device=dev)
@@ -4963,7 +4948,6 @@ def main() -> int:
         check(logit_err <= LOGIT_TOL, "CNN logits on the card disagree with the CPU")
 
         mel_kernel.counter.reset()
-        mel_kernel.counter_dense.reset()
         mel_kernel.counter_czt.reset()
         sim = EdgeDeviceSimulator(bundle, class_names, folder, device_id="smoke",
                                   telemetry_dir=tmp / "telemetry", stats_dir=tmp / "stats", seed=0)
@@ -4972,7 +4956,7 @@ def main() -> int:
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         serve_launches = mel_kernel.counter.launches
-        serve_dense = mel_kernel.counter_dense.launches + mel_kernel.counter_czt.launches   # neither may launch
+        serve_czt = mel_kernel.counter_czt.launches   # may not launch
         events = [json.loads(ln) for ln in (tmp / "telemetry" / "smoke_telemetry.jsonl").read_text().splitlines()]
         stats = json.loads((tmp / "stats" / "smoke_stats.json").read_text())
         check(len(events) == 8 and stats["total_inferences"] == 8, "telemetry / stats of 8 requests")
@@ -4984,11 +4968,11 @@ def main() -> int:
             yj, _ = load_audio(folder / e["true_class"] / e["clip"], sr=SR)
             cpu_feat = mel_kernel.mel_spec_feature(torch.from_numpy(yj[None])).numpy()
             conf_err = max(conf_err, abs(float(cpu_model.predict_proba(cpu_feat).max()) - e["confidence"]))
-        print(f"[5] edge simulator: 8 requests in {serve_s:.3f} s, mel_rfft launches {serve_launches - serve_dense}, "
-              f"dense mel_folded or mel_czt launches {serve_dense}, "
+        print(f"[5] edge simulator: 8 requests in {serve_s:.3f} s, mel_rfft launches {serve_launches - serve_czt}, "
+              f"mel_czt launches {serve_czt}, "
               f"avg confidence {stats['avg_confidence']:.4f}; confidence vs all-CPU path max|d| {conf_err:.3e}")
-        check(serve_launches == 8 and serve_dense == 0,
-              f"the simulator launched the mel kernels {serve_launches} times ({serve_dense} dense or czt) for 8 requests")
+        check(serve_launches == 8 and serve_czt == 0,
+              f"the simulator launched the mel kernels {serve_launches} times ({serve_czt} czt) for 8 requests")
         check(conf_err <= 1e-5, "served confidences disagree with the CPU path")
 
         # 5b. training: the train CLI on the card, then its bundle served
@@ -5023,21 +5007,20 @@ def main() -> int:
         check(epoch_loss[-1] < epoch_loss[0], "the epoch loss did not fall from the first epoch to the last")
 
         mel_kernel.counter.reset()
-        mel_kernel.counter_dense.reset()
         mel_kernel.counter_czt.reset()
         sim = EdgeDeviceSimulator(trained, class_names, folder, device_id="trained",
                                   telemetry_dir=tmp / "telemetry", stats_dir=tmp / "stats", seed=1)
         sim.run(4)
         torch.cuda.synchronize()
         trained_launches = mel_kernel.counter.launches
-        trained_dense = mel_kernel.counter_dense.launches + mel_kernel.counter_czt.launches   # neither may launch
+        trained_czt = mel_kernel.counter_czt.launches   # may not launch
         events = [json.loads(ln) for ln in (tmp / "telemetry" / "trained_telemetry.jsonl").read_text().splitlines()]
-        print(f"[5b] edge simulator on the trained bundle: 4 requests, mel_rfft launches {trained_launches - trained_dense}, "
-              f"dense mel_folded or mel_czt launches {trained_dense}, "
+        print(f"[5b] edge simulator on the trained bundle: 4 requests, mel_rfft launches {trained_launches - trained_czt}, "
+              f"mel_czt launches {trained_czt}, "
               f"predictions {[e['prediction'] for e in events]}")
         check(len(events) == 4 and all(e["prediction"] in class_names for e in events), "served trained bundle")
-        check(trained_launches == 4 and trained_dense == 0,
-              f"the simulator launched the mel kernels {trained_launches} times ({trained_dense} dense or czt) for 4 "
+        check(trained_launches == 4 and trained_czt == 0,
+              f"the simulator launched the mel kernels {trained_launches} times ({trained_czt} czt) for 4 "
               "requests")
 
         X_step, y_step = fs.features[:32], fs.labels[:32]

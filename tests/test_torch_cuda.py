@@ -33,11 +33,10 @@ def test_mel_folded_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop,
     """The FFT sizes go to csrc/mel_rfft.cu (four passes at n_fft 480 and 2048)."""
     rng = np.random.default_rng(batch * 100003 + n)
     y = torch.from_numpy((0.3 * rng.standard_normal((batch, n))).astype(np.float32)).to(cuda_device)
-    before, dense_before = mel_kernel.counter.launches, mel_kernel.counter_dense.launches
+    before = mel_kernel.counter.launches
     out = mel_kernel.mel_power_folded(y, sr, n_mels, n_fft, hop)
     torch.cuda.synchronize()
     assert mel_kernel.counter.launches == before + 1
-    assert mel_kernel.counter_dense.launches == dense_before  # the FFT route, not the dense kernel
     assert out.shape == (batch, 1 + n // hop, n_mels) and out.is_contiguous()
     plain = mel_kernel.mel_power_folded_plain(y, sr, n_mels, n_fft, hop)
     scale = plain.abs().amax(dim=(1, 2), keepdim=True)
@@ -54,15 +53,13 @@ def test_mel_folded_matches_plain_version(cuda_device, batch, n, sr, n_fft, hop,
 def test_dense_route_matches_plain_version(cuda_device, module, entry, plain, n_fft):
     """M = 3, 241 and 1025 have no compiled FFT plan: the off-plan route,
     once each entry's dense kernel, launches csrc/mel_czt.cu (direct at M =
-    3, chirp-z at 241 and 1025) and no dense kernel."""
+    3, chirp-z at 241 and 1025), counted on ``counter_czt``."""
     rng = np.random.default_rng(n_fft)
     y = torch.from_numpy((0.3 * rng.standard_normal((3, 16077))).astype(np.float32)).to(cuda_device)
-    before, dense_before = module.counter.launches, module.counter_dense.launches
-    czt_before = module.counter_czt.launches
+    before, czt_before = module.counter.launches, module.counter_czt.launches
     out = getattr(module, entry)(y, n_fft=n_fft)
     torch.cuda.synchronize()
     assert module.counter.launches == before + 1 and module.counter_czt.launches == czt_before + 1
-    assert module.counter_dense.launches == dense_before
     ref = getattr(module, plain)(y, n_fft=n_fft)
     scale = ref.abs().amax(dim=(1, 2), keepdim=True)
     assert out.shape == (3, 1 + 16077 // 160, 40)
@@ -76,8 +73,7 @@ def test_dense_route_matches_plain_version(cuda_device, module, entry, plain, n_
 ])
 def test_mel_czt_matches_plain_version(cuda_device, n_fft, sr, hop, n_mels, precise):
     """csrc/mel_czt.cu through the folded entry in both types and the
-    unfolded one in float32: one mel_czt launch a call, by instantiation, no
-    dense launch; float32 within 1e-6 of each clip's peak, float64 within
+    unfolded one in float32: one mel_czt launch a call, by instantiation; float32 within 1e-6 of each clip's peak, float64 within
     1e-6 of each bin (chip_smoke.py's KERNEL_REL_TOL and F64_ELEMENT_TOL)."""
     rng = np.random.default_rng(n_fft + precise)
     y = torch.from_numpy((0.3 * rng.standard_normal((2, 2 * sr))).astype(np.float32)).to(cuda_device)
@@ -87,11 +83,11 @@ def test_mel_czt_matches_plain_version(cuda_device, n_fft, sr, hop, n_mels, prec
         calls.append((mel_unfolded, lambda: mel_unfolded.mel_power_unfolded(y, sr, n_mels, n_fft, hop)))
     for module, call in calls:
         module.counter.reset()
-        dense_before, czt_before = module.counter_dense.launches, module.counter_czt.launches
+        czt_before = module.counter_czt.launches
         out = call()
         torch.cuda.synchronize()
         assert dict(module.counter.by_instantiation) == {f"mel_czt<{'double' if precise else 'float'}>": 1}
-        assert module.counter_czt.launches == czt_before + 1 and module.counter_dense.launches == dense_before
+        assert module.counter_czt.launches == czt_before + 1
         assert out.shape == plain.shape and bool(torch.isfinite(out).all())
         err = (out - plain).abs()
         if precise:
@@ -151,9 +147,7 @@ def test_mel_feature_on_the_card_meets_the_golden_gate(cuda_device):
     y = (0.4 * np.sin(2 * np.pi * 440 * t) + 0.05 * rng.standard_normal(80000)).astype(np.float32)
     lengths = torch.tensor([80000, 30001], device=cuda_device)
     batch = np.stack([y, np.r_[y[:30001], np.zeros(80000 - 30001, np.float32)]])
-    dense_before = mel_kernel.counter_dense.launches
     feat = mel_kernel.mel_spec_feature(torch.from_numpy(batch).to(cuda_device), lengths=lengths).cpu().numpy()
-    assert mel_kernel.counter_dense.launches == dense_before  # through csrc/mel_rfft.cu
     assert np.max(np.abs(feat[0] - golden.mel_spec_feature(y))) <= 1e-5
     assert np.max(np.abs(feat[1, :, : 1 + 30001 // 160] - golden.mel_spec_feature(y[:30001]))) <= 1e-5
 
@@ -177,11 +171,10 @@ def test_mel_unfolded_matches_plain_version(cuda_device, batch, n, sr, n_fft, ho
     """The FFT sizes go to csrc/mel_rfft.cu, as for the folded entry."""
     rng = np.random.default_rng(batch * 100003 + n)
     y = torch.from_numpy((0.3 * rng.standard_normal((batch, n))).astype(np.float32)).to(cuda_device)
-    before, dense_before = mel_unfolded.counter.launches, mel_unfolded.counter_dense.launches
+    before = mel_unfolded.counter.launches
     out = mel_unfolded.mel_power_unfolded(y, sr, n_mels, n_fft, hop)
     torch.cuda.synchronize()
     assert mel_unfolded.counter.launches == before + 1
-    assert mel_unfolded.counter_dense.launches == dense_before  # the FFT route, not the dense kernel
     assert out.shape == (batch, 1 + n // hop, n_mels) and out.is_contiguous()
     plain = mel_unfolded.mel_power_unfolded_plain(y, sr, n_mels, n_fft, hop)
     scale = plain.abs().amax(dim=(1, 2), keepdim=True)
@@ -212,12 +205,11 @@ def test_mel_folded_float64_instantiation_matches_plain_version(cuda_device, bat
     rng = np.random.default_rng(batch * 7919 + n)
     y = torch.from_numpy((0.3 * rng.standard_normal((batch, n))).astype(np.float32)).to(cuda_device)
     before, f64_before = mel_kernel.counter.launches, mel_kernel.counter_f64.launches
-    dense_before, czt_before = mel_kernel.counter_dense.launches, mel_kernel.counter_czt.launches
+    czt_before = mel_kernel.counter_czt.launches
     out = mel_kernel.mel_power_folded(y, sr, n_mels, n_fft, hop, precise=True)
     torch.cuda.synchronize()
     assert mel_kernel.counter.launches == before + 1 and mel_kernel.counter_f64.launches == f64_before + 1
     assert mel_kernel.counter_czt.launches == czt_before + (mel_kernel.route(n_fft) == "czt")
-    assert mel_kernel.counter_dense.launches == dense_before
     plain = mel_kernel.mel_power_folded_plain(y, sr, n_mels, n_fft, hop)
     assert float(((out - plain).abs() / plain.abs().clamp_min(1e-30)).max()) <= 1e-6
 
