@@ -30,9 +30,14 @@ kernel sizes its tiles to the shared memory (``fit_tile``): ``mel_czt``
 holds every even n_fft up to 16,384 in float32 and 10,240 in float64 at hop
 160 and 40 mels (one warp of one frame a block there) and raises above.
 
-``mel_spec_feature`` adds the masked dB and min-max epilogue (torch ops, from
-``ops.dsp``), as ``mel_spec_feature_pallas`` does on the TPU side. The mel
-power is a ``mel`` span and the epilogue an ``epilogue`` span
+``mel_spec_feature`` adds the masked dB and min-max epilogue, as
+``mel_spec_feature_pallas`` does on the TPU side: on a CUDA tensor one
+launch of ``csrc/mel_epilogue.cu`` (``launch_epilogue``, counted on
+``counter_epilogue``), on a CPU tensor its plain version,
+``dsp.mel_epilogue``'s torch ops. It takes the mel power in either layout,
+frames-major (the kernels' (B, T, n_mels) through a transpose) or
+mels-major, and writes with the input's strides (``epilogue_layout``). The
+mel power is a ``mel`` span and the epilogue an ``epilogue`` span
 (``utils.profiling.span``).
 """
 
@@ -91,6 +96,7 @@ def instantiation(kernel: str, n_fft: int, precise: bool) -> str:
 counter = KernelCounter("mel_folded")              # every launch of either routed kernel
 counter_czt = KernelCounter("mel_folded_czt")      # the launches of csrc/mel_czt.cu among them
 counter_f64 = KernelCounter("mel_folded_f64")      # the launches of either kernel's float64 instantiation among them
+counter_epilogue = KernelCounter("mel_epilogue")   # launches of csrc/mel_epilogue.cu
 
 
 def _round_up(x: int, m: int) -> int:
@@ -355,6 +361,71 @@ def mel_power_folded(
     raise ValueError(f"mel_power_folded runs on cuda (kernel) or cpu (plain version), not {y.device}")
 
 
+def epilogue_layout(shape: tuple[int, ...], stride: tuple[int, ...], dtype: torch.dtype) -> str:
+    """The layout of a (B, n_mels, T) mel power that csrc/mel_epilogue.cu
+    takes: "frames" where each clip is stored (T, n_mels) (strides (n_mels
+    T, 1, n_mels)), "mels" where it is stored (n_mels, T) (strides (n_mels T,
+    T, 1)); the stride of a dimension of size 1 is free. TypeError for
+    another dtype than float32, ValueError for any other shape or strides."""
+    if dtype != torch.float32:
+        raise TypeError(f"the mel epilogue kernel takes float32 mel power, got {dtype}")
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f"the mel epilogue kernel takes a non-empty (B, n_mels, T) tensor, got shape {tuple(shape)}")
+    _, n_mels, n_frames = shape
+    size = n_mels * n_frames
+    if size >= 2 ** 31:
+        raise ValueError(f"the mel epilogue kernel takes clips of fewer than 2^31 values, got {n_mels} x {n_frames}")
+    for layout, want in (("mels", (size, n_frames, 1)), ("frames", (size, 1, n_mels))):
+        if all(s == w for s, w, n in zip(stride, want, shape) if n > 1):
+            return layout
+    raise ValueError(f"the mel epilogue kernel takes a frames-major or mels-major (B, n_mels, T) tensor, "
+                     f"got strides {tuple(stride)} at shape {tuple(shape)}")
+
+
+def epilogue_lengths(lengths: torch.Tensor, batch: int, device: torch.device) -> torch.Tensor:
+    """``lengths`` as csrc/mel_epilogue.cu reads them: (batch,) int64,
+    contiguous, on ``device`` (the mel power's); a no-op for what
+    ``features.base`` passes. TypeError for a dtype that is not an integer,
+    ValueError for another shape or device."""
+    if lengths.dtype.is_floating_point or lengths.dtype.is_complex or lengths.dtype == torch.bool:
+        raise TypeError(f"lengths are sample counts, got {lengths.dtype}")
+    if tuple(lengths.shape) != (batch,):
+        raise ValueError(f"lengths must hold one count a clip, shape ({batch},), got {tuple(lengths.shape)}")
+    if lengths.device != device:
+        raise ValueError(f"lengths on {lengths.device}, the mel power on {device}")
+    return lengths.to(torch.int64).contiguous()
+
+
+def _epilogue_library() -> ctypes.CDLL:
+    lib = _build.load_library("mel_epilogue")
+    if lib.mel_epilogue_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mel_epilogue_launch.argtypes = [p, p, i, i, i, i, i, p, p]
+        lib.mel_epilogue_launch.restype = ctypes.c_int
+    return lib
+
+
+def launch_epilogue(mel: torch.Tensor, lengths: torch.Tensor | None, hop_length: int) -> torch.Tensor:
+    """csrc/mel_epilogue.cu on a CUDA (B, n_mels, T) float32 mel power ->
+    ``dsp.mel_epilogue(mel, lengths, hop_length)``, with ``mel``'s strides.
+    One launch on the current stream; allocates only the output."""
+    layout = epilogue_layout(tuple(mel.shape), mel.stride(), mel.dtype)
+    if hop_length < 1:
+        raise ValueError(f"hop_length must be at least 1, got {hop_length}")
+    batch, n_mels, n_frames = mel.shape
+    if lengths is not None:
+        lengths = epilogue_lengths(lengths, batch, mel.device)
+    out = torch.empty_strided(mel.shape, mel.stride(), dtype=torch.float32, device=mel.device)
+    lib = _epilogue_library()
+    with torch.cuda.device(mel.device):
+        stream = torch.cuda.current_stream(mel.device).cuda_stream
+        err = lib.mel_epilogue_launch(mel.data_ptr(), None if lengths is None else lengths.data_ptr(), batch, n_mels,
+                                      n_frames, hop_length, int(layout == "frames"), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"mel_epilogue kernel launch failed: cudaError {err}")
+    return out
+
+
 def mel_spec_feature(
     y: torch.Tensor,
     sr: int = 16000,
@@ -369,9 +440,16 @@ def mel_spec_feature(
     Odd n_fft has no fold: its mel power is ``dsp.melspectrogram``'s framed
     basis product (torch ops, as the JAX package leaves that branch to XLA),
     whose T is one frame fewer than ``dsp.n_frames_for`` when hop divides n;
-    the epilogue masks by that tensor's own T."""
+    the epilogue masks by that tensor's own T. The epilogue is one launch of
+    csrc/mel_epilogue.cu on a CUDA tensor, ``dsp.mel_epilogue`` on a CPU
+    one."""
     if n_fft % 2:
         mel = dsp.melspectrogram(y, sr, n_mels, n_fft, hop_length)
     else:
         mel = mel_power_folded(y, sr=sr, n_mels=n_mels, n_fft=n_fft, hop_length=hop_length).transpose(1, 2)
-    return dsp.mel_epilogue(mel, lengths, hop_length)
+    if mel.device.type != "cuda":
+        return dsp.mel_epilogue(mel, lengths, hop_length)
+    with span("epilogue"):
+        out = launch_epilogue(mel, lengths, hop_length)
+    counter_epilogue.add()
+    return out

@@ -285,7 +285,12 @@ non-zero exit code. Builds the hand-written kernels from csrc/ itself.
      versions; a yardstick on no path, torch.stft -> abs()**2 -> mel
      matmul; at n_fft 400 the FFT kernel beside both dense kernels, in
      turns; each kernel's share of the bound, which is worked out from this
-     run's shapes; the stages and waveform -> mel -> CNN), one training
+     run's shapes; the stages and waveform -> mel -> CNN), the epilogue
+     kernel (``csrc/mel_epilogue.cu``) at B = 32, 256 and 512 on (40, 501)
+     mel power, in turns with the torch-op chain it replaced
+     (``dsp.mel_epilogue``), beside its bytes bound, each held to the
+     chain at 1e-6 with and without ragged lengths, and the chain's kernel
+     launches a call (the profiler's count), one training
      step at B=32 and B=512, and at B=512 five-second clips at 22.05 kHz the
      FFT kernel at the MFCC front end (1024 / 512 / 128 mels) against its
      bound and its plain version, ``mfcc_seq_feature`` and
@@ -321,8 +326,9 @@ but for phases 3c and 5d, which turn TF32 on: the features must stay within
 itself.
 
 Usage: python3 chip_smoke.py [--only 5j | --only 5l | --only mel]
-(``--only mel``: phases 1-3, then phase 6's times of the four-pass plans
-and of mel_czt beside the dense kernels, and no result line.)
+(``--only mel``: phases 1-3, then phase 6's times of the four-pass plans,
+of mel_czt beside the dense kernels and of the epilogue kernel, and no
+result line.)
 """
 
 from __future__ import annotations
@@ -350,6 +356,9 @@ F64_PEAK = 67e12                   # H100 SXM float64 FLOP/s, its peak on the te
 F64_ELEMENT_TOL = 1e-6             # float64 kernel vs plain mel power, relative to each bin: a float32 kernel misses it
 HBM_RATE = 3.35e12                 # H100 SXM bytes/s
 KERNEL_REL_TOL = 1e-6              # kernel vs plain mel power, relative to each clip's peak power
+EPILOGUE_TOL = 1e-6                # the epilogue kernel vs the torch-op chain, max|d| of the [0, 1] feature: the
+                                   # same float32 steps, but a build may take r2 / 13 as r2 * (1/13): a few ulp
+EPILOGUE_BATCHES = (32, 256, 512)  # the score batch, the extraction chunk, this run's timing batch
 FEATURE_TOL = 1e-5                 # the repo's DSP parity gate (max|delta| vs float64)
 LOGIT_TOL = 1e-4                   # CNN logits card vs CPU, float32 convolutions in other orders
 GOLDEN_REL_TOL = 1e-5              # unfolded mel power vs float64 golden, relative to each clip's peak
@@ -570,6 +579,67 @@ def sweep_off_plan(dev, rng: np.random.Generator, mel_kernel, mel_unfolded, errs
         check(bool(np.isfinite(rel[:, c]).all()) and rel[:, c].max() <= tol,
               f"sweep: {entry}{' precise' if precise else ''} misses its gate at n_fft {sizes[worst]}: {rel[worst, c]:.3e}")
     print(f"[3] the off-plan sweep took {time.perf_counter() - t0:.1f} s, {len(sizes) * len(calls)} launches")
+
+
+def epilogue_times(dev, card: str, rng: np.random.Generator) -> dict:
+    """csrc/mel_epilogue.cu (``mel_kernel.launch_epilogue``) in turns with
+    the torch-op chain it replaced (``dsp.mel_epilogue``) on (40, 501) mel
+    power of 5 s clips at EPILOGUE_BATCHES, beside its bound: one read and
+    one write, 8 x 40 x 501 B a clip, over HBM_RATE. CUDA events over
+    back-to-back calls time what a caller waits, host issue included; the
+    kernel durations of the profiler's chrome trace (10 calls each) give the
+    device time and the chain's launches a call. Each output is held to the chain's at
+    EPILOGUE_TOL, without lengths and with ragged ones. Returns the kernel's
+    row of the result line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_edge_ml_pipeline_torch.ops import dsp, mel_kernel
+
+    base = torch.from_numpy(synth_clips(rng, 8)).to(dev)
+    rows, worst = [], 0.0
+    for batch in EPILOGUE_BATCHES:
+        mel = mel_kernel.mel_power_folded(base.repeat(batch // 8, 1)).transpose(1, 2)
+        for lengths in (None, torch.from_numpy(rng.integers(1, CLIP + 1, batch)).to(dev)):
+            out = mel_kernel.launch_epilogue(mel, lengths, HOP)
+            worst = max(worst, float((out - dsp.mel_epilogue(mel, lengths, HOP)).abs().max()))
+            check(out.stride() == mel.stride(), f"the epilogue kernel wrote strides {out.stride()}, not {mel.stride()}")
+        (ms, chain_ms), turns = in_turns(lambda: mel_kernel.launch_epilogue(mel, None, HOP),
+                                         lambda: dsp.mel_epilogue(mel, None, HOP))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                mel_kernel.launch_epilogue(mel, None, HOP)
+            for _ in range(10):
+                dsp.mel_epilogue(mel, None, HOP)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_epilogue_") as tmp:
+            prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
+            events = json.loads((Path(tmp) / "trace.json").read_text())["traceEvents"]
+        ours, chain = [], []   # ms of each kernel: the ctypes launch is in the trace, not in prof.events()
+        for e in events:
+            if e.get("cat") == "kernel":
+                (ours if "mel_epilogue_kernel" in e["name"] else chain).append(1e-3 * e["dur"])
+        check(len(ours) in (0, 10), f"{len(ours)} mel_epilogue_kernel launches in 10 calls")
+        dev_ms = sum(ours) / 10 if ours else None
+        chain_dev_ms = sum(chain) / 10 if chain else None
+        bound = 1e3 * 8 * N_MELS * (1 + CLIP // HOP) * batch / HBM_RATE
+        device = (f"device {dev_ms:.4f} ms, {share(dev_ms, bound)} {bound:.4f} ms (bytes)" if ours
+                  else "device time not measured (the profiler saw no kernel)")
+        chain_device = (f"device {chain_dev_ms:.4f} ms in {len(chain) // 10} launches" if chain
+                        else "device time and launches not measured")
+        print(f"[6] dB + min-max epilogue at B={batch} x (40, 501): mel_epilogue kernel {device}, 1 launch; "
+              f"a call back to back {ms:.4f} ms ({ms_turns(turns[0])}); the torch-op chain {chain_device}, a call "
+              f"back to back {chain_ms:.4f} ms ({ms_turns(turns[1])}): the kernel is {chain_ms / ms:.1f}x faster "
+              f"back to back on {card}")
+        rows.append({"shape": f"B={batch} x (40, 501)", "ms": ms, "device_ms": dev_ms, "plain_ms": chain_ms,
+                     "plain_device_ms": chain_dev_ms, "plain_launches": len(chain) // 10, "bound_ms": bound,
+                     "bound_by": "bytes"})
+    print(f"[6] the epilogue kernel vs the torch-op chain, with and without ragged lengths: max|d| {worst:.3e} "
+          f"(tol {EPILOGUE_TOL:g})")
+    check(worst <= EPILOGUE_TOL, f"the epilogue kernel disagrees with the torch-op chain: {worst:.3e}")
+    check(all(np.isfinite([r[k] for r in rows for k in ("ms", "plain_ms")])), "epilogue timing")
+    return {"name": "mel_epilogue", "route": "cuda", "source": "audio_edge_ml_pipeline_torch/csrc/mel_epilogue.cu",
+            "replaces": None, "max_abs_err": worst, **rows[-1], "library_ms": None, "also": rows[:-1]}
 
 
 def mel_route_times(dev, card: str, entries: dict, waves, waves22) -> dict[str, list[dict]]:
@@ -4527,7 +4597,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    kernels = ["mel_rfft", "mel_czt", "mel_folded", "mel_unfolded"]
+    kernels = ["mel_rfft", "mel_czt", "mel_folded", "mel_unfolded", "mel_epilogue"]
     built = _build.build([*kernels, "wavio"])   # and the native WAV reader (g++), all started together
     print(f"[2] build: {time.perf_counter() - t0:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in built.items()) or 'already built'})")
     for kname in kernels:
@@ -4669,6 +4739,7 @@ def main() -> int:
     if sys.argv[1:] == ["--only", "mel"]:   # the mel kernels alone: phase 3, then phase 6's off-plan and four-pass times
         mel_route_times(dev, card, entries, *(torch.from_numpy(np.tile(synth_clips(rng, 8, 5 * sr, sr), (64, 1))).to(dev)
                                               for sr in (SR, SR22)))
+        epilogue_times(dev, card, rng)
         print(f"[7] the run took {time.perf_counter() - t_all:.1f} s")
         return 0
 
@@ -4747,12 +4818,14 @@ def main() -> int:
         # 4. extraction CLI
         mel_kernel.counter.reset()
         mel_kernel.counter_czt.reset()
+        mel_kernel.counter_epilogue.reset()
         t0 = time.perf_counter()
         pipeline.main(["--loader", "fsc22", "--dataset", str(fsc22), "--extractor", "audio_mel_spec",
                        "--split", "all", "--output", str(tmp / "features")])
         extract_s = time.perf_counter() - t0
         extract_launches = mel_kernel.counter.launches
         extract_czt = mel_kernel.counter_czt.launches   # may not launch
+        extract_epilogue = mel_kernel.counter_epilogue.launches
         fs = pipeline.FeaturePipeline.load(tmp / "features")
         n_clips = N_CLASSES * PER_CLASS
         check(fs.features.shape == (n_clips, N_MELS, 1 + CLIP // HOP), f"FeatureSet shape {fs.features.shape}")
@@ -4764,8 +4837,11 @@ def main() -> int:
             yj, _ = load_audio(fsc22 / "Audio Wise V1.0-20260101" / "Audio Wise V1.0" / fs.metadata[j]["filename"], sr=SR)
             cli_err = max(cli_err, float(np.abs(fs.features[j] - golden.mel_spec_feature(yj)).max()))
         print(f"[4] extraction CLI: {fs} in {extract_s:.2f} s; mel_rfft launches {extract_launches - extract_czt}, "
-              f"mel_czt launches {extract_czt}; 3 rows vs float64 golden max|d| {cli_err:.3e}")
+              f"mel_czt launches {extract_czt}, mel_epilogue launches {extract_epilogue}; 3 rows vs float64 golden "
+              f"max|d| {cli_err:.3e}")
         check(extract_launches > 0 and extract_czt == 0, "the extraction CLI did not run the FFT mel kernel")
+        check(extract_epilogue == extract_launches,
+              f"the extraction CLI launched the epilogue kernel {extract_epilogue} times for {extract_launches} batches")
         check(cli_err <= FEATURE_TOL, "CLI features miss the 1e-5 gate")
 
         audio_dir = fsc22 / "Audio Wise V1.0-20260101" / "Audio Wise V1.0"
@@ -4949,6 +5025,7 @@ def main() -> int:
 
         mel_kernel.counter.reset()
         mel_kernel.counter_czt.reset()
+        mel_kernel.counter_epilogue.reset()
         sim = EdgeDeviceSimulator(bundle, class_names, folder, device_id="smoke",
                                   telemetry_dir=tmp / "telemetry", stats_dir=tmp / "stats", seed=0)
         t0 = time.perf_counter()
@@ -4957,6 +5034,7 @@ def main() -> int:
         serve_s = time.perf_counter() - t0
         serve_launches = mel_kernel.counter.launches
         serve_czt = mel_kernel.counter_czt.launches   # may not launch
+        serve_epilogue = mel_kernel.counter_epilogue.launches
         events = [json.loads(ln) for ln in (tmp / "telemetry" / "smoke_telemetry.jsonl").read_text().splitlines()]
         stats = json.loads((tmp / "stats" / "smoke_stats.json").read_text())
         check(len(events) == 8 and stats["total_inferences"] == 8, "telemetry / stats of 8 requests")
@@ -4969,10 +5047,11 @@ def main() -> int:
             cpu_feat = mel_kernel.mel_spec_feature(torch.from_numpy(yj[None])).numpy()
             conf_err = max(conf_err, abs(float(cpu_model.predict_proba(cpu_feat).max()) - e["confidence"]))
         print(f"[5] edge simulator: 8 requests in {serve_s:.3f} s, mel_rfft launches {serve_launches - serve_czt}, "
-              f"mel_czt launches {serve_czt}, "
+              f"mel_czt launches {serve_czt}, mel_epilogue launches {serve_epilogue}, "
               f"avg confidence {stats['avg_confidence']:.4f}; confidence vs all-CPU path max|d| {conf_err:.3e}")
         check(serve_launches == 8 and serve_czt == 0,
               f"the simulator launched the mel kernels {serve_launches} times ({serve_czt} czt) for 8 requests")
+        check(serve_epilogue == 8, f"the simulator launched the epilogue kernel {serve_epilogue} times for 8 requests")
         check(conf_err <= 1e-5, "served confidences disagree with the CPU path")
 
         # 5b. training: the train CLI on the card, then its bundle served
@@ -5008,20 +5087,23 @@ def main() -> int:
 
         mel_kernel.counter.reset()
         mel_kernel.counter_czt.reset()
+        mel_kernel.counter_epilogue.reset()
         sim = EdgeDeviceSimulator(trained, class_names, folder, device_id="trained",
                                   telemetry_dir=tmp / "telemetry", stats_dir=tmp / "stats", seed=1)
         sim.run(4)
         torch.cuda.synchronize()
         trained_launches = mel_kernel.counter.launches
         trained_czt = mel_kernel.counter_czt.launches   # may not launch
+        trained_epilogue = mel_kernel.counter_epilogue.launches
         events = [json.loads(ln) for ln in (tmp / "telemetry" / "trained_telemetry.jsonl").read_text().splitlines()]
         print(f"[5b] edge simulator on the trained bundle: 4 requests, mel_rfft launches {trained_launches - trained_czt}, "
-              f"mel_czt launches {trained_czt}, "
+              f"mel_czt launches {trained_czt}, mel_epilogue launches {trained_epilogue}, "
               f"predictions {[e['prediction'] for e in events]}")
         check(len(events) == 4 and all(e["prediction"] in class_names for e in events), "served trained bundle")
         check(trained_launches == 4 and trained_czt == 0,
               f"the simulator launched the mel kernels {trained_launches} times ({trained_czt} czt) for 4 "
               "requests")
+        check(trained_epilogue == 4, f"the simulator launched the epilogue kernel {trained_epilogue} times for 4 requests")
 
         X_step, y_step = fs.features[:32], fs.labels[:32]
         # From phase 5's seeded bundle, not the trained one: training on the card does not repeat from run to
@@ -5223,10 +5305,14 @@ def main() -> int:
     module.to(dev)
     params = dict(served._net.state_dict())
     with torch.inference_mode():
-        ms_e2e = cuda_ms(lambda: forward(params, waves), iters=10)
+        mel_kernel.counter.reset()
+        mel_kernel.counter_epilogue.reset()
+        ms_e2e = cuda_ms(lambda: forward(params, waves), iters=10)   # 3 warm-up calls and 10 timed
+        forward_launches = (mel_kernel.counter.launches, mel_kernel.counter_epilogue.launches)
+        check(forward_launches == (13, 13), f"13 flagship forwards launched (mel_rfft, mel_epilogue) {forward_launches}")
         mel = mel_kernel.mel_power_folded(waves).transpose(1, 2)
-        ms_epilogue = cuda_ms(lambda: dsp.mel_epilogue(mel, None, HOP))
-        x = dsp.mel_epilogue(mel, None, HOP).transpose(1, 2)[..., None]
+        ms_epilogue = cuda_ms(lambda: mel_kernel.launch_epilogue(mel, None, HOP))
+        x = mel_kernel.launch_epilogue(mel, None, HOP).transpose(1, 2)[..., None]
         ms_cnn = cuda_ms(lambda: module(x), iters=10)
 
     print(f"[6] bound at B={batch} x 5 s, hop {HOP}, {N_MELS} mels: n_fft {N_FFT} {bound_ms:.4f} ms ({bound_by}; "
@@ -5356,6 +5442,7 @@ def main() -> int:
     print(f"[6] the classical vector's float64 sums at B={batch} x 5 s, 22.05 kHz, against float32 in this call: "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in ms_repairs.items()) + f" on {card}")
     timed = mel_route_times(dev, card, entries, waves, waves22)
+    epilogue_row = epilogue_times(dev, card, rng)
     # the classical core at 5d's fsc22 scale: host clock around calls that end on the host or synchronise
     gamma_v, _, idx, ypm, u = classical_core.svm_problem(X_fit, y_fit, N_CLASSES, SVM_C)
     solver_args = [torch.from_numpy(a).to(dev) for a in (X_fit, idx.astype(np.int64), ypm, u)]
@@ -5474,7 +5561,8 @@ def main() -> int:
         "bound_by": rows[0]["bound_by"], "library_ms": None, "shape": rows[0]["shape"], "entry": rows[0]["entry"],
         **({} if key in on_path else {"on_path": False, "replaced_by": "audio_edge_ml_pipeline_torch/csrc/mel_czt.cu"}),
         "also": [{k: r[k] for k in ("entry", "shape", "ms", "plain_ms", "bound_ms", "bound_by")} for r in rows[1:]],
-    } for key, rows in timed.items())]}))
+    } for key, rows in timed.items()), {**epilogue_row, "launches": extract_epilogue + serve_epilogue + trained_epilogue
+                                                        + forward_launches[1]}]}))
     print(f"[7] the smoke run took {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -896,3 +896,125 @@ def test_test_model_on_the_card_prints_what_the_cpu_prints(cuda_device, tmp_path
     confs = [[float(c) for c in re.findall(r" conf=(\S+)$", "\n".join(out), re.M)] for out in outs]
     assert strip[0] == strip[1] and len(confs[0]) == 20
     assert max(abs(a - b) for a, b in zip(*confs)) <= 1e-5
+
+
+def _epilogue_input(device, batch, n_mels, n_frames, layout, ragged, hop=160):
+    """(B, n_mels, T) mel power in ``layout`` ("frames": the mel kernels'
+    (B, T, n_mels) through a transpose; "mels": contiguous) and lengths or
+    None: log-normal power over some 26 decades, below the 1e-10 floor and
+    far above it, the last clip all zeros where B > 1 (every value on the
+    floor); ragged lengths count from 1 frame to every frame."""
+    g = torch.Generator(device).manual_seed(batch * 7919 + n_mels * 31 + n_frames)
+    shape = (batch, n_frames, n_mels) if layout == "frames" else (batch, n_mels, n_frames)
+    power = torch.exp(6.0 * torch.randn(shape, generator=g, device=device))
+    if batch > 1:
+        power[-1] = 0.0
+    mel = power.transpose(1, 2) if layout == "frames" else power
+    lengths = None
+    if ragged:
+        lengths = torch.randint(0, n_frames * hop, (batch,), generator=g, device=device)
+        lengths[0] = (n_frames - 1) * hop
+    return mel, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("layout", ["frames", "mels"])
+@pytest.mark.parametrize("n_frames", [216, 501, 2001])
+@pytest.mark.parametrize("n_mels", [40, 64, 128])
+@pytest.mark.parametrize("batch", [1, 32, 256, 300])
+def test_mel_epilogue_kernel_matches_plain_version(cuda_device, batch, n_mels, n_frames, layout, ragged):
+    """csrc/mel_epilogue.cu against dsp.mel_epilogue's torch ops on the card,
+    every frame compared, the padded ones too."""
+    from audio_edge_ml_pipeline_torch.ops import dsp
+
+    mel, lengths = _epilogue_input(cuda_device, batch, n_mels, n_frames, layout, ragged)
+    out = mel_kernel.launch_epilogue(mel, lengths, 160)
+    torch.cuda.synchronize()
+    plain = dsp.mel_epilogue(mel, lengths, 160)
+    assert out.stride() == mel.stride() and out.dtype == torch.float32
+    # the same float32 steps; a build that takes r2 / 13 as r2 * (1/13) may move a few ulp of [0, 1]
+    assert float((out - plain).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [False, True])
+def test_mel_epilogue_kernel_4_byte_loads(cuda_device, ragged):
+    """The 4-byte loads the kernel takes where a clip's size is not a
+    multiple of 4 (13 mels) or a pointer is not 16-byte aligned (a view one
+    float into its storage), against dsp.mel_epilogue."""
+    from audio_edge_ml_pipeline_torch.ops import dsp
+
+    odd, lengths = _epilogue_input(cuda_device, 32, 13, 501, "frames", ragged)
+    mel, _ = _epilogue_input(cuda_device, 32, 40, 501, "mels", False)
+    shifted = torch.empty(1 + mel.numel(), device=cuda_device)[1:].view(mel.shape)
+    shifted.copy_(mel)
+    assert shifted.data_ptr() % 16 == 4
+    for x in (odd, shifted):
+        out = mel_kernel.launch_epilogue(x, lengths, 160)
+        torch.cuda.synchronize()
+        assert out.stride() == x.stride()
+        assert float((out - dsp.mel_epilogue(x, lengths, 160)).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_mel_spec_feature_launches_the_epilogue_kernel_once_a_call(cuda_device):
+    y = 0.3 * torch.randn((4, 16000), generator=torch.Generator(cuda_device).manual_seed(2), device=cuda_device)
+    lengths = torch.tensor([16000, 9000, 321, 16000], device=cuda_device)
+    for n_fft, kw in ((512, {}), (512, {"lengths": lengths}), (511, {}), (482, {"lengths": lengths})):
+        before = (mel_kernel.counter_epilogue.launches, mel_kernel.counter.launches)
+        out = mel_kernel.mel_spec_feature(y, n_fft=n_fft, **kw)
+        torch.cuda.synchronize()
+        assert mel_kernel.counter_epilogue.launches == before[0] + 1
+        assert mel_kernel.counter.launches == before[1] + (n_fft % 2 == 0)
+        assert out.shape[:2] == (4, 40) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_mel_epilogue_kernel_raises_instead_of_falling_back(cuda_device):
+    mel = torch.rand((2, 40, 501), device=cuda_device)
+    with pytest.raises(TypeError):
+        mel_kernel.launch_epilogue(mel.double(), None, 160)
+    with pytest.raises(ValueError):
+        mel_kernel.launch_epilogue(mel[:, :, ::2], None, 160)
+    with pytest.raises(ValueError):
+        mel_kernel.launch_epilogue(torch.rand((40, 501, 2), device=cuda_device).permute(2, 0, 1), None, 160)
+    with pytest.raises(ValueError):
+        mel_kernel.launch_epilogue(mel, torch.tensor([1000, 2000]), 160)   # lengths on the CPU
+
+
+@pytest.mark.cuda
+def test_flagship_forward_captured_in_a_cuda_graph_equals_eager(cuda_device):
+    """The forward, mel kernel, epilogue kernel and CNN, captured once and
+    replayed on new waveforms in the captured buffer, against the eager
+    forward on those waveforms."""
+    from audio_edge_ml_pipeline_torch.entry import flagship
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        module, forward = flagship()
+        module.to(cuda_device)
+        params = dict(module.state_dict())
+        g = torch.Generator(cuda_device).manual_seed(4)
+        waves = 0.3 * torch.randn((8, 80000), generator=g, device=cuda_device)
+        with torch.inference_mode():
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    forward(params, waves)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            before = mel_kernel.counter_epilogue.launches
+            with torch.cuda.graph(graph):
+                captured = forward(params, waves)
+            assert mel_kernel.counter_epilogue.launches == before + 1
+            waves.copy_(0.5 * torch.randn((8, 80000), generator=g, device=cuda_device))
+            graph.replay()
+            torch.cuda.synchronize()
+            eager = forward(params, waves)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    # the same kernels on the same inputs; cuDNN may sum in another order when replayed
+    assert float((captured - eager).abs().max()) <= 1e-6 * float(eager.abs().max())

@@ -114,3 +114,139 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         y = torch.zeros((4000, 2)).T
     with pytest.raises((TypeError, ValueError)):
         mel_kernel.mel_power_folded(y, **kw)
+
+
+# ----------------------------------------------------------------------
+# The dB + min-max epilogue: its plain version on the CPU, and what the
+# CUDA wrapper takes (csrc/mel_epilogue.cu itself runs only on a card)
+# ----------------------------------------------------------------------
+
+
+def _mels_major_power(monkeypatch):
+    """Make mel_power_folded hand mel_spec_feature its (B, T, n_mels) power
+    stored (B, n_mels, T), so that the epilogue gets it mels-major."""
+    folded = mel_kernel.mel_power_folded
+    monkeypatch.setattr(mel_kernel, "mel_power_folded",
+                        lambda *a, **k: folded(*a, **k).transpose(1, 2).contiguous().transpose(1, 2))
+
+
+@pytest.mark.parametrize("n_fft,layout", [(512, "frames"), (512, "mels"), (511, "frames")])
+def test_cpu_feature_meets_golden_in_either_layout(rng, monkeypatch, n_fft, layout):
+    if layout == "mels":
+        _mels_major_power(monkeypatch)
+    seen = []
+    epilogue = tdsp.mel_epilogue
+    monkeypatch.setattr(tdsp, "mel_epilogue", lambda mel, *a: seen.append(mel) or epilogue(mel, *a))
+    y = np.stack([_tone(32000, 700.0), (0.3 * rng.standard_normal(32000)).astype(np.float32)])
+    before = mel_kernel.counter_epilogue.launches
+    ours = mel_kernel.mel_spec_feature(torch.from_numpy(y), n_fft=n_fft).numpy()
+    assert mel_kernel.counter_epilogue.launches == before   # the plain version on a CPU tensor
+    (mel,) = seen
+    assert mel_kernel.epilogue_layout(tuple(mel.shape), mel.stride(), mel.dtype) == layout
+    for i in range(2):
+        assert np.max(np.abs(ours[i] - tgolden.mel_spec_feature(y[i], n_fft=n_fft))) <= TOL
+
+
+def _one_pass_epilogue(mel, lengths, hop):
+    """csrc/mel_epilogue.cu's arithmetic in torch ops: one masked reduction
+    of max S, max L and min L, then the peak, the floor and the range
+    derived from them, then the formula on every frame."""
+    m3 = None if lengths is None else tdsp.frame_mask(mel.shape[-1], lengths, hop)[:, None, :]
+    big = torch.finfo(torch.float32).max
+    L = 10.0 * tdsp.log10_precise(torch.clamp_min(mel, 1e-10))
+
+    def reduce(x, fill, op):
+        return op(x if m3 is None else torch.where(m3, x, fill), dim=(1, 2), keepdim=True)
+
+    s_max, l_max, l_min = reduce(mel, -big, torch.amax), reduce(L, -big, torch.amax), reduce(L, big, torch.amin)
+    ref = 10.0 * tdsp.log10_precise(torch.clamp_min(s_max, 1e-10))
+    peak = l_max - ref
+    floor = peak - 80.0
+    lo, hi = torch.maximum(l_min - ref, floor), torch.maximum(peak, floor)
+    return (torch.maximum(L - ref, floor) - lo) / (hi - lo + 1e-8)
+
+
+def _epilogue_power(rng, batch, n_mels, n_frames, layout):
+    p = np.exp(6.0 * rng.standard_normal((batch, n_frames, n_mels))).astype(np.float32)
+    p[-1] = 0.0   # a clip all on the 1e-10 floor
+    mel = torch.from_numpy(p).transpose(1, 2)
+    return mel if layout == "frames" else mel.contiguous()
+
+
+@pytest.mark.parametrize("layout", ["frames", "mels"])
+@pytest.mark.parametrize("n_mels,n_frames,lengths", [
+    (40, 501, None), (40, 501, [80000, 30001, 0, 79999]), (64, 216, [1, 34000, 160, 170]),
+    (128, 37, [5759, 5760, 100000, -1]),
+])
+def test_one_pass_reduction_equals_the_plain_epilogue_bit_for_bit(rng, layout, n_mels, n_frames, lengths):
+    """The kernel takes the peak and the range from max S, max L and min L
+    alone (rounding and max(x, floor) are monotone): the same numbers as
+    dsp.mel_epilogue's four reductions, padded frames included."""
+    mel = _epilogue_power(rng, 4, n_mels, n_frames, layout)
+    lens = None if lengths is None else torch.tensor(lengths)
+    assert torch.equal(_one_pass_epilogue(mel, lens, 160), tdsp.mel_epilogue(mel, lens, 160))
+
+
+def test_padded_frames_reach_no_valid_frame(rng):
+    """Padded frames take part in no reduction, but are written with the
+    formula of the clip's counted frames (what the kernel must write)."""
+    lengths = torch.tensor([80000, 30001, 4000])
+    mel = _epilogue_power(rng, 3, 40, 501, "frames")
+    out = tdsp.mel_epilogue(mel, lengths, 160)
+    valid = 1 + lengths // 160
+    pad = torch.arange(501)[None, None, :] >= valid[:, None, None]
+    changed = torch.where(pad, mel * torch.from_numpy(rng.uniform(0.0, 1e6, mel.shape).astype(np.float32)), mel)
+    out2 = tdsp.mel_epilogue(changed, lengths, 160)
+    assert torch.equal(out[~pad.expand_as(out)], out2[~pad.expand_as(out2)])
+    assert not torch.equal(out, out2)
+    assert torch.equal(out2, _one_pass_epilogue(changed, lengths, 160))
+    assert float(out2[1, :, int(valid[1]):].max()) > 1.0   # the formula, unclipped, where padding is louder
+
+
+@pytest.mark.parametrize("shape,stride,layout", [
+    ((2, 40, 501), (20040, 1, 40), "frames"),
+    ((2, 40, 501), (20040, 501, 1), "mels"),
+    ((1, 40, 501), (0, 1, 40), "frames"),
+    ((3, 1, 216), (216, 7, 1), "mels"),
+    ((3, 40, 1), (40, 1, 99), "mels"),
+    ((256, 128, 2001), (256128, 1, 128), "frames"),
+])
+def test_epilogue_layout_takes_either_dense_layout(shape, stride, layout):
+    assert mel_kernel.epilogue_layout(shape, stride, torch.float32) == layout
+
+
+@pytest.mark.parametrize("shape,stride,dtype,error", [
+    ((2, 40, 501), (20040, 1, 40), torch.float64, TypeError),
+    ((2, 40, 501), (20040, 501, 1), torch.float16, TypeError),
+    ((2, 40, 501), (20040, 501, 1), torch.bfloat16, TypeError),
+    ((40, 501), (501, 1), torch.float32, ValueError),
+    ((0, 40, 501), (20040, 501, 1), torch.float32, ValueError),
+    ((2, 40, 501), (40080, 1002, 2), torch.float32, ValueError),     # every second frame
+    ((2, 40, 501), (1, 2, 80), torch.float32, ValueError),           # clips interleaved
+    ((2, 40, 501), (20040, 1, 80), torch.float32, ValueError),       # frames-major with a gap
+    ((2, 40, 501), (0, 501, 1), torch.float32, ValueError),          # one clip broadcast
+    ((2, 65536, 32768), (2 ** 31, 32768, 1), torch.float32, ValueError),   # 2^31 values a clip
+])
+def test_epilogue_layout_refuses_what_the_kernel_cannot_take(shape, stride, dtype, error):
+    with pytest.raises(error):
+        mel_kernel.epilogue_layout(shape, stride, dtype)
+
+
+def test_epilogue_lengths_as_the_kernel_reads_them():
+    cpu = torch.device("cpu")
+    same = torch.tensor([80000, 4000], dtype=torch.int64)
+    assert mel_kernel.epilogue_lengths(same, 2, cpu) is same   # what features.base passes: untouched
+    converted = mel_kernel.epilogue_lengths(torch.tensor([80000, 4000], dtype=torch.int32), 2, cpu)
+    assert converted.dtype == torch.int64 and converted.tolist() == [80000, 4000]
+    assert mel_kernel.epilogue_lengths(torch.tensor([5, 0, 7, 0])[::2], 2, cpu).is_contiguous()
+
+
+@pytest.mark.parametrize("lengths,error", [
+    (torch.tensor([8000.0, 4000.0]), TypeError),
+    (torch.tensor([True, False]), TypeError),
+    (torch.tensor([8000, 4000, 100]), ValueError),
+    (torch.tensor([[8000, 4000]]), ValueError),
+])
+def test_epilogue_lengths_refused(lengths, error):
+    with pytest.raises(error):
+        mel_kernel.epilogue_lengths(lengths, 2, torch.device("cpu"))
