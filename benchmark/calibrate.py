@@ -67,8 +67,9 @@ def whole_pool(cell_name: str, seed: int, device: torch.device, top: int = 8, be
     _, _, _, _, entry, traffic, _ = run.prepare(cell_name, seed, device, bench, root)
     batches = -(-traffic.n_clips // traffic.batch)
     with torch.inference_mode():
-        outs = np.concatenate([entry(traffic.waves(i)).cpu().numpy() for i in range(batches)])[:traffic.n_clips]
-    clips = traffic.pool[:traffic.n_clips].cpu().numpy()
+        outs = np.concatenate([np.asarray(torch.as_tensor(entry(traffic.waves(i))).cpu())
+                               for i in range(batches)])[:traffic.n_clips]
+    clips = traffic.clips([(0, r) for r in range(traffic.n_clips)])
     found = []
     for i in range(traffic.n_clips):
         ref = entry.reference(clips[i:i + 1])

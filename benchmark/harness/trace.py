@@ -1,8 +1,8 @@
 """Reduction of a ``torch.profiler`` chrome trace to what the per-layer
-metrics read: device time by operation, the union of device intervals
-(kernels, copies and sets), the idle gaps with what the host was doing in
-them, and the host spans the harness recorded around its calls into the
-program."""
+metrics read: device time by operation, each card's union of device
+intervals (kernels, copies and sets), the idle gaps with what the host was
+doing in them, and the host spans the harness recorded around its calls
+into the program."""
 
 from __future__ import annotations
 
@@ -58,10 +58,20 @@ def _host_at(host: list[dict], t: float) -> str:
     return f"host: {inner['name']}" if inner else "host: outside any traced call"
 
 
-def summarize(path: Path, window: tuple[float, float] | None = None) -> Summary:
+def _card(event: dict) -> int:
+    """The card a device event ran on (its ``args.device``; card 0 without one)."""
+    return int(event.get("args", {}).get("device", 0))
+
+
+def summarize(path: Path, window: tuple[float, float] | None = None, cards: int = 1) -> Summary:
     """``path``'s chrome trace reduced over ``window`` (µs of the trace's
     clock; by default the extent of the harness's ``benchmark.batch``
-    spans, or of every event where there are none)."""
+    spans, or of every event where there are none). ``busy_s`` is the mean
+    over the cell's ``cards`` (cuda:0 on) of each card's own union of
+    device intervals, so a card left idle while another works counts as
+    idle; a card with no events is idle the whole window. The idle gaps are
+    each card's, the longest over all of them, each named by the host's call
+    at its middle, after ``card k · `` where there are several cards."""
     events = [e for e in json.loads(Path(path).read_text())["traceEvents"] if e.get("ph") == "X" and "dur" in e]
     device = [e for e in events if e.get("cat") in DEVICE_CATS]
     host = [e for e in events if e.get("cat") in HOST_CATS]
@@ -71,19 +81,24 @@ def summarize(path: Path, window: tuple[float, float] | None = None) -> Summary:
         window = (min(e["ts"] for e in edge), max(e["ts"] + e["dur"] for e in edge))
     t0, t1 = window
     device = [e for e in device if e["ts"] < t1 and e["ts"] + e["dur"] > t0]
-    merged = [(max(a, t0), min(b, t1)) for a, b in union([(e["ts"], e["ts"] + e["dur"]) for e in device])]
+    busy = 0.0
+    gaps: list[tuple[float, float, int]] = []
+    for card in range(cards):
+        merged = [(max(a, t0), min(b, t1))
+                  for a, b in union([(e["ts"], e["ts"] + e["dur"]) for e in device if _card(e) == card])]
+        busy += covered(merged, t0, t1)
+        edges = [t0, *[x for ab in merged for x in ab], t1]
+        gaps += [(a, b, card) for a, b in zip(edges[::2], edges[1::2]) if b > a]
     ops: dict[str, list] = {}
     for e in device:
         op = ops.setdefault(e["name"], [0.0, 0])
         op[0] += e["dur"] * 1e-6
         op[1] += 1
-    edges = [t0, *[x for ab in merged for x in ab], t1]
-    gaps = [(a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a]
     gaps.sort(key=lambda g: g[0] - g[1])
-    named = [(_host_at(host, (a + b) / 2), (b - a) * 1e-6) for a, b in gaps[:10]]
+    named = [(("" if cards == 1 else f"card {k} · ") + _host_at(host, (a + b) / 2), (b - a) * 1e-6)
+             for a, b, k in gaps[:10]]
     spans: dict[str, list[float]] = {}
     for e in host:
         if e.get("cat") == "user_annotation" and e["name"].startswith(SPAN_PREFIX):
             spans.setdefault(e["name"][len(SPAN_PREFIX):], []).append(e["dur"] * 1e-6)
-    return Summary(window_s=(t1 - t0) * 1e-6, busy_s=covered(merged, t0, t1) * 1e-6, device_ops=ops, gaps=named,
-                   spans=spans)
+    return Summary(window_s=(t1 - t0) * 1e-6, busy_s=busy / cards * 1e-6, device_ops=ops, gaps=named, spans=spans)

@@ -7,7 +7,9 @@ power written once, float32) over the HBM rate and its operations at their
 least over the peak of their type: per frame the Hann window (n_fft
 multiplies), a real FFT at the nominal 2.5 n_fft log2(n_fft) FLOP, the
 power (3 a bin) and the mel product over the bank's nonzeros (2 each). The
-configuration's ``mel_power`` gives the shape each batch's call runs at.
+configuration's ``mel_power`` gives the shape each batch's call runs at;
+a mix that splits each batch over ``cards`` cards (1 by default) launches
+the kernel once a card, on ``batch // cards`` rows.
 """
 
 import numpy as np
@@ -29,14 +31,19 @@ def mel_folded_bound(batch: int, n: int, n_fft: int, mel_nonzeros: int, hop: int
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", float(flops)
 
 
-def bound(config: dict, mix: dict) -> tuple[float, str, float]:
-    """``mel_folded_bound`` of one batch of the cell."""
+def bound(config: dict, mix: dict, rows: int | None = None) -> tuple[float, str, float]:
+    """``mel_folded_bound`` of ``rows`` clips of the cell, by default one batch."""
     m = config["mel_power"]
     sr = m["sample_rate"]
     nonzeros = int(np.count_nonzero(librosa_ref.mel_filterbank(sr, m["n_fft"], m["n_mels"])))
     peak = F64_PEAK if m["type"] == "float64" else F32_PEAK
-    return mel_folded_bound(int(mix["batch"]), int(round(mix["clip_seconds"] * sr)), m["n_fft"], nonzeros,
-                            m["hop_length"], m["n_mels"], peak)
+    return mel_folded_bound(int(mix["batch"]) if rows is None else rows, int(round(mix["clip_seconds"] * sr)),
+                            m["n_fft"], nonzeros, m["hop_length"], m["n_mels"], peak)
+
+
+def launch_rows(mix: dict) -> int:
+    """The clips one launch covers: a batch, or one card's part of it."""
+    return int(mix["batch"]) // int(mix.get("cards", 1))
 
 
 def read(ctx):
@@ -45,4 +52,4 @@ def read(ctx):
     seconds, launches = ctx.trace.kernels_matching(KERNELS)
     if launches == 0:
         return None
-    return 100.0 * bound(ctx.config, ctx.mix)[0] * 1e-3 / (seconds / launches)
+    return 100.0 * bound(ctx.config, ctx.mix, launch_rows(ctx.mix))[0] * 1e-3 / (seconds / launches)

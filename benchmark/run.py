@@ -121,10 +121,13 @@ def prepare(name: str, seed: int, device: torch.device, bench: Path = files.BENC
 
 def run_cell(args: argparse.Namespace, device: torch.device, t0: float, bench: Path = files.BENCH,
              root: Path = files.ROOT) -> Run:
-    """One run of the cell on ``device``."""
+    """One run of the cell on ``device`` (cuda:0 of the cell's ``chips``
+    cards, or the CPU)."""
     t_start = time.perf_counter()
     spec, cell, config, mix, entry, traffic, build_s = prepare(args.workload, args.seed, device, bench, root)
     cuda = device.type == "cuda"
+    chips = int(cell["chips"])
+    cards = [torch.device("cuda", k) for k in range(chips)] if cuda else []
     t_prepared = time.perf_counter()
     traffic.warm(entry)
     prof = None
@@ -132,22 +135,22 @@ def run_cell(args: argparse.Namespace, device: torch.device, t0: float, bench: P
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]
                                       + ([torch.profiler.ProfilerActivity.CUDA] if cuda else []))
         prof.start()
-    if cuda:
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
+    for card in cards:
+        torch.cuda.synchronize(card)
+        torch.cuda.reset_peak_memory_stats(card)
     sampler = judge.Sampler(int(cell["check_rows"]), args.seed)
     setup_s = time.perf_counter() - t0
     setup = {"imports": t_start - t0, "build": build_s, "entry_and_pool": t_prepared - t_start - build_s,
              "warm_up": setup_s - (t_prepared - t0)}
     window = traffic.run(entry, args.seconds, sampler, prof, int(cell["trace_batches"]))
-    memory_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    memory_peak = max((torch.cuda.max_memory_allocated(card) for card in cards), default=0)   # the fullest card
 
     ctx = Context(cell, config, mix, setup_s, window)
     if prof is not None:
         with tempfile.TemporaryDirectory(prefix="benchmark-trace-") as tmp:
             path = Path(tmp) / "trace.json"
             prof.export_chrome_trace(str(path))
-            ctx.trace = trace.summarize(path)
+            ctx.trace = trace.summarize(path, cards=chips)
         ctx.trace_batches = min(int(cell["trace_batches"]), window.batches)
         del prof
 
@@ -169,7 +172,7 @@ def run_cell(args: argparse.Namespace, device: torch.device, t0: float, bench: P
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     dev = {"platform": "gpu" if cuda else device.type, "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
-           "count": int(cell["chips"]), "memory_peak_bytes": int(memory_peak), "build_s": build_s}
+           "count": chips, "memory_peak_bytes": int(memory_peak), "build_s": build_s}
     if ctx.trace is not None:
         dev.update(busy_s=ctx.trace.busy_s, window_s=ctx.trace.window_s)
     result = {"correct": bool(ok and failed == 0 and window.batches > 0), "attempted": window.batches,

@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -49,7 +50,8 @@ def test_untraced_line(bench, cell):
     assert set(r["metrics"]) == {"clips_per_s", "batch_ms_p95", "setup_s"}
     assert all(set(m) == {"value", "unit"} and m["value"] > 0 for m in r["metrics"].values())
     assert set(r["device"]) == {"platform", "kind", "count", "memory_peak_bytes", "build_s"}
-    assert r["device"]["count"] == 1 and r["device"]["build_s"] == 0.0
+    chips = files.load_json("workloads", cell, bench)["chips"]
+    assert r["device"]["count"] == chips and r["device"]["build_s"] == 0.0
     json.dumps(r)
 
 
@@ -74,24 +76,39 @@ def test_control_fails_and_program_passes(bench, cell):
         assert program[key] <= limits[key] < control[key], (seed, program[key], control[key])
 
 
+# The faults take and give what the entry does: a card's tensor, or host
+# NumPy where the entry feeds the program from the host (split_extractor).
+def _fresh(out):
+    return out.copy() if isinstance(out, np.ndarray) else out.clone(memory_format=torch.contiguous_format)
+
+
 def _half_left_out(call, waves):
     out = call(waves[: len(waves) // 2])
-    return torch.cat([out, out])[: len(waves)]
+    return (np.concatenate if isinstance(out, np.ndarray) else torch.cat)([out, out])[: len(waves)]
 
 
 def _answer_altered(call, waves):
-    out = call(waves).clone(memory_format=torch.contiguous_format)
-    out.view(out.shape[0], -1)[:, 0] += 1e-2 * out.abs().amax()
+    out = _fresh(call(waves))
+    out.reshape(out.shape[0], -1)[:, 0] += 1e-2 * abs(out).max()
     return out
 
 
 def _not_finite(call, waves):
-    out = call(waves).clone(memory_format=torch.contiguous_format)
-    out.view(-1)[-1] = float("nan")
+    out = _fresh(call(waves))
+    out.reshape(-1)[-1] = float("nan")
     return out
 
 
-@pytest.mark.parametrize("fault", [_half_left_out, _answer_altered, _not_finite], ids=lambda f: f.__name__)
+def _parts_rotated(call, waves):
+    """A quarter of the rows moved round: over four cards, each card's part
+    gathered into the next card's place."""
+    out = call(waves)
+    shift = len(waves) // 4
+    return np.roll(out, shift, axis=0) if isinstance(out, np.ndarray) else torch.roll(out, shift, dims=0)
+
+
+@pytest.mark.parametrize("fault", [_half_left_out, _answer_altered, _not_finite, _parts_rotated],
+                         ids=lambda f: f.__name__)
 @pytest.mark.parametrize("cell", tiny.CELLS)
 def test_fault_is_caught(bench, cell, fault, monkeypatch):
     _plant(monkeypatch, bench, cell, fault)
@@ -118,6 +135,23 @@ def test_rolloff_moved_two_frames_is_caught(bench, monkeypatch):
     assert not r["correct"] and r["checks"]["classical_gap"]["value"] > r["checks"]["classical_gap"]["limit"]
 
 
+def test_host_pool_holds_the_device_pools_clips(bench):
+    """host_chunks feeds the clips closed_batches keeps on the device, from
+    the same seed, as pageable float32 host rows, in the same batches."""
+    from benchmark.traffic import closed_batches, host_chunks
+
+    config = files.load_json("configs", "fsc22-mel-cnn", bench)
+    mix = files.load_json("traffic", "extract-4card-b256", bench)
+    host = host_chunks.Traffic(mix, config, 3_000_000_023, CPU)
+    device = closed_batches.Traffic(mix, config, 3_000_000_023, CPU)
+    assert isinstance(host.pool, np.ndarray) and host.pool.dtype == np.float32
+    assert np.array_equal(host.pool, device.pool.numpy())
+    for i in range(4):
+        assert np.array_equal(host.waves(i), device.waves(i).numpy())
+    picks = [(0, 1), (3, 2), (7, 0)]
+    assert np.array_equal(host.clips(picks), device.clips(picks))
+
+
 def test_refuses_without_a_card_or_the_program(tmp_path):
     """No card (here), or a directory with the benchmark and nothing else:
     a code other than 0 and no result line."""
@@ -137,6 +171,7 @@ def test_a_run_imports_no_jax(bench):
             f"from benchmark.tests import tiny; from pathlib import Path; b = Path({str(bench)!r}); "
             "run.run_cell(tiny.args('mel-cnn.score-b32'), torch.device('cpu'), 0.0, b, b.parent); "
             "run.run_cell(tiny.args('feat22.classical-b256', trace=1), torch.device('cpu'), 0.0, b, b.parent); "
+            "run.run_cell(tiny.args('mel-cnn.extract-4card'), torch.device('cpu'), 0.0, b, b.parent); "
             "print(run.forbidden_modules(), 'audio_edge_ml_pipeline_torch' in sys.modules)")
     p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
                        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})

@@ -104,6 +104,12 @@ def test_mel_bound_by_hand():
     ms22, what22, flops22 = mel.bound(cfg22, mix22)
     assert flops22 == 256 * 216 * (1024 + 25600 + 3 * 513 + 2 * 1008)
     assert what22 == "bytes" and ms22 == pytest.approx(1e3 * 4 * (256 * 110250 + 256 * 216 * 128) / 3.35e12)
+    # a batch of 256 split over 4 cards: one launch a card, on 64 clips
+    mix4 = files.load_json("traffic", "extract-4card-b256")
+    assert mel.launch_rows(mix4) == 64 and mel.launch_rows(mix) == 32
+    ms4, what4, flops4 = mel.bound(cfg, mix4, mel.launch_rows(mix4))
+    assert flops4 == 64 * 501 * 13783
+    assert what4 == "bytes" and ms4 == pytest.approx(1e3 * 4 * (64 * 80000 + 64 * 501 * 40) / 3.35e12)
 
 
 def test_step_flops_by_hand():
@@ -135,6 +141,40 @@ def test_trace_summary(tmp_path):
     assert [g[0] for g in s.gaps] == ["host: cudaEventSynchronize"] * 2 + ["host: aten::mul"]
     assert [g[1] for g in s.gaps] == [pytest.approx(20e-6), pytest.approx(20e-6), pytest.approx(10e-6)]
     assert "outside" not in s.device_ops and len(s.breakdown()["device_ops"]) == 3
+
+
+def test_trace_summary_per_card(tmp_path):
+    """Two cards: each card's busy time and idle gaps on its own, busy_s
+    their mean, device time by name summed over both; a third card with no
+    events is idle the whole window."""
+    ev = [
+        {"ph": "X", "cat": "user_annotation", "name": "benchmark.batch", "ts": 0, "dur": 100},
+        {"ph": "X", "cat": "user_annotation", "name": "benchmark.entry", "ts": 1, "dur": 89},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::copy_", "ts": 2, "dur": 10},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ts": 40, "dur": 30},
+        {"ph": "X", "cat": "cuda_runtime", "name": "cudaStreamSynchronize", "ts": 70, "dur": 25},
+        {"ph": "X", "cat": "kernel", "name": "mel_rfft_kernel", "ts": 10, "dur": 30, "args": {"device": 0}},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH", "ts": 60, "dur": 10, "args": {"device": 0}},
+        {"ph": "X", "cat": "kernel", "name": "mel_rfft_kernel", "ts": 50, "dur": 30, "args": {"device": 1}},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH", "ts": 85, "dur": 5, "args": {"device": 1}},
+        {"ph": "X", "cat": "kernel", "name": "outside", "ts": 150, "dur": 10, "args": {"device": 0}},
+    ]
+    (tmp_path / "t.json").write_text(json.dumps({"traceEvents": ev}))
+    s = trace.summarize(tmp_path / "t.json", cards=2)
+    # card 0 busy 10-40 and 60-70 (40 µs), card 1 50-80 and 85-90 (35 µs)
+    assert s.window_s == pytest.approx(100e-6) and s.busy_s == pytest.approx(37.5e-6)
+    assert s.device_ops == {"mel_rfft_kernel": [pytest.approx(60e-6), 2], "Memcpy DtoH": [pytest.approx(15e-6), 2]}
+    # gaps, longest first (ties in card order): card 1 0-50, card 0 70-100, 40-60, 0-10, card 1 90-100, 80-85
+    assert s.gaps == [("card 1 · host: benchmark.entry", pytest.approx(50e-6)),
+                      ("card 0 · host: cudaStreamSynchronize", pytest.approx(30e-6)),
+                      ("card 0 · host: cudaMemcpyAsync", pytest.approx(20e-6)),
+                      ("card 0 · host: aten::copy_", pytest.approx(10e-6)),
+                      ("card 1 · host: benchmark.batch", pytest.approx(10e-6)),
+                      ("card 1 · host: cudaStreamSynchronize", pytest.approx(5e-6))]
+    three = trace.summarize(tmp_path / "t.json", cards=3)
+    assert three.busy_s == pytest.approx(25e-6) and three.gaps[0] == ("card 2 · host: cudaMemcpyAsync",
+                                                                      pytest.approx(100e-6))
+    assert len(three.gaps) == 7 and three.device_ops == s.device_ops
 
 
 def test_sampler_is_uniform_and_seeded():
